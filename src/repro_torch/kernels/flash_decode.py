@@ -1,0 +1,143 @@
+"""``repro_torch::flash_decode``: single-token GQA attention over a KV cache.
+
+Replaces the Pallas TPU kernel ``flash_decode`` of
+``src/repro/kernels/flash_decode.py`` (body ``_kernel``). The op is a
+``torch.library`` custom op:
+
+* CUDA: the hand-written Hopper kernel ``csrc/flash_decode.cu`` (built
+  for ``sm_90a`` at first use, see ``kernels/build.py``). A tensor on the
+  card never reaches the plain version: a build or launch failure raises;
+* CPU: the plain ``kernels/ref.flash_decode_ref``;
+* fake: shape and dtype only, so ``make_fx`` traces the op as ONE node,
+  as a ``pallas_call`` is one jaxpr equation.
+
+Layout: q ``(B, KV, G, D)`` contiguous; k/v cache ``(B, T, KV, D)`` with
+any batch, position and head strides and a contiguous head dimension —
+the cache is a view into the engine's state buffer, whose batch stride
+is the state plan's slot stride, and it is never copied to make it
+contiguous. lengths ``(B,)`` int32, read on the device, each >= 1.
+
+``LAUNCHES`` counts kernel launches (the CUDA path only).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_decode_ref
+
+LAUNCHES = 0
+
+HEAD_DIMS = (64, 128)
+GROUP_SIZES = (1, 2, 4, 8)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = build.load("flash_decode").flash_decode_launch
+        fn.argtypes = (
+            [ctypes.c_int] * 6
+            + [ctypes.c_void_p] * 5
+            + [ctypes.c_int64] * 6
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def check_inputs(q, k_cache, v_cache, lengths) -> None:
+    """What the kernel takes; raises ``ValueError`` on anything else."""
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"flash_decode: q {tuple(q.shape)} must be (B,KV,G,D) and k/v "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)} equal (B,T,KV,D)"
+        )
+    B, KV, G, D = q.shape
+    if (k_cache.shape[0], k_cache.shape[2], k_cache.shape[3]) != (B, KV, D):
+        raise ValueError(
+            f"flash_decode: cache {tuple(k_cache.shape)} does not match q "
+            f"{tuple(q.shape)}"
+        )
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError("flash_decode: lengths must be int32 of shape (B,)")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"flash_decode: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}; "
+            f"one of float32, bfloat16 expected"
+        )
+    if D not in HEAD_DIMS or G not in GROUP_SIZES:
+        raise ValueError(
+            f"flash_decode: head_dim {D} (of {HEAD_DIMS}) and group size "
+            f"{G} (of {GROUP_SIZES}) are what the kernel is built for"
+        )
+
+
+def _check_cuda_layout(q, k_cache, v_cache, lengths) -> None:
+    vec = 16 // q.element_size()  # elements per 16-byte load
+    if not q.is_contiguous():
+        raise ValueError("flash_decode: q must be contiguous")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.stride(3) != 1 or any(c.stride(i) % vec for i in range(3)):
+            raise ValueError(
+                f"flash_decode: {name} strides {c.stride()} must keep the "
+                f"head dimension contiguous and 16-byte aligned rows"
+            )
+    for t in (q, k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_decode: tensors must be 16-byte aligned")
+    dev = q.device
+    if any(t.device != dev for t in (k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode: all inputs must be on one device")
+
+
+def _flash_decode_cuda(q, k_cache, v_cache, lengths):
+    global LAUNCHES
+    check_inputs(q, k_cache, v_cache, lengths)
+    _check_cuda_layout(q, k_cache, v_cache, lengths)
+    B, KV, G, D = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(
+        _DTYPE_CODE[q.dtype], B, KV, G, D, k_cache.shape[1],
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        1.0 / D ** 0.5, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_decode: kernel launch failed (cudaError {err})")
+    LAUNCHES += 1
+    return out
+
+
+def _flash_decode_cpu(q, k_cache, v_cache, lengths):
+    check_inputs(q, k_cache, v_cache, lengths)
+    return flash_decode_ref(q, k_cache, v_cache, lengths)
+
+
+def _flash_decode_fake(q, k_cache, v_cache, lengths):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define(
+    "flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths)"
+    " -> Tensor"
+)
+_LIB.impl("flash_decode", _flash_decode_cuda, "CUDA")
+_LIB.impl("flash_decode", _flash_decode_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_decode")(_flash_decode_fake)
+
+
+def flash_decode(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """(B, KV, G, D) attention output in q's dtype."""
+    return torch.ops.repro_torch.flash_decode(q, k_cache, v_cache, lengths)

@@ -1,0 +1,55 @@
+"""The port stands alone: no module of ``repro_torch`` and not the root
+``chip_smoke.py`` imports JAX or anything of the reference package."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("modules=%d" % len(list(
+    pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))))
+print("leaked=" + ",".join(leaked))
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT}"},
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    result = dict(line.split("=", 1) for line in out.stdout.splitlines() if "=" in line)
+    assert int(result["modules"]) >= 20
+    assert result["leaked"] == "", f"imported: {result['leaked']}"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)|from\s+(jax|jaxlib|repro)\b(?!_torch))",
+    re.MULTILINE,
+)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_no_source_imports_jax_or_the_reference(path):
+    assert not _FORBIDDEN.findall((ROOT / path).read_text()), path

@@ -1,0 +1,133 @@
+"""The port's ``flash_decode`` against the JAX package's oracle.
+
+On the CPU the port's op runs its plain version (``kernels/ref.py``);
+these tests hold that plain version — directly and through the
+``repro_torch::flash_decode`` op — against ``repro.kernels.ref``, on the
+cases of ``tests/test_kernels.py`` plus a cache that is a strided view
+into a state buffer. The CUDA kernel itself runs only on the card: its
+cases are in ``tests/test_torch_cuda.py`` (no JAX) and
+in ``chip_smoke.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ref import flash_decode_ref as jax_flash_decode_ref  # noqa: E402
+from repro_torch.bridge import tensor_from_numpy  # noqa: E402
+from repro_torch.configs.base import get_reduced  # noqa: E402
+from repro_torch.core.unified import plan_state, state_records_from_cache  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels.ref import flash_decode_ref  # noqa: E402
+from repro_torch.models.transformer import init_cache  # noqa: E402
+from repro_torch.runtime.residency import StateResidency  # noqa: E402
+
+CASES = [
+    (2, 2, 2, 64, 256),
+    (1, 1, 4, 128, 300),  # T not a multiple of a tile
+    (3, 4, 1, 64, 128),  # MHA (G=1)
+    (2, 1, 8, 64, 1024),  # MQA-ish, long cache
+]
+TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+
+
+def _as_dtype(x: np.ndarray, dtype: str) -> np.ndarray:
+    """numpy float32 -> the dtype's numpy array (bfloat16 via jnp, so
+    both frameworks get identical bits)."""
+    return np.asarray(jnp.asarray(x).astype(dtype))
+
+
+def _mk(seed, B, KV, G, D, T, dtype):
+    rng = np.random.default_rng(seed)
+    q = _as_dtype(rng.standard_normal((B, KV, G, D), np.float32) * 0.5, dtype)
+    k = _as_dtype(rng.standard_normal((B, T, KV, D), np.float32) * 0.5, dtype)
+    v = _as_dtype(rng.standard_normal((B, T, KV, D), np.float32) * 0.5, dtype)
+    lengths = rng.integers(1, T + 1, size=B).astype(np.int32)
+    return q, k, v, lengths
+
+
+def _torch(*arrays):
+    return [tensor_from_numpy(a, "cpu") for a in arrays]
+
+
+def _assert_close(got: torch.Tensor, want, tol):
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,KV,G,D,T", CASES)
+def test_flash_decode_ref_matches_jax_oracle(B, KV, G, D, T, dtype):
+    q, k, v, lengths = _mk(0, B, KV, G, D, T, dtype)
+    want = jax_flash_decode_ref(q, k, v, lengths)
+    tq, tk, tv, tl = _torch(q, k, v, lengths)
+    _assert_close(flash_decode_ref(tq, tk, tv, tl), want, TOL[dtype])
+    # the custom op on a CPU tensor is the plain version
+    _assert_close(fd.flash_decode(tq, tk, tv, tl), want, TOL[dtype])
+
+
+def test_flash_decode_short_lengths():
+    """Rows with length=1 attend to exactly one position."""
+    B, KV, G, D, T = 2, 1, 2, 64, 256
+    q, k, v, _ = _mk(1, B, KV, G, D, T, "float32")
+    lengths = np.array([1, T], np.int32)
+    got = fd.flash_decode(*_torch(q, k, v, lengths))
+    np.testing.assert_allclose(
+        got[0, 0].numpy(), np.broadcast_to(v[0, 0, 0], (G, D)), rtol=1e-5, atol=1e-5
+    )
+    _assert_close(got, jax_flash_decode_ref(q, k, v, lengths), TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_on_a_strided_residency_view(dtype):
+    """The served cache is a view into the one state buffer: its batch
+    stride is the state plan's slot stride, larger than T*KV*D."""
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), n_periods=2, dtype=dtype)
+    n_slots, T = 3, 40
+    template = init_cache(cfg, n_slots, T, "meta")
+    plan = plan_state(state_records_from_cache(template, n_slots=n_slots),
+                      n_slots=n_slots, max_len=T)
+    res = StateResidency(plan, template, n_slots=n_slots)
+    buf = res.init_buffer("cpu")
+    flat = buf.view(getattr(torch, dtype))
+    rng = np.random.default_rng(2)
+    fill = rng.standard_normal(flat.numel(), np.float32) * 0.5
+    flat.copy_(tensor_from_numpy(_as_dtype(fill, dtype), "cpu"))
+    caches = res.views(buf)
+    k, v = caches["period"][0]["attn"][0][1], caches["period"][0]["attn"][1][1]
+    KV, D = k.shape[2], k.shape[3]
+    assert k.stride(0) == plan.slot_stride // k.element_size() > T * KV * D
+    G = cfg.n_heads // cfg.n_kv_heads
+    q = _as_dtype(rng.standard_normal((n_slots, KV, G, D), np.float32), dtype)
+    lengths = np.array([1, 17, T], np.int32)
+    # the oracle reads the same values, copied out contiguous (bf16 -> f32
+    # -> bf16 is exact)
+    want = jax_flash_decode_ref(
+        q, _as_dtype(k.float().numpy(), dtype), _as_dtype(v.float().numpy(), dtype),
+        lengths,
+    )
+    tq, tl = _torch(q, lengths)
+    _assert_close(fd.flash_decode(tq, k, v, tl), want, TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "bad", ["head_dim", "group", "lengths_dtype", "dtype_mix"]
+)
+def test_flash_decode_refuses_what_the_kernel_does_not_take(bad):
+    q, k, v, lengths = _torch(*_mk(3, 2, 2, 2, 64, 32, "float32"))
+    if bad == "head_dim":
+        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    elif bad == "group":
+        q = torch.cat([q, q[:, :, :1]], dim=2)
+    elif bad == "lengths_dtype":
+        lengths = lengths.long()
+    else:
+        k = k.double()
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k, v, lengths)
