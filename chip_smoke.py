@@ -4,29 +4,56 @@ NVIDIA Hopper card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Phases, each printing one JSON line (any failed check exits non-zero):
+Phases, each printing JSON lines (any failed check exits non-zero):
 
-1. device   — the card's name and power limit (nvidia-smi), capability 9.0;
-2. build    — compile every kernel of the served path from ``kernels/csrc``;
-3. kernels  — hold each kernel against its plain PyTorch version computed
-              in fp32 on the same inputs (the CPU test cases, a length-1 row,
-              a cache that is a strided view into a state buffer, and the
-              serving shape), and time the kernel, the plain version and one
-              PyTorch library call with CUDA events (median of 100 runs, L2
-              flushed before each run);
-4. parity   — a full-width 2-layer fp32 engine served twice from one seed,
-              with the kernel attention and with the plain attention: greedy
-              tokens identical, logits within 1e-4;
-5. serve    — ``repro_torch.launch.serve.run`` on full-width qwen3-0.6b (28
-              layers, bf16) with 8 slots x 2048 positions and 8 requests: all
-              finish, the state is one buffer of exactly the planned size that
-              never moves, and the kernel ran on every layer of every step;
-6. profile  — the same engine on 8 more requests: 8 steady waves timed,
-              8 more under torch.profiler (device time per wave, its share
-              of the wall time, kernel launches per wave, top kernels).
+1. device    — the card's name and power limit (nvidia-smi), capability 9.0;
+2. build     — compile every kernel from ``kernels/csrc``, one ``nvcc`` per
+               source, all started together;
+3. kernels   — hold each kernel against its plain PyTorch version computed
+               in fp32 on the same inputs, and time the kernel, the plain
+               version and (where one exists) one PyTorch library call with
+               CUDA events (median of 100 runs, L2 flushed before each run).
+               ``flash_decode``: the CPU test cases, a length-1 row, a cache
+               that is a strided view into a state buffer, and the serving
+               shape. ``ssd_chunk``: the CPU test cases (slow decay
+               included) in fp32 and bf16, and mamba2-2.7b's prefill chunk
+               (L=256, H=80, P=64, N=128, bf16, B/C one group at head
+               stride 0) with the original and a slow decay;
+4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
+               seed, with the kernel attention and with the plain
+               attention: greedy tokens identical, logits within 1e-4;
+5. serve     — ``repro_torch.launch.serve.run`` on full-width qwen3-0.6b (28
+               layers, bf16) with 8 slots x 2048 positions and 8 requests: all
+               finish, the state is one buffer of exactly the planned size that
+               never moves, and flash_decode ran on every layer of every step;
+6. profile   — the same engine on 8 more requests: 8 steady waves timed,
+               8 more under torch.profiler (device time per wave, its share
+               of the wall time, kernel launches per wave, top kernels);
+7. prefill_parity — a full-width 2-layer fp32 mamba2 prefilled at 600 tokens
+               (3 chunks, the last padded) with the kernel SSD core and with
+               the plain one, at the random init's decay and at a slow one
+               (the state carried between chunks far above the bar, and
+               dropping it misses by over 100x the bar): last logits and
+               both state leaves agree; then prefill(t[:n]) + 4 decode
+               steps agrees with forward(t);
+8. prefill   — full-width mamba2-2.7b (64 layers, bf16) prefills one request
+               of 2048 tokens through ``Model.prefill``: ssd_chunk launched
+               exactly 8 x 64 = 512 times, finite logits, wall and kernel
+               device time, and the planned prefill arena of
+               ``launch.compile.trace_prefill_graph`` beside the caching
+               allocator's peak;
+9. serve_mamba — ``serve.run`` on full-width mamba2-2.7b with 8 slots and 8
+               requests of 32 prompt + 64 new tokens: all finish, and the
+               state is one buffer of exactly the planned size that never
+               moves.
+
+Every path runs at its full depth. The kernel counts are set to 0 just
+before each path (phases 5, 8, 9) and read just after it.
 
 The last three lines are the card's name and power limit, the per-kernel
-record and the ``ok`` line.
+record and the ``ok`` line. ``--phases`` runs a subset (no final lines), and
+``--keep-going`` makes the kernels phase check every case before it fails
+(``chip_faults.py`` uses both on copies of the tree with planted faults).
 """
 
 from __future__ import annotations
@@ -49,16 +76,34 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:69",
     ),
+    "ssd_chunk": (
+        "cuda",
+        "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:49",
+    ),
 }
 FP32_CUDA_CORE_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 # queries at 8x the cache's spread: scores of std 2 at any D, so the softmax
 # is peaked and the output is O(0.1) even over 2048 positions
 Q_STD = 4.0
 DEVICE = "cuda"
 
 
+# --keep-going: the kernels phase records failed cases here and fails at
+# its end instead of at the first one
+KEEP_GOING = False
+FAILED_CASES: list[str] = []
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def fail_case(label: str, msg: str) -> None:
+    if not KEEP_GOING:
+        fail(msg)
+    FAILED_CASES.append(label)
 
 
 def emit(obj: dict) -> None:
@@ -195,8 +240,9 @@ def phase_kernels(peak_bw: float) -> dict:
               "max_abs_out": float(want.abs().max()),
               "atol": atol, "rtol": rtol, "ok": ok})
         if not ok:
-            fail(f"flash_decode {label}: max abs err {float(err.max())} over "
-                 f"{atol} + {rtol} * |want|")
+            fail_case(f"flash_decode/{label}/{q.dtype}",
+                      f"flash_decode {label}: max abs err {float(err.max())} "
+                      f"over {atol} + {rtol} * |want|")
         return float(err.max())
 
     cases = [(2, 2, 2, 64, 256), (1, 1, 4, 128, 300), (3, 4, 1, 64, 128),
@@ -274,8 +320,150 @@ def phase_kernels(peak_bw: float) -> dict:
         emit(row)
         record[label] = row
     del buf, caches
-    emit({"phase": "kernels", "checked": list(KERNELS)})
     return record["serving_full"]
+
+
+# ssd_chunk cases: (B, L, H, P, N) and the decay; the CPU test cases of
+# tests/test_torch_ssd.py, one group broadcast over the heads, and the
+# prefill chunk of mamba2-2.7b
+SSD_CASES = {
+    "kernels_0": ((2, 64, 2, 32, 16), "original", False),
+    "kernels_1": ((1, 128, 4, 64, 128), "original", False),
+    "kernels_2": ((2, 256, 1, 64, 64), "original", False),
+    "ragged_L33": ((2, 33, 3, 64, 128), "original", False),
+    "L1": ((3, 1, 2, 8, 4), "original", False),
+    "slow_L256": ((1, 256, 4, 64, 128), "slow", False),
+    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
+    "one_group_L96": ((1, 96, 4, 32, 16), "original", True),
+    "one_group_slow_L96": ((1, 96, 4, 32, 16), "slow", True),
+}
+# (x/B/C dtype, state dtype): every pair the kernel builds. fp32; bf16 x
+# with an fp32 state (as tests/test_kernels.py passes it); bf16 throughout
+# (as the model does); fp32 x with a bf16 state
+SSD_DTYPES = (("float32", "float32"), ("bfloat16", "float32"),
+              ("bfloat16", "bfloat16"), ("float32", "bfloat16"))
+
+
+def ssd_inputs(gen, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
+    """The distributions of tests/test_kernels.py ("original": dA =
+    -exp(0.3 z)·dt, ~-0.7 per position) or dA uniform in [-0.02, -0.001]
+    ("slow"). With ``one_group``, x, B and C are slices of one (B, L,
+    H·P + 2N) buffer, as the model's conv output, and B and C reach the
+    heads through a head stride of 0."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    xd, sd = getattr(torch, x_dtype), getattr(torch, state_dtype)
+    dt = F.softplus(randn(B, L, H))
+    if decay == "slow":
+        dA = -(torch.rand((B, L, H), generator=gen, device=DEVICE) * 0.019 + 0.001)
+    else:
+        dA = -torch.exp(randn(B, L, H) * 0.3) * dt
+    if one_group:
+        xbc = (randn(B, L, H * P + 2 * N) * 0.5).to(xd)
+        x = xbc[..., : H * P].unflatten(-1, (H, P))
+        Bm = xbc[..., H * P : H * P + N][:, :, None].expand(B, L, H, N)
+        Cm = xbc[..., H * P + N :][:, :, None].expand(B, L, H, N)
+    else:
+        x = (randn(B, L, H, P) * 0.5).to(xd)
+        Bm = (randn(B, L, H, N) * 0.5).to(xd)
+        Cm = (randn(B, L, H, N) * 0.5).to(xd)
+    state = (randn(B, H, P, N) * 0.5).to(sd)
+    return x, dt, dA, Bm, Cm, state
+
+
+def phase_kernels_ssd(peak_bw: float) -> dict:
+    """ssd_chunk against its plain version computed in fp32 on the same
+    inputs. Bars, as atol + rtol·|want|: an fp32 output 1e-5 + 1e-5·|want|
+    (fp32 summation order); a bf16 output adds one rounding to bf16, at
+    most 2**-8·|want|. The control is the plain version in the working
+    dtypes, which rounds its outputs once as well."""
+    import torch
+
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.ref import ssd_chunk_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 1e-5 + 2.0**-8)}
+
+    def check(label, inputs):
+        x, dt, dA, Bm, Cm, state = inputs
+        got = sc.ssd_chunk(*inputs)
+        want = ssd_chunk_ref(x.float(), dt, dA, Bm.float(), Cm.float(), state.float())
+        control = ssd_chunk_ref(*inputs)
+        torch.cuda.synchronize()
+        row = {"phase": "kernels", "kernel": "ssd_chunk", "case": label,
+               "shape": list(x.shape) + [Bm.shape[-1]],
+               "dtype": str(x.dtype).removeprefix("torch."),
+               "state_dtype": str(state.dtype).removeprefix("torch.")}
+        ok, worst = True, 0.0
+        for name, g, w, c in zip(("y", "new_state"), got, want, control):
+            err = (g.float() - w).abs()
+            atol, rtol = tol[g.dtype]
+            bar_ratio = float((err / (atol + rtol * w.abs())).max())
+            row[name] = {"max_abs_err": float(err.max()),
+                         "control_max_abs_err": float((c.float() - w).abs().max()),
+                         "max_abs_out": float(w.abs().max()),
+                         "err_over_bar": bar_ratio, "atol": atol, "rtol": rtol}
+            ok = ok and bar_ratio <= 1.0
+            worst = max(worst, float(err.max()))
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            fail_case(f"ssd_chunk/{label}/{row['dtype']}/{row['state_dtype']}",
+                      f"ssd_chunk {label}: error over its bar ({row})")
+        return worst
+
+    for x_dtype, state_dtype in SSD_DTYPES:
+        for label, (shape, decay, one_group) in SSD_CASES.items():
+            check(label, ssd_inputs(gen, *shape, decay, one_group, x_dtype,
+                                    state_dtype))
+
+    # the prefill chunk of full-width mamba2-2.7b, as mamba_prefill passes it
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.ssm import ssm_dims
+
+    cfg = get_config("mamba2-2.7b")
+    _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                       cfg.ssm_groups, cfg.ssm_state)
+    B, L, P, N = 1, 256, cfg.ssm_head_dim, cfg.ssm_state
+    record = {}
+    for decay in ("original", "slow"):
+        label = f"prefill_{decay}"
+        inputs = ssd_inputs(gen, B, L, H, P, N, decay, True, "bfloat16", "bfloat16")
+        err = check(label, inputs)
+        before = sc.LAUNCHES
+        ms = cuda_time_ms(lambda: sc.ssd_chunk(*inputs))
+        plain_ms = cuda_time_ms(lambda: ssd_chunk_ref(*inputs))
+        sc.LAUNCHES = before  # timing launches are not the main path's
+        x, dt, dA, Bm, Cm, state = inputs
+        # each input read once (B and C: the one group), each output written once
+        nbytes = (2 * x.numel() * x.element_size() + 2 * dt.numel() * 4
+                  + 2 * B * L * N * Bm.element_size()
+                  + 2 * state.numel() * state.element_size())
+        pairs = L * (L + 1) // 2  # the causal half of the L x L products
+        flops = B * H * 2 * ((N + P) * pairs + 2 * L * P * N)
+        flops_full = B * H * 2 * ((N + P) * L * L + 2 * L * P * N)
+        bytes_ms = nbytes / peak_bw * 1e3
+        ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+        row = {"phase": "kernels", "kernel": "ssd_chunk", "timing": label,
+               "shape": [B, L, H, P, N], "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "library": "none: no one PyTorch call",
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": nbytes, "flops": flops,
+               "flops_full_square": flops_full,
+               "bytes_ms": bytes_ms, "bf16_tensor_core_ms": ops_ms,
+               "fp32_cuda_core_ms": flops / FP32_CUDA_CORE_FLOPS * 1e3,
+               "max_abs_err": err}
+        emit(row)
+        record[label] = row
+    return record["prefill_original"]
 
 
 def phase_parity() -> None:
@@ -292,7 +480,7 @@ def phase_parity() -> None:
     params = DecoderModel(cfg, DEVICE).init(gen)
     engines = {
         a: InferenceEngine(cfg, params, n_slots=4, max_len=128, device=DEVICE,
-                           attention=a)
+                           cores=a)
         for a in ("kernel", "plain")
     }
     rng = np.random.default_rng(0)
@@ -320,18 +508,33 @@ def phase_parity() -> None:
           "logits_max_abs_diff": worst, "slot_log": ek.slot_log, "ok": True})
 
 
-def phase_serve() -> tuple[dict, object]:
+def reset_launches() -> None:
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_chunk as sc
+
+    fd.LAUNCHES = 0
+    sc.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_chunk as sc
+
+    return {"flash_decode": fd.LAUNCHES, "ssd_chunk": sc.LAUNCHES}
+
+
+def phase_serve() -> tuple[dict, object]:
     from repro_torch.launch import serve
 
     n_req, prompt_len, max_new = 8, 32, 64
-    fd.LAUNCHES = 0
+    reset_launches()
     stats = serve.run([
         "--full", "--arch", "qwen3-0.6b", "--slots", "8", "--max-len", "2048",
         "--requests", str(n_req), "--prompt-len", str(prompt_len),
         "--max-new", str(max_new), "--seed", "0",
     ])
-    launches = fd.LAUNCHES
+    counts = read_launches()
+    launches = counts["flash_decode"]
     toks = stats["tokens_per_request"]
     if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
         fail(f"serve: {stats['requests']} of {n_req} requests finished, "
@@ -354,7 +557,7 @@ def phase_serve() -> tuple[dict, object]:
         "waves": stats["waves"], "decode_steps": stats["decode_calls"],
         "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
         "cold_start_s": stats["cold_start_s"],
-        "flash_decode_launches": launches,
+        "launches": counts,
         "planned_activation_mib": stats["plan_total_bytes"] / 2**20,
         "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
         "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
@@ -390,27 +593,305 @@ def phase_profile(engine) -> None:
           **prof, "ok": True})
 
 
+def _mamba_model(n_periods: int | None, dtype: str, seed: int):
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import DecoderModel
+
+    cfg = get_config("mamba2-2.7b")
+    if n_periods is not None:
+        cfg = dataclasses.replace(cfg, n_periods=n_periods, dtype=dtype)
+    model = DecoderModel(cfg, DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    return cfg, model, params
+
+
+def slow_decay(params) -> None:
+    """A = -exp(A_log) in [-0.02, -0.001] on every Mamba2 layer, in place:
+    dt·A per position as in the slow-decay kernel cases, so the state one
+    chunk hands the next is far above the bars (at random init A is in
+    [-16, -1] and the state forgets within a token or two)."""
+    import torch
+
+    for layer in params["period"]:
+        a_log = layer["mamba"]["A_log"]
+        a_log.copy_(torch.log(torch.linspace(0.001, 0.02, a_log.shape[-1],
+                                             device=a_log.device)))
+
+
+def _err_over_bar(got, want, atol: float, rtol: float) -> float:
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def phase_prefill_parity() -> None:
+    """Full width, 2 layers, fp32 (matmuls in full fp32), at the random
+    init's decay and at a slow one: the kernel SSD core against the plain
+    one on one set of weights over 3 chunks, then the port's prefill +
+    decode against its forward. With the slow decay, a control: the
+    plain core with the incoming state of every chunk dropped must miss
+    the final state by more than 100x the bar."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.models.api import DecoderModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, n = 600, 596  # 3 chunks of 256, the last padded
+    atol = rtol = 1e-4
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for decay in ("original", "slow"):
+        cfg, model, params = _mamba_model(2, "float32", 0)
+        if decay == "slow":
+            slow_decay(params)
+        plain = DecoderModel(cfg, DEVICE, cores="plain")
+        tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+        with torch.no_grad():
+            before = read_launches()["ssd_chunk"]
+            got_logits, got_caches = model.prefill(params, {"tokens": tokens})
+            launches = read_launches()["ssd_chunk"] - before
+            want_logits, want_caches = plain.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            if launches != 3 * cfg.n_layers:
+                fail(f"prefill_parity: {launches} ssd_chunk launches, expected "
+                     f"{3 * cfg.n_layers}")
+            want_state = want_caches["period"][0]["mamba"][1]
+            state_max = float(want_state.abs().max())
+            diffs = {}
+            for name, g, w in (
+                ("last_logits", got_logits, want_logits),
+                ("conv_state", got_caches["period"][0]["mamba"][0],
+                 want_caches["period"][0]["mamba"][0]),
+                ("ssm_state", got_caches["period"][0]["mamba"][1], want_state),
+            ):
+                err = (g - w).abs()
+                diffs[name] = float(err.max())
+                if not bool((err <= atol + rtol * w.abs()).all()):
+                    fail(f"prefill_parity ({decay}): {name} differs by "
+                         f"{float(err.max())}")
+            control = None
+            if decay == "slow":
+                if state_max <= 1e3 * atol:
+                    fail(f"prefill_parity: the slow-decay state ({state_max}) "
+                         f"is not far above the bar")
+                core = ssm.SSD["plain"]
+                ssm.SSD["plain"] = lambda x, dt, dA, Bm, Cm, state: core(
+                    x, dt, dA, Bm, Cm, torch.zeros_like(state))
+                try:
+                    _, forgot = plain.prefill(params, {"tokens": tokens})
+                finally:
+                    ssm.SSD["plain"] = core
+                control = _err_over_bar(forgot["period"][0]["mamba"][1],
+                                        want_state, atol, rtol)
+                if control <= 100:
+                    fail(f"prefill_parity: dropping the carried state moves the "
+                         f"final state by only {control}x the bar")
+            full, _ = model.forward(params, {"tokens": tokens})
+            last, caches = model.prefill(params, {"tokens": tokens[:, :n]})
+            steps = [(last, full[:, n - 1])]
+            for i in range(n, S):
+                logits, caches = model.decode_step(
+                    params, tokens[:, i : i + 1], caches,
+                    torch.full((1,), i, dtype=torch.int32, device=DEVICE))
+                steps.append((logits, full[:, i]))
+            worst = 0.0
+            for i, (g, w) in enumerate(steps):
+                err = (g - w).abs()
+                worst = max(worst, float(err.max()))
+                if not bool((err <= 2e-4 + 2e-4 * w.abs()).all()):
+                    fail(f"prefill_parity ({decay}): cached step {i} differs from "
+                         f"forward by {float(err.max())}")
+        emit({"phase": "prefill_parity", "decay": decay, "layers": cfg.n_layers,
+              "tokens": S, "ssd_chunk_launches": launches,
+              "kernel_vs_plain_max_abs_diff": diffs, "ssm_state_max_abs": state_max,
+              "dropped_state_err_over_bar": control,
+              "prefill_decode_vs_forward_max_abs_diff": worst, "ok": True})
+        del params, model, plain
+        torch.cuda.empty_cache()
+
+
+def phase_prefill() -> dict:
+    """Full-width mamba2-2.7b (64 layers, bf16): one 2048-token request
+    through Model.prefill."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.compile import plan_prefill
+
+    S = 2048
+    cfg, model, params = _mamba_model(None, "bfloat16", 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+    t0 = time.perf_counter()
+    graph, plan = plan_prefill(cfg, prefill_len=S)
+    plan_s = time.perf_counter() - t0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(logits).all())
+        del logits, caches
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    ssd_us = sum(e.self_device_time_total for e in kernels if "ssd_chunk" in e.key)
+    ssd_count = sum(e.count for e in kernels if "ssd_chunk" in e.key)
+    n_chunks = -(-S // 256)
+    if counts["ssd_chunk"] != n_chunks * cfg.n_layers:
+        fail(f"prefill: {counts['ssd_chunk']} ssd_chunk launches, expected "
+             f"{n_chunks} chunks x {cfg.n_layers} layers")
+    if not finite:
+        fail("prefill: non-finite logits")
+    if ssd_count != n_chunks * cfg.n_layers or ssd_us <= 0:
+        fail(f"prefill: the profiler saw {ssd_count} ssd_chunk kernels")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    row = {"phase": "prefill", "arch": cfg.name, "layers": cfg.n_layers,
+           "tokens": S, "launches": counts, "first_wall_s": first_s,
+           "warm_wall_s": warm_s, "tokens_per_s_warm": S / warm_s,
+           "device_ms": device_us / 1e3, "ssd_chunk_device_ms": ssd_us / 1e3,
+           "ssd_chunk_us_per_launch": ssd_us / ssd_count,
+           "device_kernel_launches": sum(e.count for e in kernels),
+           "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top},
+           "traced_ops": len(graph.ops), "plan_s": plan_s,
+           "planned_activation_mib": plan.total_size / 2**20,
+           "activation_lower_bound_mib": plan.lower_bound / 2**20,
+           "activation_naive_mib": plan.naive_size / 2**20,
+           "allocator_peak_mib": peak / 2**20, "ok": True}
+    emit(row)
+    del params, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_mamba() -> None:
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.ssm import ssm_dims
+
+    cfg = get_config("mamba2-2.7b")
+    n_req, prompt_len, max_new, slots = 8, 32, 64, 8
+    reset_launches()
+    stats = serve.run([
+        "--full", "--arch", cfg.name, "--slots", str(slots), "--max-len", "2048",
+        "--requests", str(n_req), "--prompt-len", str(prompt_len),
+        "--max-new", str(max_new), "--seed", "0",
+    ])
+    counts = read_launches()
+    toks = stats["tokens_per_request"]
+    if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
+        fail(f"serve_mamba: {stats['requests']} of {n_req} requests finished")
+    if not all(0 <= x < cfg.vocab for t in toks.values() for x in t):
+        fail("serve_mamba: a token outside the vocabulary")
+    if not stats["last_logits_finite"]:
+        fail("serve_mamba: non-finite logits")
+    if stats["state_live_bytes"] != stats["state_planned_bytes"]:
+        fail(f"serve_mamba: live state {stats['state_live_bytes']} B != planned "
+             f"{stats['state_planned_bytes']} B")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail("serve_mamba: the state buffer moved")
+    _, H, conv_dim = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                              cfg.ssm_groups, cfg.ssm_state)
+    itemsize = getattr(torch, cfg.dtype).itemsize
+    raw = cfg.n_layers * ((cfg.ssm_conv - 1) * conv_dim
+                          + H * cfg.ssm_head_dim * cfg.ssm_state) * itemsize * slots
+    if not raw <= stats["state_planned_bytes"] < raw * 1.01:
+        fail(f"serve_mamba: planned state {stats['state_planned_bytes']} B is "
+             f"not the {raw} B of the leaves plus alignment")
+    emit({
+        "phase": "serve_mamba", "arch": cfg.name, "layers": stats["n_layers"],
+        "requests": stats["requests"], "tokens": stats["tokens"],
+        "waves": stats["waves"], "decode_steps": stats["decode_calls"],
+        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+        "cold_start_s": stats["cold_start_s"], "launches": counts,
+        "decode_step_ops": stats["decode_step_ops"],
+        "planned_activation_mib": stats["plan_total_bytes"] / 2**20,
+        "allocator_step_peak_mib": (stats["allocator_step_peak_bytes"] or 0) / 2**20,
+        "state_mib": stats["state_live_bytes"] / 2**20,
+        "state_leaves_mib": raw / 2**20,
+        "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
+        "ok": True,
+    })
+    del stats
+    torch.cuda.empty_cache()
+
+
+PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
+          "prefill_parity", "prefill", "serve_mamba")
+
+
 def main() -> None:
+    global KEEP_GOING
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of %(default)s (device and "
+                         "build always run)")
+    ap.add_argument("--keep-going", action="store_true",
+                    help="check every kernel case before failing")
+    args = ap.parse_args()
+    phases = set(args.phases.split(",")) | {"device", "build"}
+    if phases - set(PHASES):
+        fail(f"unknown phases {sorted(phases - set(PHASES))}")
+    KEEP_GOING = args.keep_going
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
     smi, peak_bw = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     phase_build()
-    timing = phase_kernels(peak_bw)
-    phase_parity()
-    serve, engine = phase_serve()
-    phase_profile(engine)
+    timing = {}
+    if "kernels" in phases:
+        timing["flash_decode"] = phase_kernels(peak_bw)
+        timing["ssd_chunk"] = phase_kernels_ssd(peak_bw)
+        emit({"phase": "kernels", "checked": list(KERNELS),
+              "failed_cases": FAILED_CASES})
+        if FAILED_CASES:
+            fail(f"{len(FAILED_CASES)} kernel case(s) over their bars: {FAILED_CASES}")
+    launches = {}
+    if "parity" in phases:
+        phase_parity()
+    if "serve" in phases:
+        serve, engine = phase_serve()
+        launches["flash_decode"] = serve["launches"]
+        if "profile" in phases:
+            phase_profile(engine)
+        del engine
+    if "prefill_parity" in phases:
+        phase_prefill_parity()
+    if "prefill" in phases:
+        launches["ssd_chunk"] = phase_prefill()["launches"]["ssd_chunk"]
+    if "serve_mamba" in phases:
+        phase_serve_mamba()
+    if phases != set(PHASES):
+        return
     import torch
 
-    route, source, replaces = KERNELS["flash_decode"]
     print(smi, flush=True)
     emit({"kernels": [{
-        "name": "flash_decode", "route": route, "source": source,
-        "replaces": replaces, "launches": serve["launches"],
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-    }]})
+        "name": name, "route": route, "source": source, "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name, (route, source, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -115,11 +115,10 @@ ARCH_IDS: tuple[str, ...] = (
 )
 
 # the archs this port serves; the rest wait for the slice named here
-PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b",)
+PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b")
 _LATER_SLICE = {
     "gemma3-27b": "the sliding-window decode slice (ROADMAP A8)",
     "gemma3-4b": "the sliding-window decode slice (ROADMAP A8)",
-    "mamba2-2.7b": "the Mamba2 decode slice (ROADMAP A8)",
     "granite-moe-3b-a800m": "the MoE slice (ROADMAP A8)",
     "llama4-maverick-400b-a17b": "the MoE slice (ROADMAP A8)",
     "zamba2-7b": "the shared-block slice (ROADMAP A8)",

@@ -128,7 +128,7 @@ def _flash_decode_fake(q, k_cache, v_cache, lengths):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
-_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define(
     "flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths)"
     " -> Tensor"

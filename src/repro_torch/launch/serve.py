@@ -8,6 +8,11 @@ report, tokens/s and the slot log.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --slots 8 --max-len 2048 --requests 8 --prompt-len 32 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+        --arch mamba2-2.7b --slots 8 --requests 8 --prompt-len 32 --max-new 64
+
+``--arch`` takes the ported archs (qwen3-0.6b, mamba2-2.7b); prompts go
+token by token through the decode step, as in the reference.
 
 ``--device cpu`` runs on the CPU (tests); the default is the card, and
 without one the engine raises.

@@ -70,7 +70,10 @@ def init_linear(
     generator: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype, device
 ) -> torch.Tensor:
     """U(±1/√d_in) with ``shape[-2:] == (d_in, d_out)``; leading axes stack
-    independent draws (the n_periods axis of scanned period params)."""
+    independent draws (the n_periods axis of scanned period params). On
+    the ``meta`` device nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     scale = 1.0 / np.sqrt(shape[-2])
     u = torch.rand(shape, generator=generator, dtype=torch.float32,
                    device=generator.device)

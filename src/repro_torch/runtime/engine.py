@@ -6,10 +6,12 @@ construction the engine:
 1. traces the decode step into usage records (``trace/fx_liveness``) and
    plans them with the ``auto`` offsets portfolio (paper §5–§6), then
    materializes that activation plan as one arena on the device;
-2. lays the per-slot KV caches out with ``plan_state`` and serves them
-   from ONE flat device buffer of exactly ``StatePlan.total_size`` bytes
+2. lays the per-slot caches (attention K/V, Mamba2 conv window and SSM
+   state) out with ``plan_state`` and serves them from ONE flat device
+   buffer of exactly ``StatePlan.total_size`` bytes
    (``runtime/residency.py``): the cache the decode step reads and
-   writes is a set of zero-copy views into it;
+   writes is a set of zero-copy views into it, and a recycled slot is
+   zeroed before its next request;
 3. runs continuous batching with the single-wave host loop: fixed
    ``n_slots``, admit from the queue on free (the prompt goes token by
    token through the decode step at the slot's own position), step all
@@ -139,9 +141,9 @@ class InferenceEngine:
         greedy: bool = True,
         # retire a slot when it emits this token (None = length-only)
         eos_id: int | None = None,
-        # the attention core of the decode step: "kernel" (served) or
-        # "plain" (parity checks only)
-        attention: str = "kernel",
+        # the cores of the decode step: "kernel" (served) or "plain"
+        # (parity checks only)
+        cores: str = "kernel",
         session=None,
         page_size: int | None = None,
         block_size: int = 1,
@@ -158,7 +160,7 @@ class InferenceEngine:
             raise _later("greedy=False (sampling)", "the block-decode slice (ROADMAP A11)")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = DecoderModel(cfg, self.device, attention=attention)
+        self.model = DecoderModel(cfg, self.device, cores=cores)
         self.params = params
         self.eos_id = None if eos_id is None else int(eos_id)
         self.n_slots = n_slots

@@ -8,7 +8,10 @@ run on a machine that has PyTorch and the CUDA toolkit only:
 The CUDA ``flash_decode`` is held against its plain PyTorch version on
 the cases of ``tests/test_torch_kernels.py`` (which hold the plain
 version against the JAX oracle on the CPU), and the served engine is
-held against the same engine with the plain attention.
+held against the same engine with the plain attention. The CUDA
+``ssd_chunk`` is held against its plain version on the cases of
+``tests/test_torch_ssd.py``, and Mamba2 prefill through the kernel
+against prefill through the plain version.
 """
 
 import dataclasses
@@ -21,7 +24,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_reduced  # noqa: E402
 from repro_torch.core.unified import plan_state, state_records_from_cache  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.kernels.ref import flash_decode_ref, ssd_chunk_ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.api import DecoderModel  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
 from repro_torch.runtime.engine import InferenceEngine  # noqa: E402
@@ -118,9 +123,9 @@ def test_served_engine_runs_the_kernel_on_every_layer(cuda):
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (1, 5, 3)]
     served = {}
-    for attention in ("kernel", "plain"):
+    for cores in ("kernel", "plain"):
         eng = InferenceEngine(cfg, params, n_slots=2, max_len=32, device=cuda,
-                              attention=attention)
+                              cores=cores)
         ptr = eng.state.buf.data_ptr()
         for prompt, new in zip(prompts, (4, 6, 3)):
             eng.submit(prompt, max_new_tokens=new)
@@ -130,9 +135,118 @@ def test_served_engine_runs_the_kernel_on_every_layer(cuda):
         assert eng.state.buf.data_ptr() == ptr
         assert eng.memory_report.state_live_bytes == eng.memory_report.state_planned_bytes
         assert eng.memory_report.allocator_step_peak_bytes is not None
-        served[attention] = ({r.request_id: r.tokens for r in done}, eng.slot_log,
+        served[cores] = ({r.request_id: r.tokens for r in done}, eng.slot_log,
                              launches, eng.decode_calls)
     tokens, slot_log, launches, steps = served["kernel"]
     assert (tokens, slot_log) == served["plain"][:2]
     assert launches == steps * cfg.n_layers
     assert served["plain"][2] == 0
+
+
+# ssd_chunk: (B, L, H, P, N), decay, B/C as one group at head stride 0
+SSD_CASES = {
+    "kernels_0": ((2, 64, 2, 32, 16), "original", False),
+    "kernels_1": ((1, 128, 4, 64, 128), "original", False),
+    "kernels_2": ((2, 256, 1, 64, 64), "original", False),
+    "ragged_L33": ((2, 33, 3, 64, 128), "original", False),
+    "L1": ((3, 1, 2, 8, 4), "original", False),
+    "slow_L256": ((1, 256, 4, 64, 128), "slow", False),
+    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
+    "one_group_L96": ((1, 96, 4, 32, 16), "slow", True),
+}
+# (atol, rtol) of an output against the plain version in fp32 on the same
+# inputs: fp32 summation order; a bf16 output adds one rounding (2**-8)
+SSD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 1e-5 + 2.0**-8)}
+
+
+def _ssd_inputs(rng, device, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device)
+
+    dt = torch.nn.functional.softplus(randn(B, L, H))
+    if decay == "slow":
+        dA = -torch.from_numpy(rng.uniform(0.001, 0.02, (B, L, H)).astype(np.float32)).to(device)
+    else:
+        dA = -torch.exp(randn(B, L, H) * 0.3) * dt
+    xd, sd = getattr(torch, x_dtype), getattr(torch, state_dtype)
+    G = 1 if one_group else H
+    x = (randn(B, L, H, P) * 0.5).to(xd)
+    Bm = (randn(B, L, G, N) * 0.5).to(xd).expand(B, L, H, N)
+    Cm = (randn(B, L, G, N) * 0.5).to(xd).expand(B, L, H, N)
+    state = (randn(B, H, P, N) * 0.5).to(sd)
+    return x, dt, dA, Bm, Cm, state
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype",
+                         [("float32", "float32"), ("bfloat16", "float32"),
+                          ("bfloat16", "bfloat16"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_chunk_kernel_matches_plain(cuda, case, x_dtype, state_dtype):
+    shape, decay, one_group = SSD_CASES[case]
+    x, dt, dA, Bm, Cm, state = _ssd_inputs(np.random.default_rng(8), cuda, *shape,
+                                           decay, one_group, x_dtype, state_dtype)
+    before = sc.LAUNCHES
+    got = sc.ssd_chunk(x, dt, dA, Bm, Cm, state)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES == before + 1
+    want = ssd_chunk_ref(x.float(), dt, dA, Bm.float(), Cm.float(), state.float())
+    for g, w in zip(got, want):
+        atol, rtol = SSD_TOL[g.dtype]
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+    assert got[0].dtype == x.dtype and got[1].dtype == state.dtype
+
+
+def test_ssd_chunk_on_the_card_never_reaches_the_plain_version(cuda):
+    """A shape the kernel does not build raises on the card (the plain
+    version would take it)."""
+    x, dt, dA, Bm, Cm, state = _ssd_inputs(np.random.default_rng(9), cuda, 1, 16, 2,
+                                           12, 4, "original", False, "float32",
+                                           "float32")
+    ssd_chunk_ref(x, dt, dA, Bm, Cm, state)
+    with pytest.raises(ValueError, match="head dim"):
+        sc.ssd_chunk(x, dt, dA, Bm, Cm, state)
+
+
+def _slow_decay(params) -> None:
+    """A = -exp(A_log) in [-0.02, -0.001] on every Mamba2 layer, so the
+    state one chunk hands the next is far above the tolerance (at random
+    init A is in [-16, -1] and the state forgets within a token or two)."""
+    for layer in params["period"]:
+        a_log = layer["mamba"]["A_log"]
+        a_log.copy_(torch.log(torch.linspace(0.001, 0.02, a_log.shape[-1],
+                                             device=a_log.device)))
+
+
+@pytest.mark.parametrize("decay", ["original", "slow"])
+def test_mamba_prefill_runs_the_kernel_once_per_chunk(cuda, decay, monkeypatch):
+    """Reduced mamba2, 2 layers, fp32: the kernel SSD core and the plain
+    one give the same logits and caches over 3 chunks, and the kernel
+    runs once per chunk per layer. With the slow decay the carried state
+    is far above the tolerance: dropping it misses by over 100x."""
+    cfg = dataclasses.replace(get_reduced("mamba2-2.7b"), n_periods=2)
+    kernel = DecoderModel(cfg, cuda)
+    plain = DecoderModel(cfg, cuda, cores="plain")
+    params = kernel.init(torch.Generator(cuda).manual_seed(0))
+    if decay == "slow":
+        _slow_decay(params)
+    tokens = torch.from_numpy(
+        np.random.default_rng(10).integers(0, cfg.vocab, (2, 600))).to(cuda)
+    before = sc.LAUNCHES
+    got_logits, got_caches = kernel.prefill(params, {"tokens": tokens})
+    assert sc.LAUNCHES - before == 3 * cfg.n_layers
+    want_logits, want_caches = plain.prefill(params, {"tokens": tokens})
+    assert sc.LAUNCHES - before == 3 * cfg.n_layers
+    np.testing.assert_allclose(got_logits.cpu().numpy(), want_logits.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for g, w in zip(got_caches["period"][0]["mamba"], want_caches["period"][0]["mamba"]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    if decay == "slow":
+        want_state = want_caches["period"][0]["mamba"][1]
+        assert float(want_state.abs().max()) > 1e-1
+        core = ssm.SSD["plain"]
+        monkeypatch.setitem(ssm.SSD, "plain", lambda x, dt, dA, Bm, Cm, state: core(
+            x, dt, dA, Bm, Cm, torch.zeros_like(state)))
+        _, forgot = plain.prefill(params, {"tokens": tokens})
+        err = (forgot["period"][0]["mamba"][1] - want_state).abs()
+        assert float((err / (1e-4 + 1e-4 * want_state.abs())).max()) > 100

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` and not the root
-``chip_smoke.py`` imports JAX or anything of the reference package."""
+"""The port stands alone: no module of ``repro_torch`` and neither root
+script of the card (``chip_smoke.py``, ``chip_faults.py``) imports JAX
+or anything of the reference package."""
 
 import os
 import re
@@ -19,7 +20,7 @@ import importlib, pkgutil, sys
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, chip_faults
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("modules=%d" % len(list(
@@ -46,10 +47,19 @@ _FORBIDDEN = re.compile(
 )
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py"],
-)
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + [
+    "chip_smoke.py", "chip_faults.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_no_source_imports_jax_or_the_reference(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text()), path
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/configs/mamba2_2_7b.py", "src/repro_torch/kernels/ssd_chunk.py",
+     "src/repro_torch/models/ssm.py", "src/repro_torch/launch/compile.py"],
+)
+def test_the_mamba2_modules_are_checked(path):
+    assert path in SOURCES

@@ -118,7 +118,7 @@ def test_decode_step_matches_reference(setup, core):
                             jnp.asarray(active))
         lt, cache = transformer.decode_step(
             params, cfg, torch.from_numpy(tok), cache, torch.from_numpy(pos),
-            torch.from_numpy(active), attention=core,
+            torch.from_numpy(active), cores=core,
         )
         _close(lt, lj, 1e-4)
         for got, want in zip(cache["period"][0]["attn"], jcache["period"][0]["attn"]):
