@@ -15,10 +15,12 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                CUDA events (median of 100 runs, L2 flushed before each run).
                ``flash_decode``: the CPU test cases, a length-1 row, a cache
                that is a strided view into a state buffer, and the serving
-               shape. ``ssd_chunk``: the CPU test cases (slow decay
-               included) in fp32 and bf16, and mamba2-2.7b's prefill chunk
-               (L=256, H=80, P=64, N=128, bf16, B/C one group at head
-               stride 0) with the original and a slow decay;
+               shape at full, random and the serve phase's lengths (with
+               its split count and scratch bytes). ``ssd_chunk``: the CPU
+               test cases (slow decay included, and the tensor-core
+               kernel's edge shapes) in every dtype pair, and mamba2-2.7b's
+               prefill chunk (L=256, H=80, P=64, N=128, bf16, B/C one group
+               at head stride 0) with the original and a slow decay;
 4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
                seed, with the kernel attention and with the plain
                attention: greedy tokens identical, logits within 1e-4;
@@ -127,7 +129,12 @@ def peak_bandwidth(name: str) -> float:
 def cuda_time_ms(fn, runs: int = 100, warmup: int = 10) -> float:
     """Median device time of ``fn`` over ``runs`` launches, each after a
     write of 256 MiB that pushes its inputs out of the 50 MB L2 (as the
-    serving loop finds them: 27 other layers run between two reads)."""
+    serving loop finds them: 27 other layers run between two reads).
+
+    A spin of ~0.5 ms is queued before each write, so the card is still
+    busy when the host queues ``fn``: a Python launch path slower than the
+    write would otherwise leave the card idle between the start event and
+    the kernel, and that gap would be timed."""
     import torch
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=DEVICE)
@@ -135,6 +142,7 @@ def cuda_time_ms(fn, runs: int = 100, warmup: int = 10) -> float:
         fn()
     pairs = []
     for _ in range(runs):
+        torch.cuda._sleep(1_000_000)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -284,6 +292,9 @@ def phase_kernels(peak_bw: float) -> dict:
         ("serving_full", torch.full((B,), T, dtype=torch.int32, device=DEVICE)),
         ("serving_random", torch.randint(1, T + 1, (B,), generator=gen,
                                          device=DEVICE, dtype=torch.int32)),
+        # the serve phase's own lengths: 32 prompt + 64 new tokens per slot,
+        # so 33 to 96 positions of the 2048
+        ("serve_mix", torch.linspace(33, 96, B, device=DEVICE).round().to(torch.int32)),
     ):
         err = check(label, q, k, v, lengths)
         qs = q.reshape(B, KV * G, 1, D)
@@ -316,7 +327,9 @@ def phase_kernels(peak_bw: float) -> dict:
                "library_max_abs_err": lib_err,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": nbytes, "flops": flops, "max_abs_err": err}
+               "bytes": nbytes, "flops": flops, "max_abs_err": err,
+               "n_split": fd.num_splits(B, KV, T),
+               "scratch_bytes": fd.scratch_bytes(B, KV, G, D, T)}
         emit(row)
         record[label] = row
     del buf, caches
@@ -336,6 +349,13 @@ SSD_CASES = {
     "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
     "one_group_L96": ((1, 96, 4, 32, 16), "original", True),
     "one_group_slow_L96": ((1, 96, 4, 32, 16), "slow", True),
+    # edges of the tensor-core kernel (bf16 x/B/C): one row in a 64-row tile
+    # at P = 64; a ragged second row tile at P = 32, N = 40; N = 13, where x,
+    # B and C (slices of one buffer with rows of 154 elements) are loaded
+    # element by element, not by 16-byte copies
+    "L1_P64": ((2, 1, 3, 64, 128), "slow", False),
+    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", True),
+    "N13_L130": ((1, 130, 2, 64, 13), "slow", True),
 }
 # (x/B/C dtype, state dtype): every pair the kernel builds. fp32; bf16 x
 # with an fp32 state (as tests/test_kernels.py passes it); bf16 throughout
@@ -715,7 +735,7 @@ def phase_prefill() -> dict:
     through Model.prefill."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.launch.compile import plan_prefill
 
@@ -743,10 +763,19 @@ def phase_prefill() -> dict:
         model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # one prefill with the tracer on but discarded, then the one read:
+        # a single traced run once missed a kernel's record on an H100
+        # (511 of the 512 ssd_chunk launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                model.prefill(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                prof.step()
+    # the schedule's step annotation (ProfilerStep#) also lies on the
+    # device timeline, across the whole step: it is no kernel
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
     device_us = sum(e.self_device_time_total for e in kernels)
     ssd_us = sum(e.self_device_time_total for e in kernels if "ssd_chunk" in e.key)
     ssd_count = sum(e.count for e in kernels if "ssd_chunk" in e.key)

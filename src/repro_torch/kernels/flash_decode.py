@@ -17,7 +17,17 @@ the cache is a view into the engine's state buffer, whose batch stride
 is the state plan's slot stride, and it is never copied to make it
 contiguous. lengths ``(B,)`` int32, read on the device, each >= 1.
 
-``LAUNCHES`` counts kernel launches (the CUDA path only).
+On the card the positions of each ``(b, kv_head)`` are split into
+``num_splits(B, KV, T)`` spans, one CTA each, and the last CTA of each
+``(b, kv_head)`` merges their partial softmax states (flash-decoding).
+The split count comes from the shapes only, so the grid never depends on
+``lengths``. The wrapper allocates the fp32 partials (``scratch_bytes``)
+with ``torch.empty`` on every call, and keeps one int32 count per
+``(b, kv_head)`` for each device and stream, which the kernel leaves at
+0; the op has no input for either, so a traced plan does not see them.
+Calls on two streams use two sets of counts, so they may overlap.
+
+``LAUNCHES`` counts kernel launches (the CUDA path only), one per call.
 """
 
 from __future__ import annotations
@@ -34,8 +44,15 @@ LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 GROUP_SIZES = (1, 2, 4, 8)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# split T until there are at least two CTAs per SM of an H100 (132 SMs),
+# keeping every span at least MIN_SPAN positions long
+TARGET_CTAS = 264
+MIN_SPAN = 128
+MAX_SPLITS = 64  # kMaxSplits of csrc/flash_decode.cu
 
 _FN = None
+# (device, stream handle) -> int32 counts of finished spans
+_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _kernel():
@@ -43,14 +60,32 @@ def _kernel():
     if _FN is None:
         fn = build.load("flash_decode").flash_decode_launch
         fn.argtypes = (
-            [ctypes.c_int] * 6
-            + [ctypes.c_void_p] * 5
+            [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 7
             + [ctypes.c_int64] * 6
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def num_splits(batch: int, n_kv: int, t_len: int) -> int:
+    """Spans per ``(b, kv_head)``: the least power of two that gives
+    ``TARGET_CTAS`` CTAs, at most ``t_len // MIN_SPAN`` and ``MAX_SPLITS``
+    and at least 1. From the shapes only: (8, 8, 2048), the qwen3 serving
+    shape, gives 8 spans of 256 positions."""
+    want = -(-TARGET_CTAS // max(batch * n_kv, 1))
+    n = 1
+    while n < want:
+        n *= 2
+    return max(1, min(n, t_len // MIN_SPAN, MAX_SPLITS))
+
+
+def scratch_bytes(batch: int, n_kv: int, group: int, head_dim: int,
+                  t_len: int) -> int:
+    """Bytes of the fp32 partials (m, l, acc) one call allocates."""
+    return batch * n_kv * num_splits(batch, n_kv, t_len) * group * (head_dim + 2) * 4
 
 
 def check_inputs(q, k_cache, v_cache, lengths) -> None:
@@ -98,17 +133,34 @@ def _check_cuda_layout(q, k_cache, v_cache, lengths) -> None:
         raise ValueError("flash_decode: all inputs must be on one device")
 
 
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The int32 counts of finished spans of one stream on ``device``, at
+    least ``n``; zero when made, and every call leaves them at zero. Each
+    stream has its own, so the kernels of two streams never share one."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def _flash_decode_cuda(q, k_cache, v_cache, lengths):
     global LAUNCHES
     check_inputs(q, k_cache, v_cache, lengths)
     _check_cuda_layout(q, k_cache, v_cache, lengths)
     B, KV, G, D = q.shape
+    T = k_cache.shape[1]
+    n_split = num_splits(B, KV, T)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    part = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
+                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
-        _DTYPE_CODE[q.dtype], B, KV, G, D, k_cache.shape[1],
+        _DTYPE_CODE[q.dtype], B, KV, G, D, T, n_split,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+        _counters(q.device, stream, B * KV).data_ptr(),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         1.0 / D ** 0.5, stream,

@@ -102,6 +102,84 @@ def test_flash_decode_kernel_on_a_residency_view(cuda, dtype):
     _check(q, k, v, lengths, dtype)
 
 
+# (B, KV, G, D, T, lengths): T split over S > 1 spans, with rows whose later
+# spans are all empty (length 1, or inside the first span) and rows that end
+# one position into a span
+SPLIT_CASES = [
+    (2, 1, 8, 64, 1024, [1, 1024]),  # S = 8
+    (2, 2, 2, 64, 256, [1, 129]),  # S = 2, the second row one into span 2
+    (1, 1, 4, 128, 300, [150]),  # S = 2, a ragged last span
+    (8, 8, 2, 64, 2048, [33, 42, 51, 60, 69, 78, 87, 96]),  # the serve mix
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_flash_decode_kernel_merges_spans_with_empty_ones(cuda, case, dtype):
+    B, KV, G, D, T, rows = SPLIT_CASES[case]
+    assert fd.num_splits(B, KV, T) > 1
+    rng = np.random.default_rng(11)
+    q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
+    k, v = (_rand(rng, (B, T, KV, D), dtype, cuda) for _ in range(2))
+    lengths = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    _check(q, k, v, lengths, dtype)
+
+
+def test_flash_decode_kernel_gives_zeros_for_a_length0_row(cuda):
+    """Every span of a length-0 row is empty: the merge gives 0, not NaN
+    (the deliberate departure of ROADMAP §C)."""
+    rng = np.random.default_rng(12)
+    q = _rand(rng, (2, 1, 8, 64), "float32", cuda, Q_STD)
+    k, v = (_rand(rng, (2, 1024, 1, 64), "float32", cuda) for _ in range(2))
+    got = fd.flash_decode(q, k, v, torch.tensor([0, 7], dtype=torch.int32, device=cuda))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_flash_decode_kernel_on_two_streams_at_once(cuda):
+    """Launches queued on two streams run at the same time: each stream
+    keeps its own counts of finished spans, so no CTA merges before every
+    span of its own launch is done, and every call leaves the counts at 0.
+    One stream's row fills half of its 64 spans (slow CTAs beside at once
+    finished empty ones), the other's holds one position (CTAs that finish
+    at once), so with one set of counts the second stream's spans would be
+    counted among the first's. Every launch has its own queries, so a
+    partial left in reused scratch by an earlier launch would show."""
+    B, KV, G, D, T = 1, 1, 8, 64, 32768  # 64 spans of 512 positions
+    n = 32
+    assert fd.num_splits(B, KV, T) == 64
+    rng = np.random.default_rng(13)
+    k, v = (_rand(rng, (B, T, KV, D), "float32", cuda) for _ in range(2))
+    lengths = [torch.tensor([n_pos], dtype=torch.int32, device=cuda)
+               for n_pos in (T // 2, 1)]
+    qs = [[_rand(rng, (B, KV, G, D), "float32", cuda, Q_STD) for _ in range(n)]
+          for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = [[], []]
+    for i, s in enumerate(streams):
+        s.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s):
+            # a first call makes each stream's memory and counts, so no
+            # cudaMalloc (which waits for the card) drains the queues below
+            fd.flash_decode(qs[i][0], k, v, lengths[i])
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)  # ~25 ms: both queues fill first
+    for j in range(n):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(fd.flash_decode(qs[i][j], k, v, lengths[i]))
+    torch.cuda.synchronize()
+    atol, rtol = TOL["float32"]
+    for i in range(2):
+        for q, got in zip(qs[i], outs[i]):
+            want = flash_decode_ref(q, k, v, lengths[i])
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+    assert not any(bool(c.any()) for c in fd._COUNTERS.values())
+
+
 def test_a_cuda_tensor_never_reaches_the_plain_version(cuda):
     """A layout the kernel does not take raises on the card; the plain
     version, which would take it, is never used there."""
@@ -153,6 +231,12 @@ SSD_CASES = {
     "slow_L256": ((1, 256, 4, 64, 128), "slow", False),
     "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
     "one_group_L96": ((1, 96, 4, 32, 16), "slow", True),
+    # the tensor-core kernel's edges: one row in a 64-row tile at P = 64; a
+    # ragged second row tile at P = 32 with N = 40 (padded to 48); N = 13,
+    # which its 16-byte copies do not take (loaded element by element)
+    "L1_P64": ((2, 1, 3, 64, 128), "slow", False),
+    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", True),
+    "N13_L130": ((1, 130, 2, 64, 13), "slow", False),
 }
 # (atol, rtol) of an output against the plain version in fp32 on the same
 # inputs: fp32 summation order; a bf16 output adds one rounding (2**-8)

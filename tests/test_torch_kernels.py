@@ -131,3 +131,82 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(bad):
         k = k.double()
     with pytest.raises(ValueError):
         fd.flash_decode(q, k, v, lengths)
+
+
+def _split_and_merge(q, k, v, lengths, n_split):
+    """The CUDA kernel's split-T arithmetic in plain PyTorch (fp32): span s
+    of ``ceil(T / n_split)`` positions gives the partial (m, l, acc) of an
+    online softmax over its live positions, or the sentinel (-1e30, 0, 0)
+    when it starts at or past the row's length; the merge weighs each
+    partial by exp(m_s - max_s m_s)."""
+    B, KV, G, D = q.shape
+    T = k.shape[1]
+    span = -(-T // n_split)
+    scores = torch.einsum("bkgd,btkd->bkgt", q.float() / D ** 0.5, k.float())
+    out = torch.empty(B, KV, G, D)
+    for b in range(B):
+        length = min(max(int(lengths[b]), 0), T)
+        m = torch.full((n_split, KV, G), -1e30)
+        l = torch.zeros(n_split, KV, G)
+        acc = torch.zeros(n_split, KV, G, D)
+        for s in range(n_split):
+            start, end = s * span, min(s * span + span, length)
+            if start >= end:
+                continue  # the sentinel partial
+            sc = scores[b, :, :, start:end]
+            m[s] = sc.amax(-1)
+            p = torch.exp(sc - m[s][..., None])
+            l[s] = p.sum(-1)
+            acc[s] = torch.einsum("kgt,tkd->kgd", p, v[b, start:end].float())
+        weight = torch.exp(m - m.amax(0))
+        lsum = (l * weight).sum(0)
+        out[b] = (acc * weight[..., None]).sum(0) / lsum.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 8])
+@pytest.mark.parametrize("B,KV,G,D,T", CASES)
+def test_split_and_merge_equals_the_plain_version(B, KV, G, D, T, n_split):
+    """Over S in {1, 2, 8} spans the kernel's split-and-merge arithmetic
+    gives the plain version at the fp32 bar, 1e-5 + 1e-5·|want|; the rows
+    hold length 1 (every span but the first empty), one position past a
+    span boundary, and random lengths."""
+    q, k, v, _ = _torch(*_mk(5, B, KV, G, D, T, "float32"))
+    q = q * 8.0  # scores of std 2: a peaked softmax, as on the card
+    span = -(-T // n_split)
+    rows = [1, min(span + 1, T), T] + list(
+        np.random.default_rng(6).integers(1, T + 1, size=B))
+    lengths = torch.tensor(rows[:B], dtype=torch.int32)
+    want = flash_decode_ref(q, k, v, lengths)
+    got = _split_and_merge(q, k, v, lengths, n_split)
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+
+
+def test_split_and_merge_of_empty_spans_gives_zeros_not_nan():
+    """A length-0 row has only sentinel partials: exp(-1e30 - -1e30) = 1
+    weighs l = 0 and acc = 0, so the row is 0 / max(0, 1e-30) = 0 (the
+    deliberate departure of ROADMAP §C), never NaN."""
+    q, k, v, _ = _torch(*_mk(7, 2, 2, 2, 64, 256, "float32"))
+    got = _split_and_merge(q, k, v, torch.tensor([0, 3], dtype=torch.int32), 8)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("B,KV,T,want", [
+    (8, 8, 2048, 8),  # the qwen3 serving shape: 8 spans of 256, 512 CTAs
+    (3, 4, 128, 1),  # too short to split
+    (2, 1, 1024, 8),  # capped at T // MIN_SPAN
+    (1, 1, 300, 2),
+    (64, 8, 4096, 1),  # 512 CTAs already
+])
+def test_num_splits_comes_from_the_shapes(B, KV, T, want):
+    n = fd.num_splits(B, KV, T)
+    assert n == want
+    assert n == 1 or B * KV * n >= fd.TARGET_CTAS or n == T // fd.MIN_SPAN
+    assert fd.scratch_bytes(B, KV, 2, 64, T) == B * KV * n * 2 * 66 * 4
+
+
+def test_serving_scratch_is_a_quarter_mib():
+    """8 slots x 8 KV heads x 8 spans x G=2 x (64 + 2) fp32: 270,336 B."""
+    assert fd.scratch_bytes(8, 8, 2, 64, 2048) == 270_336

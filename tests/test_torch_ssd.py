@@ -199,3 +199,110 @@ def test_chained_plain_ssd_chunk_matches_brute_force(chunk, decay):
         ys.append(y)
     np.testing.assert_allclose(torch.cat(ys, dim=1).numpy(), want_y, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(st.numpy(), want_state, rtol=2e-4, atol=2e-4)
+
+
+def split_bf16(a: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """fp32 ``a`` as ``parts`` bf16 terms (as fp32 tensors): each the bf16
+    rounding of what the terms before it left, as ``split3`` of the CUDA
+    kernel takes hi, mid and lo."""
+    out, rest = [], a
+    for _ in range(parts):
+        term = rest.to(torch.bfloat16).float()
+        out.append(term)
+        rest = rest - term
+    return out
+
+
+def kernel_decay(cum: torch.Tensor, tile: int = 64) -> torch.Tensor:
+    """(B, Lq, Lk, H) fp32 decay as the tensor-core kernel takes it from the
+    float64 prefix sum: below the diagonal tile of row i (j < i0, the first
+    row of i's tile) the product exp(cum_i - cum_i0)·exp(cum_i0 - cum_j) of
+    two decays, each at most 1; on it exp(cum_i - cum_j) directly; 0 above
+    the diagonal."""
+    L = cum.shape[1]
+    i = torch.arange(L)
+    i0 = i // tile * tile
+    direct = torch.exp((cum[:, :, None, :] - cum[:, None, :, :]).float())
+    row = torch.exp((cum - cum[:, i0]).float())  # (B, Lq, H)
+    col = torch.exp((cum[:, i0][:, :, None, :] - cum[:, None, :, :]).float())
+    below = i[None, :] < i0[:, None]  # (Lq, Lk): j < i0
+    causal = i[None, :] <= i[:, None]
+    decay = torch.where(below[None, :, :, None], row[:, :, None, :] * col, direct)
+    return torch.where(causal[None, :, :, None], decay, torch.zeros(()))
+
+
+def tensor_core_emulation(x, dt, dA, Bm, Cm, state, parts=3):
+    """The tensor-core kernel's arithmetic in plain PyTorch, for bf16 x/B/C:
+    products of bf16 operands summed in fp32; W = (C Bᵀ)·decay·dt, with the
+    kernel's decay (``kernel_decay``), fed to W·x as ``parts`` bf16 terms;
+    y_inter = exp(cum_i)·(C stateᵀ), with an fp32 state in ``parts`` terms
+    (a bf16 state is exact); the new state from (x·rem)ᵀ B with x·rem in
+    ``parts`` terms."""
+    cum = torch.cumsum(dA.double(), dim=1)
+    total = cum[:, -1]
+    W = (torch.einsum("blhn,bmhn->blmh", Cm.float(), Bm.float())
+         * kernel_decay(cum) * dt[:, None])
+    y = sum(torch.einsum("blmh,bmhp->blhp", w, x.float()) for w in split_bf16(W, parts))
+    st = state.float()
+    st_parts = [st] if state.dtype == torch.bfloat16 else split_bf16(st, parts)
+    inter = sum(torch.einsum("blhn,bhpn->blhp", Cm.float(), s) for s in st_parts)
+    y = torch.exp(cum.float())[..., None] * inter + y
+    rem = torch.exp((total[:, None, :] - cum).float()) * dt
+    xr = x.float() * rem[..., None]
+    dBx = sum(torch.einsum("blhn,blhp->bhpn", Bm.float(), p) for p in split_bf16(xr, parts))
+    return y, st * torch.exp(total.float())[..., None, None] + dBx
+
+
+def _bf16_inputs(case, state_dtype):
+    shape, decay = CASES[case]
+    x, dt, dA, Bm, Cm, state = _torch(*make_inputs(0, *shape, decay=decay))
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    return x, dt, dA, Bm, Cm, state.to(getattr(torch, state_dtype))
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_three_bf16_parts_keep_the_plain_result_within_the_fp32_bar(case, state_dtype):
+    """bf16 x/B/C at both decays: the kernel's decay, and the hi/mid/lo
+    split of W, of the decayed x and of an fp32 state, keep y and the new
+    state (before any rounding of the output) within the fp32 part of the
+    bar, 1e-5 + 1e-5·|want|, of the plain version computed in fp32 on the
+    same inputs. A bf16 output adds its one rounding on top, and its bar
+    has room for that only."""
+    inputs = _bf16_inputs(case, state_dtype)
+    x, dt, dA, Bm, Cm, state = inputs
+    want_y, want_s = ssd_chunk_ref(x.float(), dt, dA, Bm.float(), Cm.float(),
+                                   state.float())
+    y, s = tensor_core_emulation(*inputs)
+    assert ratio(y, want_y.double().numpy(), FP32_TOL) <= 1
+    assert ratio(s, want_s.double().numpy(), FP32_TOL) <= 1
+
+
+@pytest.mark.parametrize("case", ["kernels_1", "ragged_L33", "slow_L200_P8", "slow_L256"])
+def test_two_bf16_parts_are_not_enough(case):
+    """hi + mid alone drops up to 2**-16 of each term: y misses the fp32
+    part of its bar in these cases (at both decays), and at a slow decay so
+    does an fp32 new state. That is why the kernel feeds three parts."""
+    inputs = _bf16_inputs(case, "float32")
+    x, dt, dA, Bm, Cm, state = inputs
+    want_y, want_s = ssd_chunk_ref(x.float(), dt, dA, Bm.float(), Cm.float(), state)
+    y, s = tensor_core_emulation(*inputs, parts=2)
+    assert ratio(y, want_y.double().numpy(), FP32_TOL) > 1
+    if CASES[case][1] == "slow" and case == "slow_L256":
+        assert ratio(s, want_s.double().numpy(), FP32_TOL) > 1
+
+
+def test_float64_scan_equals_the_sequential_prefix_sum():
+    """The kernel's float64 scan (per-thread runs of 2, a shuffle scan over
+    the threads' totals, then over 4 warps' totals) against a sequential
+    float64 sum: equal far below one float32 rounding of cum."""
+    dA = -np.random.default_rng(11).uniform(0.3, 1.2, 256)
+    per_thread = dA.reshape(128, 2).cumsum(axis=1)
+    totals = per_thread[:, -1]
+    warps = totals.reshape(4, 32).cumsum(axis=1)
+    base = np.concatenate([[0.0], warps[:, -1].cumsum()[:-1]])
+    thread_base = (warps + base[:, None]).reshape(128) - totals
+    scan = (per_thread + thread_base[:, None]).reshape(256)
+    seq = np.cumsum(dA)
+    assert np.abs(scan - seq).max() <= 1e-12 * np.abs(seq).max()
+    assert np.abs(scan - seq).max() < np.spacing(np.float32(np.abs(seq).max())) / 1e3
