@@ -23,34 +23,45 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                at head stride 0) with the original and a slow decay;
 4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
                seed, with the kernel attention and with the plain
-               attention: greedy tokens identical, logits within 1e-4;
+               attention: greedy tokens identical, logits within 1e-4; and
+               every captured, arena-backed step of the first against the
+               model's eager decode_step fed the same inputs (bit for bit
+               expected, else within 1e-6);
 5. serve     — ``repro_torch.launch.serve.run`` on full-width qwen3-0.6b (28
                layers, bf16) with 8 slots x 2048 positions and 8 requests: all
                finish, the state is one buffer of exactly the planned size that
-               never moves, and flash_decode ran on every layer of every step;
+               never moves, every decode step is a replay of the captured step,
+               and its captured flash_decode launches x replays = decode steps
+               x 28; the graph pool's bytes beside the planned arena;
 6. profile   — the same engine on 8 more requests: 8 steady waves timed,
                8 more under torch.profiler (device time per wave, its share
                of the wall time, kernel launches per wave, top kernels);
-7. prefill_parity — a full-width 2-layer fp32 mamba2 prefilled at 600 tokens
+7. serve_block — the serve phase's 8 requests at ``--block-size 8``: the
+               host loop's tokens, one host sync per block, every wave a
+               replay; the same requests again under the decode lint (no
+               findings); then 8 steady blocks timed and 8 profiled;
+8. prefill_parity — a full-width 2-layer fp32 mamba2 prefilled at 600 tokens
                (3 chunks, the last padded) with the kernel SSD core and with
                the plain one, at the random init's decay and at a slow one
                (the state carried between chunks far above the bar, and
                dropping it misses by over 100x the bar): last logits and
                both state leaves agree; then prefill(t[:n]) + 4 decode
                steps agrees with forward(t);
-8. prefill   — full-width mamba2-2.7b (64 layers, bf16) prefills one request
-               of 2048 tokens through ``Model.prefill``: ssd_chunk launched
-               exactly 8 x 64 = 512 times, finite logits, wall and kernel
-               device time, and the planned prefill arena of
-               ``launch.compile.trace_prefill_graph`` beside the caching
-               allocator's peak;
-9. serve_mamba — ``serve.run`` on full-width mamba2-2.7b with 8 slots and 8
-               requests of 32 prompt + 64 new tokens: all finish, and the
-               state is one buffer of exactly the planned size that never
-               moves.
+9. prefill   — full-width mamba2-2.7b (64 layers, bf16) prefills one request
+               of 2048 tokens through ``ArenaExecutor``: ssd_chunk launched
+               exactly 8 x 64 = 512 times, logits and caches equal to the
+               eager prefill's, wall and kernel device time, and the planned
+               prefill arena beside the allocator's peak above it and the
+               eager prefill's peak;
+10. serve_mamba — ``serve.run`` on full-width mamba2-2.7b with 8 slots and 8
+               requests of 32 prompt + 64 new tokens: all finish, every
+               decode step is a replay, and the state is one buffer of
+               exactly the planned size that never moves.
 
-Every path runs at its full depth. The kernel counts are set to 0 just
-before each path (phases 5, 8, 9) and read just after it.
+Every path runs at its full depth. The kernel counts (each wrapper's
+launches plus each replayed graph's captured launches per replay) are set
+to 0 just before each path (phases 5, 9, 10; 7 for its own check) and read
+just after it.
 
 The last three lines are the card's name and power limit, the per-kernel
 record and the ``ok`` line. ``--phases`` runs a subset (no final lines), and
@@ -487,6 +498,14 @@ def phase_kernels_ssd(peak_bw: float) -> dict:
 
 
 def phase_parity() -> None:
+    """A full-width 2-layer fp32 qwen3 served three ways from one seed: the
+    captured, arena-backed step with the kernel attention, the same with
+    the plain attention, and, beside the first, the model's eager
+    ``decode_step`` fed the same inputs at every step (admission steps
+    included) on caches of its own. Logits of the captured step equal
+    the eager step's (bit for bit expected, else within 1e-6) and the
+    plain attention's within 1e-4; greedy tokens and slot logs are
+    identical."""
     import numpy as np
     import torch
 
@@ -503,13 +522,39 @@ def phase_parity() -> None:
                            cores=a)
         for a in ("kernel", "plain")
     }
+    ek, ep = engines["kernel"], engines["plain"]
+    # the eager twin of the kernel engine
+    eager = ek.model.init_cache(4, 128)
+    twin = {"steps": 0, "bitwise": 0, "max_abs_diff": 0.0}
+    step_tokens, reset = ek._step_tokens, ek.state.reset
+
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(DEVICE)
+
+    def checked_step(tokens, pos, active):
+        got = step_tokens(tokens, pos, active)
+        with torch.no_grad():
+            want, _ = ek.model.decode_step(params, dev(tokens), eager, dev(pos),
+                                           dev(active))
+        diff = float((got - want).abs().max())
+        twin["steps"] += 1
+        twin["bitwise"] += int(torch.equal(got, want))
+        twin["max_abs_diff"] = max(twin["max_abs_diff"], diff)
+        if not bool(((got - want).abs() <= 1e-6 + 1e-6 * want.abs()).all()):
+            fail(f"parity: captured step differs from the eager step by {diff}")
+        return got
+
+    def checked_reset(keep):
+        reset(keep)
+        ek.model.reset_slots(eager, dev(keep))
+
+    ek._step_tokens, ek.state.reset = checked_step, checked_reset
     rng = np.random.default_rng(0)
     for n, new in zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)):
         prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
         for e in engines.values():
             e.submit(prompt, max_new_tokens=new)
     worst = 0.0
-    ek, ep = engines["kernel"], engines["plain"]
     done = {"kernel": {}, "plain": {}}
     while ek.unfinished_requests() or ep.unfinished_requests():
         for a, e in engines.items():
@@ -524,23 +569,99 @@ def phase_parity() -> None:
         fail(f"parity: greedy tokens differ {done['kernel']} vs {done['plain']}")
     if ek.slot_log != ep.slot_log:
         fail(f"parity: slot logs differ {ek.slot_log} vs {ep.slot_log}")
+    for leaf, want in zip(torch.utils._pytree.tree_leaves(ek.caches),
+                          torch.utils._pytree.tree_leaves(eager)):
+        if not torch.equal(leaf, want) and \
+                float((leaf - want).abs().max()) > 1e-6 * (1 + float(want.abs().max())):
+            fail("parity: the state differs from the eager twin's caches")
+    if twin["steps"] != ek.decode_calls or ek.state.graphs["step"].replays != ek.decode_calls:
+        fail(f"parity: {twin['steps']} checked steps, {ek.decode_calls} decode steps")
     emit({"phase": "parity", "layers": cfg.n_layers, "waves": ek.waves,
-          "logits_max_abs_diff": worst, "slot_log": ek.slot_log, "ok": True})
+          "decode_steps": ek.decode_calls,
+          "kernel_vs_plain_logits_max_abs_diff": worst,
+          "captured_vs_eager": twin, "slot_log": ek.slot_log, "ok": True})
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.runtime import graphs
 
-    fd.LAUNCHES = 0
-    sc.LAUNCHES = 0
+    graphs.reset_kernel_launches()
 
 
 def read_launches() -> dict:
+    """Every launch of each kernel since the reset: by its wrapper, plus
+    the launches each replayed graph holds, once per replay."""
+    from repro_torch.runtime import graphs
+
+    return graphs.kernel_launches()
+
+
+def wrapper_launches() -> dict:
+    """The launches the wrappers made themselves: while an engine is
+    built and serves, only the warm-up run before each capture."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_chunk as sc
 
     return {"flash_decode": fd.LAUNCHES, "ssd_chunk": sc.LAUNCHES}
+
+
+def check_replayed(phase: str, stats: dict, kernel: str | None) -> dict:
+    """Every decode step of a serve run (counts reset before the engine
+    was built) was a replay: the graphs' replays add up to the decode
+    steps, nothing was captured while serving, the arena stayed put, and
+    ``kernel`` ran once per layer per step, by replays, with the wrapper
+    launching it only in the warm-up run of each capture. Returns the
+    per-graph accounting."""
+    graphs = stats["graphs"]
+    replays = sum(g["replays"] for g in graphs.values())
+    if replays != stats["decode_calls"]:
+        fail(f"{phase}: {replays} graph replays for {stats['decode_calls']} "
+             f"decode steps")
+    if stats["capture_calls_while_serving"]:
+        fail(f"{phase}: {stats['capture_calls_while_serving']} captures while serving")
+    if stats["arena_ptr_before"] != stats["arena_ptr_after"]:
+        fail(f"{phase}: the activation arena moved")
+    layers, warmups = stats["n_layers"], len(graphs)
+    eager = wrapper_launches()
+    want_eager = {k: (layers * warmups if k == kernel else 0) for k in eager}
+    if eager != want_eager:
+        fail(f"{phase}: the wrappers launched {eager}, expected {want_eager} "
+             f"(the warm-up run of each of the {warmups} captures)")
+    if kernel is not None:
+        held = {k: g["launches"][kernel] for k, g in graphs.items()}
+        replayed = sum(held[k] * g["replays"] for k, g in graphs.items())
+        if set(held.values()) != {layers}:
+            fail(f"{phase}: captured {kernel} launches per graph {held}, expected "
+                 f"{layers} (one per layer)")
+        if replayed != stats["decode_calls"] * layers or \
+                read_launches()[kernel] != replayed + eager[kernel]:
+            fail(f"{phase}: {replayed} replayed {kernel} launches, expected "
+                 f"{stats['decode_calls']} decode steps x {layers} layers")
+    return {k: {"captured_launches": g["launches"], "replays": g["replays"]}
+            for k, g in graphs.items()}
+
+
+def graph_stats(stats: dict) -> dict:
+    mib = 2**20
+    return {
+        "capture_calls": stats["capture_calls"],
+        "capture_s": stats["capture_s"],
+        "graph_pool_mib": stats["graph_pool_bytes"] / mib,
+        "graph_capture_peak_mib": stats["graph_capture_peak_bytes"] / mib,
+        "planned_activation_mib": stats["plan_total_bytes"] / mib,
+        "allocator_replay_peak_mib": stats["allocator_step_peak_bytes"] / mib,
+        "executor_in_place": stats["executor_in_place"],
+        "executor_copied": stats["executor_copied"],
+        "executor_copied_bytes": stats["executor_copied_bytes"],
+    }
+
+
+# the serve phases' run: full-width qwen3-0.6b, 8 slots x 2048 positions,
+# 8 requests of 32 prompt + 64 new tokens
+SERVE_ARGS = [
+    "--full", "--arch", "qwen3-0.6b", "--slots", "8", "--max-len", "2048",
+    "--requests", "8", "--prompt-len", "32", "--max-new", "64", "--seed", "0",
+]
 
 
 def phase_serve() -> tuple[dict, object]:
@@ -548,11 +669,7 @@ def phase_serve() -> tuple[dict, object]:
 
     n_req, prompt_len, max_new = 8, 32, 64
     reset_launches()
-    stats = serve.run([
-        "--full", "--arch", "qwen3-0.6b", "--slots", "8", "--max-len", "2048",
-        "--requests", str(n_req), "--prompt-len", str(prompt_len),
-        "--max-new", str(max_new), "--seed", "0",
-    ])
+    stats = serve.run(SERVE_ARGS)
     counts = read_launches()
     launches = counts["flash_decode"]
     toks = stats["tokens_per_request"]
@@ -568,25 +685,88 @@ def phase_serve() -> tuple[dict, object]:
              f"{stats['state_planned_bytes']} B")
     if stats["state_ptr_before"] != stats["state_ptr_after"]:
         fail("serve: the state buffer moved")
-    if launches != stats["decode_calls"] * stats["n_layers"]:
-        fail(f"serve: {launches} flash_decode launches, expected "
-             f"{stats['decode_calls']} decode steps x {stats['n_layers']} layers")
+    replayed = check_replayed("serve", stats, "flash_decode")
+    if stats["capture_calls"] != 1:
+        fail(f"serve: {stats['capture_calls']} graphs captured, expected 1")
     emit({
         "phase": "serve", "arch": "qwen3-0.6b", "layers": stats["n_layers"],
         "requests": stats["requests"], "tokens": stats["tokens"],
         "waves": stats["waves"], "decode_steps": stats["decode_calls"],
+        "host_syncs": stats["host_syncs"],
         "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
         "cold_start_s": stats["cold_start_s"],
-        "launches": counts,
-        "planned_activation_mib": stats["plan_total_bytes"] / 2**20,
+        "launches": counts, "graphs": replayed, **graph_stats(stats),
         "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
         "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
-        "allocator_step_peak_mib": stats["allocator_step_peak_bytes"] / 2**20,
         "state_mib": stats["state_live_bytes"] / 2**20,
+        "decode_step_ops": stats["decode_step_ops"],
         "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
         "ok": True,
     })
-    return {"launches": launches}, stats["engine"]
+    return {"launches": launches, "tokens": toks}, stats["engine"]
+
+
+def phase_serve_block(host_tokens: dict | None) -> None:
+    """The serve phase's 8 requests at ``--block-size 8``: the host loop's
+    tokens, one host sync per block, every wave a replay of the captured
+    wave graph; then the same requests again under the decode lint (no
+    findings), then a steady window of full blocks, timed and profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_lint
+    from repro_torch.launch import serve
+
+    reset_launches()
+    stats = serve.run(SERVE_ARGS + ["--block-size", "8"])
+    counts = read_launches()
+    toks = stats["tokens_per_request"]
+    if host_tokens is not None and toks != host_tokens:
+        fail("serve_block: the block tokens differ from the host loop's")
+    if stats["host_syncs"] != stats["blocks"]:
+        fail(f"serve_block: {stats['host_syncs']} host syncs for {stats['blocks']} blocks")
+    if stats["capture_calls"] != 2:
+        fail(f"serve_block: {stats['capture_calls']} graphs captured, expected 2")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail("serve_block: the state buffer moved")
+    replayed = check_replayed("serve_block", stats, "flash_decode")
+    engine = stats["engine"]
+    cfg = engine.cfg
+    rng = np.random.default_rng(0)  # serve.run's prompts
+    for _ in range(8):
+        engine.submit(rng.integers(0, cfg.vocab, size=32).astype(np.int32),
+                      max_new_tokens=64)
+    again = {}
+
+    def run():
+        again.update({r.request_id - 8: r.tokens for r in engine.run_until_done()})
+
+    findings = decode_lint.lint_run(engine, run)
+    if findings:
+        fail(f"serve_block: decode lint findings {[f.render() for f in findings]}")
+    if again != toks:
+        fail("serve_block: the linted run served other tokens")
+    # a steady window: 8 slots decoding full blocks of 8 waves
+    blocks, n_req = 8, 8
+    for _ in range(n_req):
+        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
+                      max_new_tokens=8 * (2 * blocks + 2))
+    engine.step_block()  # admits every request
+    prof, _ = serve.profile_waves(engine, blocks, blocks_of_waves=True)
+    engine.run_until_done()
+    emit({
+        "phase": "serve_block", "arch": cfg.name, "layers": stats["n_layers"],
+        "block_size": stats["block_size"], "requests": stats["requests"],
+        "tokens": stats["tokens"], "waves": stats["waves"],
+        "decode_steps": stats["decode_calls"], "blocks": stats["blocks"],
+        "host_syncs": stats["host_syncs"], "wall_s": stats["wall_s"],
+        "tokens_per_s": stats["tokens_per_s"], "cold_start_s": stats["cold_start_s"],
+        "launches": counts, "graphs": replayed, **graph_stats(stats),
+        "tokens_equal_host_loop": host_tokens is not None,
+        "decode_lint_findings": 0, "steady": prof, "ok": True,
+    })
+    del engine, stats
+    torch.cuda.empty_cache()
 
 
 def phase_profile(engine) -> None:
@@ -610,7 +790,7 @@ def phase_profile(engine) -> None:
     if not prof["device_ms_per_wave"] > 0:
         fail("profile: the profiler saw no device time")
     emit({"phase": "profile", "decode_step_ops": len(engine.decode_graph.ops),
-          **prof, "ok": True})
+          "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
 
 
 def _mamba_model(n_periods: int | None, dtype: str, seed: int):
@@ -732,44 +912,77 @@ def phase_prefill_parity() -> None:
 
 def phase_prefill() -> dict:
     """Full-width mamba2-2.7b (64 layers, bf16): one 2048-token request
-    through Model.prefill."""
+    through ``ArenaExecutor`` (every intermediate at its planned offset in
+    one arena, each ssd_chunk result copied into its slot), against the
+    eager ``Model.prefill`` on the same weights and tokens."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.launch.compile import plan_prefill
+    from repro_torch.runtime.executor import ArenaExecutor
 
     S = 2048
+    mib = 2**20
     cfg, model, params = _mamba_model(None, "bfloat16", 0)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
     t0 = time.perf_counter()
-    graph, plan = plan_prefill(cfg, prefill_len=S)
+    _, meta_plan = plan_prefill(cfg, prefill_len=S)
     plan_s = time.perf_counter() - t0
+
+    def prefill(p, t):
+        return model.prefill(p, {"tokens": t})
+
+    t0 = time.perf_counter()
+    executor = ArenaExecutor(prefill, params, tokens, device=DEVICE,
+                             name=f"{cfg.name}-prefill{S}")
+    executor_s = time.perf_counter() - t0
+    arena_ptr = executor.arena.buf.data_ptr()
     with torch.no_grad():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
+        base = torch.cuda.memory_allocated()  # the arena included
         reset_launches()
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": tokens})
+        logits, caches = executor(params, tokens)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = read_launches()
-        peak = torch.cuda.max_memory_allocated() - base
-        finite = bool(torch.isfinite(logits).all())
-        del logits, caches
+        peak_above_arena = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want_logits, want_caches = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        diffs, bitwise = {}, True
+        for name, g, w in [("logits", logits, want_logits)] + [
+                (f"cache{i}", g, w) for i, (g, w) in enumerate(zip(
+                    torch.utils._pytree.tree_leaves(caches),
+                    torch.utils._pytree.tree_leaves(want_caches)))]:
+            bitwise = bitwise and torch.equal(g, w)
+            diffs[name] = float((g.float() - w.float()).abs().max())
+            if not bool(((g.float() - w.float()).abs()
+                         <= 1e-6 + 1e-6 * w.float().abs()).all()):
+                fail(f"prefill: the arena-backed {name} differs from eager by "
+                     f"{diffs[name]}")
+        finite = bool(torch.isfinite(logits.float()).all())
+        del logits, caches, want_logits, want_caches
+        t0 = time.perf_counter()
+        executor(params, tokens)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        eager_warm_s = time.perf_counter() - t0
         # one prefill with the tracer on but discarded, then the one read:
         # a single traced run once missed a kernel's record on an H100
         # (511 of the 512 ssd_chunk launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
-                model.prefill(params, {"tokens": tokens})
+                executor(params, tokens)
                 torch.cuda.synchronize()
                 prof.step()
     # the schedule's step annotation (ProfilerStep#) also lies on the
@@ -787,22 +1000,37 @@ def phase_prefill() -> dict:
         fail("prefill: non-finite logits")
     if ssd_count != n_chunks * cfg.n_layers or ssd_us <= 0:
         fail(f"prefill: the profiler saw {ssd_count} ssd_chunk kernels")
+    if executor.arena.buf.data_ptr() != arena_ptr:
+        fail("prefill: the arena moved")
+    if executor.plan.total_size != meta_plan.total_size:
+        fail(f"prefill: the executor planned {executor.plan.total_size} B, the "
+             f"meta trace {meta_plan.total_size} B")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    st = executor.stats
     row = {"phase": "prefill", "arch": cfg.name, "layers": cfg.n_layers,
            "tokens": S, "launches": counts, "first_wall_s": first_s,
            "warm_wall_s": warm_s, "tokens_per_s_warm": S / warm_s,
+           "eager_warm_wall_s": eager_warm_s,
            "device_ms": device_us / 1e3, "ssd_chunk_device_ms": ssd_us / 1e3,
            "ssd_chunk_us_per_launch": ssd_us / ssd_count,
            "device_kernel_launches": sum(e.count for e in kernels),
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                               for e in top},
-           "traced_ops": len(graph.ops), "plan_s": plan_s,
-           "planned_activation_mib": plan.total_size / 2**20,
-           "activation_lower_bound_mib": plan.lower_bound / 2**20,
-           "activation_naive_mib": plan.naive_size / 2**20,
-           "allocator_peak_mib": peak / 2**20, "ok": True}
+           "traced_ops": len(executor.graph.ops), "plan_s": plan_s,
+           "executor_build_s": executor_s,
+           "planned_activation_mib": executor.plan.total_size / mib,
+           "activation_lower_bound_mib": executor.plan.lower_bound / mib,
+           "activation_naive_mib": executor.plan.naive_size / mib,
+           "arena_mib": executor.arena.nbytes / mib,
+           "allocator_peak_above_arena_mib": peak_above_arena / mib,
+           "eager_allocator_peak_mib": eager_peak / mib,
+           "executor_in_place": st.n_in_place, "executor_copied": st.n_copied,
+           "executor_boundary": st.n_boundary,
+           "executor_copied_mib_per_call": st.copied_bytes / mib,
+           "equal_to_eager_bitwise": bitwise, "max_abs_diff_vs_eager": diffs,
+           "ok": True}
     emit(row)
-    del params, model
+    del params, model, executor
     torch.cuda.empty_cache()
     return row
 
@@ -835,6 +1063,7 @@ def phase_serve_mamba() -> None:
              f"{stats['state_planned_bytes']} B")
     if stats["state_ptr_before"] != stats["state_ptr_after"]:
         fail("serve_mamba: the state buffer moved")
+    replayed = check_replayed("serve_mamba", stats, None)
     _, H, conv_dim = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                               cfg.ssm_groups, cfg.ssm_state)
     itemsize = getattr(torch, cfg.dtype).itemsize
@@ -849,9 +1078,9 @@ def phase_serve_mamba() -> None:
         "waves": stats["waves"], "decode_steps": stats["decode_calls"],
         "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
         "cold_start_s": stats["cold_start_s"], "launches": counts,
+        "host_syncs": stats["host_syncs"],
         "decode_step_ops": stats["decode_step_ops"],
-        "planned_activation_mib": stats["plan_total_bytes"] / 2**20,
-        "allocator_step_peak_mib": (stats["allocator_step_peak_bytes"] or 0) / 2**20,
+        "graphs": replayed, **graph_stats(stats),
         "state_mib": stats["state_live_bytes"] / 2**20,
         "state_leaves_mib": raw / 2**20,
         "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
@@ -862,7 +1091,7 @@ def phase_serve_mamba() -> None:
 
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
-          "prefill_parity", "prefill", "serve_mamba")
+          "serve_block", "prefill_parity", "prefill", "serve_mamba")
 
 
 def main() -> None:
@@ -896,12 +1125,16 @@ def main() -> None:
     launches = {}
     if "parity" in phases:
         phase_parity()
+    host_tokens = None
     if "serve" in phases:
         serve, engine = phase_serve()
         launches["flash_decode"] = serve["launches"]
+        host_tokens = serve["tokens"]
         if "profile" in phases:
             phase_profile(engine)
         del engine
+    if "serve_block" in phases:
+        phase_serve_block(host_tokens)
     if "prefill_parity" in phases:
         phase_prefill_parity()
     if "prefill" in phases:

@@ -25,9 +25,15 @@ The split count comes from the shapes only, so the grid never depends on
 with ``torch.empty`` on every call, and keeps one int32 count per
 ``(b, kv_head)`` for each device and stream, which the kernel leaves at
 0; the op has no input for either, so a traced plan does not see them.
-Calls on two streams use two sets of counts, so they may overlap.
+Calls on two streams use two sets of counts, so they may overlap. Under
+CUDA graph capture the scratch comes from the graph's pool, and the
+counts must exist before the capture begins (``_counters``): graphs
+captured on one stream share that stream's counts, so they are replayed
+one at a time.
 
 ``LAUNCHES`` counts kernel launches (the CUDA path only), one per call.
+A call under CUDA graph capture launches nothing: ``runtime/graphs.py``
+takes it off the count and adds the graph's launches at each replay.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ MAX_SPLITS = 64  # kMaxSplits of csrc/flash_decode.cu
 _FN = None
 # (device, stream handle) -> int32 counts of finished spans
 _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+# counts replaced by larger ones: a graph captured with them still uses them
+_RETIRED: list[torch.Tensor] = []
 
 
 def _kernel():
@@ -136,10 +144,27 @@ def _check_cuda_layout(q, k_cache, v_cache, lengths) -> None:
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """The int32 counts of finished spans of one stream on ``device``, at
     least ``n``; zero when made, and every call leaves them at zero. Each
-    stream has its own, so the kernels of two streams never share one."""
+    stream has its own, so the kernels of two streams never share one.
+
+    They are never made while a CUDA graph is captured on the stream:
+    made then, they would come from that graph's private pool (and their
+    zero fill would be captured), while every later graph captured on
+    the same stream would point at them too and outlive the first. A
+    capture must follow a warm-up call on its stream, which makes them
+    from the allocator's ordinary memory. Counts that larger ones
+    replace are kept alive, since a graph captured with them reads them
+    at every replay."""
     key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode: the stream being captured has no counts of "
+                f"{n} spans yet; run the step once on that stream before "
+                "capturing it"
+            )
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf

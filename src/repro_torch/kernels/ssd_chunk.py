@@ -20,7 +20,9 @@ one dtype (float32 or bfloat16); the state has its own (float32 or
 bfloat16). Returns y ``(B, L, H, P)`` in x's dtype and the new state
 ``(B, H, P, N)`` in the state's dtype, both contiguous.
 
-``LAUNCHES`` counts kernel launches (the CUDA path only).
+``LAUNCHES`` counts kernel launches (the CUDA path only). A call under
+CUDA graph capture launches nothing: ``runtime/graphs.py`` takes it off
+the count and adds the graph's launches at each replay.
 """
 
 from __future__ import annotations

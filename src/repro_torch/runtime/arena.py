@@ -130,6 +130,20 @@ class DeviceArena:
         off = self.check(tensor_id, nbytes)
         return buf[off : off + nbytes].view(dtype).view(tuple(shape))
 
+    def strided_view(self, buf: torch.Tensor, tensor_id: int, shape, stride,
+                     dtype) -> torch.Tensor:
+        """The tensor's planned bytes in ``buf`` as a view of ``shape``
+        with element strides ``stride`` (a traced value's layout, dense
+        or permuted). The bytes it spans from its first element to its
+        last must fit the planned slot, or this raises."""
+        shape, stride = tuple(int(n) for n in shape), tuple(int(s) for s in stride)
+        if len(shape) != len(stride) or any(s < 0 for s in stride):
+            raise ValueError(f"tensor {tensor_id}: bad strides {stride} for {shape}")
+        span = 0 if 0 in shape else 1 + sum((n - 1) * s for n, s in zip(shape, stride))
+        nbytes = span * dtype.itemsize
+        off = self.check(tensor_id, nbytes)
+        return buf[off : off + nbytes].view(dtype).as_strided(shape, stride)
+
     def store(self, buf: torch.Tensor, tensor_id: int, value: torch.Tensor) -> torch.Tensor:
         """Copy ``value`` into its planned slot; returns the view."""
         dst = self.view(buf, tensor_id, value.shape, value.dtype)
@@ -154,6 +168,9 @@ class Arena:
 
     def view(self, tensor_id: int, shape, dtype) -> torch.Tensor:
         return self._arena.view(self.buf, tensor_id, shape, dtype)
+
+    def strided_view(self, tensor_id: int, shape, stride, dtype) -> torch.Tensor:
+        return self._arena.strided_view(self.buf, tensor_id, shape, stride, dtype)
 
     def store(self, tensor_id: int, value: torch.Tensor) -> torch.Tensor:
         return self._arena.store(self.buf, tensor_id, value)

@@ -7,7 +7,12 @@ Port of the reference's ``runtime/residency.py``:
   leaf-view spec and validates the binding completely (path sets, dtypes,
   per-slot byte sizes, the slot axis extent, the slot stride), so a stale
   or foreign plan fails at construction instead of corrupting state;
-* :class:`ResidentState` is the serving backend built on it.
+* :class:`ResidentState` is the serving backend built on it: it runs
+  the decode step through the arena executor (``runtime/executor.py``),
+  as captured CUDA graphs on the card (``runtime/graphs.py``), and it
+  runs blocks of decode waves with on-device sampling
+  (:func:`_block_wave`, :class:`BlockOut`; reference
+  ``residency.py:281-372``).
 
 Each cache leaf is a ZERO-COPY strided view into the one ``uint8``
 buffer: the buffer reinterpreted as the leaf dtype, then ``as_strided``
@@ -20,12 +25,15 @@ and slot reset is an in-place masked multiply. Live state bytes equal
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core.unified import StatePlan, dtype_name, iter_leaves
+from repro_torch.runtime import graphs
 from repro_torch.runtime.arena import ArenaLayout, DeviceArena
 
 
@@ -156,22 +164,224 @@ class StateResidency:
         return _rebuild(self.template, leaves)
 
 
+@dataclasses.dataclass
+class BlockOut:
+    """One dispatched block's per-wave outputs, on their way to the host:
+    the token chosen at each wave and whether the slot emitted it, copied
+    without a host sync. The post-block carry (tokens, positions, stop
+    flags, budgets, keys) stays in the block wave's static inputs on the
+    device, where the next block chains off it."""
+
+    wave_tokens: torch.Tensor  # (K, n_slots) int32 on the host
+    emitted: torch.Tensor  # (K, n_slots) bool on the host
+    ready: Any = None  # CUDA event recorded after the copies (None on the CPU)
+
+    def fetch(self) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for the copies (the block's one host sync) and return
+        them as numpy arrays."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.wave_tokens.numpy(), self.emitted.numpy()
+
+
+def _block_wave(decode, sampler, tokens, pos, active, done, budget, keys, eos):
+    """One block wave: decode at ``active & ~done``, then the sampler's
+    on-device token selection and stop bookkeeping. Inactive and frozen
+    slots keep their token and position, so the cache write stays
+    idempotent for them, the same invariant the host loop relies on.
+    Returns the carry and the wave's (token, emitted) rows."""
+    step_active = active & torch.logical_not(done)
+    logits = decode(tokens, pos, step_active)
+    keys, tokens, pos, done, budget = sampler.advance(
+        logits, keys, tokens, pos, step_active, done, budget, eos
+    )
+    return (tokens, pos, done, budget, keys), (tokens[:, 0], step_active)
+
+
+class _Static:
+    """Named device tensors a step reads and writes in place."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        self.__dict__.update(tensors)
+
+
 class ResidentState:
     """Serving backend: the cross-step state is ONE buffer of exactly
     ``StatePlan.total_size`` bytes, and the cache the decode step reads
-    and writes is a set of views into it."""
+    and writes is a set of views into it.
+
+    :meth:`start` binds the arena executor that runs the decode step.
+    Every step then reads static input tensors that :meth:`decode` and
+    :meth:`decode_block` fill from the host. On the card each kind of
+    step is a :class:`~repro_torch.runtime.graphs.CapturedStep`, replayed:
+    the host-loop step (logits out, admission steps included) and, with
+    ``block_size > 1``, one block wave (decode, the sampler, and a write
+    of row ``k`` of the block's outputs, ``k`` a device counter), so a
+    block of K waves is K replays of one graph whatever K is. On the CPU
+    the same functions run eagerly."""
 
     def __init__(self, model, residency: StateResidency, device):
         self.model = model
-        self.buf = residency.init_buffer(device)
+        self.device = torch.device(device)
+        self.buf = residency.init_buffer(self.device)
         self.caches = residency.views(self.buf)
+        self.graphs: dict[str, Any] = {}
+        self.pool = None
+        # set by analysis/decode_lint: raise on any host sync while a
+        # block's waves are replayed
+        self.sync_guard = False
 
-    def decode(self, params, tokens, pos, active):
-        logits, _ = self.model.decode_step(params, tokens, self.caches, pos, active)
-        return logits
+    # ------------------------------------------------------------- bind
+    def start(self, executor, params, rope_freqs, sampler, *, n_slots: int,
+              block_size: int) -> None:
+        """Build the static inputs and, on the card, capture the steps."""
+        n, dev = n_slots, self.device
+        caches = self.caches
 
-    def reset(self, keep: torch.Tensor) -> None:
-        self.model.reset_slots(self.caches, keep)
+        def decode(tokens, pos, active):
+            logits, _ = executor(params, rope_freqs, tokens, caches, pos, active)
+            return logits
+
+        self._s = s = _Static(
+            tokens=torch.zeros((n, 1), dtype=torch.int32, device=dev),
+            pos=torch.zeros((n,), dtype=torch.int32, device=dev),
+            active=torch.zeros((n,), dtype=torch.bool, device=dev),
+        )
+
+        def step():
+            return decode(s.tokens, s.pos, s.active).float()
+
+        self._step = step
+        self._wave = None
+        if block_size > 1:
+            self._w = w = _Static(
+                tokens=torch.zeros((n, 1), dtype=torch.int32, device=dev),
+                pos=torch.zeros((n,), dtype=torch.int32, device=dev),
+                active=torch.zeros((n,), dtype=torch.bool, device=dev),
+                done=torch.zeros((n,), dtype=torch.bool, device=dev),
+                budget=torch.zeros((n,), dtype=torch.int32, device=dev),
+                keys=torch.zeros((n, 2), dtype=torch.int64, device=dev),
+                eos=torch.full((), -1, dtype=torch.int32, device=dev),
+                k=torch.zeros((1,), dtype=torch.int64, device=dev),
+                wave_tokens=torch.zeros((block_size, n), dtype=torch.int32,
+                                        device=dev),
+                emitted=torch.zeros((block_size, n), dtype=torch.bool, device=dev),
+            )
+
+            def wave():
+                (tokens, pos, done, budget, keys), (tok, emitted) = _block_wave(
+                    decode, sampler, w.tokens, w.pos, w.active, w.done,
+                    w.budget, w.keys, w.eos,
+                )
+                w.tokens.copy_(tokens)
+                w.pos.copy_(pos)
+                w.done.copy_(done)
+                w.budget.copy_(budget)
+                w.keys.copy_(keys)
+                w.wave_tokens.index_copy_(0, w.k, tok[None])
+                w.emitted.index_copy_(0, w.k, emitted[None])
+                w.k.add_(1)
+
+            self._wave = wave
+        if dev.type == "cuda":
+            # every slot inactive: the warm-up run leaves the state as it is
+            self.pool = graphs.GraphPool(dev)
+            self.graphs["step"] = graphs.CapturedStep(step, self.pool, name="step")
+            self._step = self.graphs["step"].replay
+            if self._wave is not None:
+                self.graphs["wave"] = graphs.CapturedStep(self._wave, self.pool,
+                                                          name="wave")
+                self._wave = self.graphs["wave"].replay
+
+    # ------------------------------------------------------------- host
+    def _put(self, dst: torch.Tensor, arr) -> None:
+        """Copy a host array into a static input without waiting: from a
+        fresh pinned copy on the card (the host keeps editing its arrays
+        while the copy may be in flight)."""
+        src = torch.from_numpy(np.array(arr))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src.reshape(dst.shape), non_blocking=True)
+
+    def _to_host(self, src: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``src``, queued without waiting (into pinned
+        memory on the card)."""
+        if self.device.type != "cuda":
+            return src.clone()
+        dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        dst.copy_(src, non_blocking=True)
+        return dst
+
+    def _copied(self):
+        """An event after the copies queued so far (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    # ------------------------------------------------------------ steps
+    def decode(self, tokens, pos, active) -> torch.Tensor:
+        """One host-loop step (a replay on the card): float32 logits
+        (n_slots, vocab) on the device, valid until the next step."""
+        s = self._s
+        self._put(s.tokens, tokens)
+        self._put(s.pos, pos)
+        self._put(s.active, active)
+        return self._step()
+
+    def fetch_logits(self, logits: torch.Tensor) -> np.ndarray:
+        """The step's logits on the host (a host sync)."""
+        host, ev = self._to_host(logits), self._copied()
+        if ev is not None:
+            ev.synchronize()
+        return host.numpy()
+
+    def init_keys(self, keys: torch.Tensor) -> torch.Tensor:
+        """Set the block wave's per-slot keys; returns the device keys,
+        which the waves then advance in place."""
+        self._w.keys.copy_(keys)
+        return self._w.keys
+
+    def decode_block(self, tokens, pos, active, budget, eos: int, *,
+                     length: int) -> BlockOut:
+        """``length`` block waves from the host's tokens, positions,
+        active mask and budgets, stop flags cleared. Returns without a
+        host sync."""
+        w = self._w
+        self._put(w.tokens, tokens)
+        self._put(w.pos, pos)
+        self._put(w.active, active)
+        self._put(w.budget, budget)
+        self._put(w.eos, np.int32(eos))
+        w.done.zero_()
+        return self.continue_block(length=length)
+
+    def continue_block(self, *, length: int) -> BlockOut:
+        """``length`` more block waves off the carry the last block left
+        on the device (no host input at all)."""
+        w = self._w
+        w.k.zero_()
+        guard = self.sync_guard and self.device.type == "cuda"
+        if guard:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(length):
+                self._wave()
+            out = BlockOut(wave_tokens=self._to_host(w.wave_tokens[:length]),
+                           emitted=self._to_host(w.emitted[:length]),
+                           ready=self._copied())
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    def reset(self, keep) -> None:
+        """Zero the state of the slots where ``keep`` is False."""
+        dev_keep = torch.empty((len(keep),), dtype=torch.bool, device=self.device)
+        self._put(dev_keep, keep)
+        self.model.reset_slots(self.caches, dev_keep)
 
     @property
     def live_bytes(self) -> int:

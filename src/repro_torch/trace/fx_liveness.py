@@ -20,10 +20,22 @@ its output stands for the aliased tensor, whose lifetime it extends.
 Custom ops trace as ONE node through their fake implementation (the
 attention kernel is one operator, as a ``pallas_call`` is one jaxpr
 equation).
+
+A tensor is sized by its extent under its traced strides (the bytes an
+``as_strided`` view of it spans), which is ``prod(shape) × itemsize``
+for every dense layout, permuted ones included. A value with gaps
+between its elements would need more; no node of the ported decode
+steps or prefills produces one (``tests/test_torch_executor.py``).
+
+``trace_fx`` keeps what the arena executor (``runtime/executor.py``)
+needs beside the Graph: the ``GraphModule``, the fx node → tensor-id
+map, and the tensors each producing node creates (the counterpart of the
+reference's ``graph.var_tid``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import operator
 from typing import Any, Callable
@@ -50,8 +62,16 @@ def _returns_alias(node: torch.fx.Node) -> bool:
     return any(r.alias_info is not None for r in schema.returns)
 
 
+def extent(val: torch.Tensor) -> int:
+    """Elements an ``as_strided`` view of ``val``'s shape and strides
+    spans from its first element to its last (0 when empty)."""
+    if val.numel() == 0:
+        return 0
+    return 1 + sum((n - 1) * s for n, s in zip(val.shape, val.stride()))
+
+
 def _nbytes(val: torch.Tensor) -> int:
-    return max(math.prod(val.shape) * val.element_size(), 1)
+    return max(max(math.prod(val.shape), extent(val)) * val.element_size(), 1)
 
 
 class _Builder:
@@ -61,6 +81,8 @@ class _Builder:
         self.boundary: set[int] = set()
         # fx node -> tensor id, or a tuple of ids for multi-output nodes
         self.node_tid: dict[torch.fx.Node, Any] = {}
+        # producing node -> the ids of the tensors it creates
+        self.produced: dict[torch.fx.Node, tuple[int, ...]] = {}
 
     def new_tensor(self, val: torch.Tensor, name: str) -> int:
         tid = len(self.tensors)
@@ -117,7 +139,11 @@ class _Builder:
             and isinstance(first, torch.fx.Node)
             and isinstance(self.node_tid.get(first), int)
         ):
-            self.node_tid[node] = self.node_tid[first]
+            base = self.node_tid[first]
+            # a list of views (split, unbind) aliases the base in every item
+            self.node_tid[node] = (
+                (base,) * len(val) if isinstance(val, (tuple, list)) else base
+            )
             self.ops.append(Op(name=name, inputs=tuple(ins), outputs=()))
             return
         if isinstance(val, torch.Tensor):
@@ -133,13 +159,32 @@ class _Builder:
             self.node_tid[node] = outs
         else:  # no tensor result (e.g. a size)
             outs = ()
+        if outs:
+            self.produced[node] = outs
         self.ops.append(Op(name=name, inputs=tuple(ins), outputs=outs))
 
 
-def graph_from_fx(gm: torch.fx.GraphModule, name: str = "fx") -> Graph:
-    """Convert a traced fx GraphModule (aten-level, with ``meta["val"]``)
-    to a Graph."""
+@dataclasses.dataclass
+class FxTrace:
+    """One trace: the fx program, its usage-record Graph, and the map
+    between the two."""
+
+    gm: torch.fx.GraphModule
+    graph: Graph
+    # fx node -> tensor id (or a tuple of ids for multi-output nodes)
+    node_tid: dict[torch.fx.Node, Any]
+    # nodes that create tensors -> the ids of those tensors, in the order
+    # of the node's results
+    produced: dict[torch.fx.Node, tuple[int, ...]]
+
+
+def trace_fx(fn: Callable, *args, name: str | None = None) -> FxTrace:
+    """Trace ``fn(*args)`` (pytrees of tensors allowed) on fake tensors
+    into an aten-level fx program and its usage-record Graph. Real input
+    tensors are only read for their metadata."""
     global TRACE_CALLS
+    with torch.no_grad():
+        gm = make_fx(fn, tracing_mode="fake")(*args)
     TRACE_CALLS += 1
     b = _Builder()
     output = None
@@ -151,16 +196,12 @@ def graph_from_fx(gm: torch.fx.GraphModule, name: str = "fx") -> Graph:
     if output is not None:
         for t in b.inputs_of(output):
             b.boundary.add(t)
-    g = Graph(name=name, ops=b.ops, tensors=b.tensors,
-              boundary_ids=frozenset(b.boundary))
+    g = Graph(name=name or getattr(fn, "__name__", "fn"), ops=b.ops,
+              tensors=b.tensors, boundary_ids=frozenset(b.boundary))
     g.validate()
-    return g
+    return FxTrace(gm=gm, graph=g, node_tid=b.node_tid, produced=b.produced)
 
 
 def trace_graph(fn: Callable, *args, name: str | None = None) -> Graph:
-    """Trace ``fn(*args)`` (pytrees of tensors allowed) on fake tensors and
-    return its Graph. Real input tensors are only read for their
-    metadata."""
-    with torch.no_grad():
-        gm = make_fx(fn, tracing_mode="fake")(*args)
-    return graph_from_fx(gm, name=name or getattr(fn, "__name__", "fn"))
+    """Trace ``fn(*args)`` on fake tensors and return its Graph."""
+    return trace_fx(fn, *args, name=name).graph

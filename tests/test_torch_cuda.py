@@ -11,7 +11,10 @@ version against the JAX oracle on the CPU), and the served engine is
 held against the same engine with the plain attention. The CUDA
 ``ssd_chunk`` is held against its plain version on the cases of
 ``tests/test_torch_ssd.py``, and Mamba2 prefill through the kernel
-against prefill through the plain version.
+against prefill through the plain version. The engine's captured steps
+are held against the eager decode step, its blocks against its host
+loop, and ``flash_decode`` inside captured graphs against its plain
+version.
 """
 
 import dataclasses
@@ -29,6 +32,8 @@ from repro_torch.kernels.ref import flash_decode_ref, ssd_chunk_ref  # noqa: E40
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.api import DecoderModel  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
+from repro_torch.analysis import counters, decode_lint  # noqa: E402
+from repro_torch.runtime import graphs  # noqa: E402
 from repro_torch.runtime.engine import InferenceEngine  # noqa: E402
 from repro_torch.runtime.residency import StateResidency  # noqa: E402
 
@@ -195,7 +200,9 @@ def test_a_cuda_tensor_never_reaches_the_plain_version(cuda):
 
 def test_served_engine_runs_the_kernel_on_every_layer(cuda):
     """Kernel and plain attention serve the same greedy tokens (fp32), and
-    the kernel engine launches the kernel once per layer per decode step."""
+    the kernel engine launches the kernel once per layer per decode step:
+    each step is a replay of the captured step, which holds one launch
+    per layer, and the wrapper launches nothing while serving."""
     cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), n_periods=2)
     params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
     rng = np.random.default_rng(7)
@@ -207,9 +214,12 @@ def test_served_engine_runs_the_kernel_on_every_layer(cuda):
         ptr = eng.state.buf.data_ptr()
         for prompt, new in zip(prompts, (4, 6, 3)):
             eng.submit(prompt, max_new_tokens=new)
-        before = fd.LAUNCHES
+        graphs.reset_kernel_launches()
         done = eng.run_until_done(raise_on_exhausted=True)
-        launches = fd.LAUNCHES - before
+        launches = graphs.kernel_launches()["flash_decode"]
+        assert fd.LAUNCHES == 0
+        step = eng.state.graphs["step"]
+        assert launches == step.launches["flash_decode"] * step.replays
         assert eng.state.buf.data_ptr() == ptr
         assert eng.memory_report.state_live_bytes == eng.memory_report.state_planned_bytes
         assert eng.memory_report.allocator_step_peak_bytes is not None
@@ -334,3 +344,191 @@ def test_mamba_prefill_runs_the_kernel_once_per_chunk(cuda, decay, monkeypatch):
         _, forgot = plain.prefill(params, {"tokens": tokens})
         err = (forgot["period"][0]["mamba"][1] - want_state).abs()
         assert float((err / (1e-4 + 1e-4 * want_state.abs())).max()) > 100
+
+
+# ------------------------------------------------ captured decode steps
+
+
+def _qwen(cuda, seed=0):
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), n_periods=2)
+    return cfg, DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(seed))
+
+
+def _serve(eng, cfg, seed=7, sizes=(1, 5, 3, 4), new=(4, 6, 3, 5)):
+    rng = np.random.default_rng(seed)
+    for n, m in zip(sizes, new):
+        eng.submit(rng.integers(0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=m)
+    done = eng.run_until_done(raise_on_exhausted=True)
+    return {r.request_id: r.tokens for r in done}
+
+
+def test_captured_replay_equals_the_eager_step(cuda):
+    """The arena-backed step replayed from its CUDA graph against the
+    model's eager decode step on its own caches, step by step: logits and
+    every cache leaf within 1e-6 (fp32; bit for bit expected)."""
+    cfg, params = _qwen(cuda)
+    n, T = 3, 32
+    eng = InferenceEngine(cfg, params, n_slots=n, max_len=T, device=cuda)
+    assert eng.memory_report.capture_calls == 1 and "step" in eng.state.graphs
+    eager = eng.model.init_cache(n, T)
+    rng = np.random.default_rng(8)
+    pos = np.zeros(n, np.int32)
+    for mask in ([1, 1, 1], [1, 0, 1], [0, 1, 1], [1, 1, 1]):
+        tok = rng.integers(0, cfg.vocab, size=(n, 1)).astype(np.int32)
+        act = np.array(mask, bool)
+        got = eng.state.decode(tok, pos, act).clone()
+        want, _ = eng.model.decode_step(params, torch.from_numpy(tok).to(cuda), eager,
+                                        torch.from_numpy(pos).to(cuda),
+                                        torch.from_numpy(act).to(cuda))
+        torch.testing.assert_close(got, want.float(), atol=1e-6, rtol=1e-6)
+        for g, w in zip(torch.utils._pytree.tree_leaves(eng.caches),
+                        torch.utils._pytree.tree_leaves(eager)):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+        pos = pos + act.astype(np.int32)
+    assert eng.state.graphs["step"].replays == 4
+
+
+def test_block_tokens_equal_the_host_loop_tokens(cuda):
+    cfg, params = _qwen(cuda)
+    runs = {}
+    for bs in (1, 4):
+        eng = InferenceEngine(cfg, params, n_slots=2, max_len=32, device=cuda,
+                              block_size=bs)
+        assert eng.memory_report.capture_calls == (1 if bs == 1 else 2)
+        with counters.capture("host_syncs", "capture_calls") as cap:
+            tokens = _serve(eng, cfg)
+        assert cap.delta("capture_calls") == 0
+        if bs > 1:
+            assert cap.delta("host_syncs") == eng.n_blocks
+            wave = eng.state.graphs["wave"]
+            assert wave.replays == eng.decode_calls - eng.state.graphs["step"].replays
+        runs[bs] = (tokens, eng.slot_log, eng.state.buf.cpu())
+    assert runs[4][0] == runs[1][0] and runs[4][1] == runs[1][1]
+    assert torch.equal(runs[4][2], runs[1][2])
+
+
+def test_no_host_sync_inside_a_block(cuda):
+    """The decode lint on the card, sync check included: clean, and a
+    planted ``.item()`` (a read that waits for the card) between two
+    replays of a block is found."""
+    cfg, params = _qwen(cuda)
+    eng = InferenceEngine(cfg, params, n_slots=2, max_len=32, device=cuda, block_size=4)
+    rng = np.random.default_rng(9)
+    for n in (3, 4):
+        eng.submit(rng.integers(0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=9)
+    assert decode_lint.lint_run(eng, eng.run_until_done) == []
+    replay = eng.state._wave
+
+    def syncing_replay():
+        out = replay()
+        eng.state._w.k.item()
+        return out
+
+    eng.state._wave = syncing_replay
+    eng.submit(np.arange(3, dtype=np.int32), max_new_tokens=9)
+    findings = decode_lint.lint_run(eng, eng.run_until_done)
+    assert [f.code for f in findings] == ["host-sync-in-block"]
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_two_engines_on_one_device_give_their_own_results(cuda):
+    """Two engines, two sets of graphs and pools on one device, stepped in
+    turns: each serves what it serves alone."""
+    (cfg, pa), (_, pb) = _qwen(cuda, 0), _qwen(cuda, 1)
+    alone = {}
+    for name, p in (("a", pa), ("b", pb)):
+        alone[name] = _serve(InferenceEngine(cfg, p, n_slots=2, max_len=32,
+                                             device=cuda, block_size=3), cfg)
+    ea = InferenceEngine(cfg, pa, n_slots=2, max_len=32, device=cuda, block_size=3)
+    eb = InferenceEngine(cfg, pb, n_slots=2, max_len=32, device=cuda, block_size=3)
+    rng = np.random.default_rng(7)
+    for n, m in zip((1, 5, 3, 4), (4, 6, 3, 5)):
+        prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+        ea.submit(prompt, max_new_tokens=m)
+        eb.submit(prompt, max_new_tokens=m)
+    got = {"a": {}, "b": {}}
+    while ea.unfinished_requests() or eb.unfinished_requests():
+        for name, e in (("a", ea), ("b", eb)):
+            got[name].update({r.request_id: r.tokens for r in e.step_block()})
+    assert got == alone
+    assert alone["a"] != alone["b"]
+
+
+def _attention_graph(q, k, v, lengths, stream):
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        out = fd.flash_decode(q, k, v, lengths)
+    return g, out
+
+
+def test_flash_decode_counts_survive_two_captures(cuda):
+    """Two graphs captured on one stream, after warm-up calls on it that
+    made the stream's counts outside both graphs' pools: the first with
+    64 counts, the second after a larger call replaced them. Once the
+    stream's free small blocks are filled with -1 (and again after the
+    first graph is freed), the first graph still finds its old counts and
+    the second its new ones, and both agree with the plain version."""
+    rng = np.random.default_rng(14)
+    D, T, G = 64, 1024, 8
+    shapes = [(2, 1), (16, 8)]  # (B, KV): 2 and 128 counts per call
+    ks = [[_rand(rng, (B, T, KV, D), "float32", cuda) for _ in range(2)]
+          for B, KV in shapes]
+    lengths = [torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32)).to(cuda)
+               for B, _ in shapes]
+    qs = [_rand(rng, (B, KV, G, D), "float32", cuda, Q_STD) for B, KV in shapes]
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    pairs = []
+    for i in range(2):
+        with torch.cuda.stream(stream):
+            fd.flash_decode(qs[i], *ks[i], lengths[i])  # the warm-up
+        torch.cuda.synchronize()
+        pairs.append(_attention_graph(qs[i], *ks[i], lengths[i], stream))
+    want = [flash_decode_ref(qs[i], *ks[i], lengths[i]) for i in range(2)]
+    atol, rtol = TOL["float32"]
+
+    def replay_and_check(i, g, out):
+        # freed blocks are reused by allocations of their size on their
+        # stream: fill every such block with -1
+        with torch.cuda.stream(stream):
+            filler = [torch.full((n,), -1, dtype=torch.int32, device=cuda)
+                      for n in (64, 128, 512) for _ in range(2048)]
+        torch.cuda.synchronize()
+        for _ in range(3):
+            g.replay()
+        torch.cuda.synchronize()
+        del filler
+        np.testing.assert_allclose(out.cpu().numpy(), want[i].cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+
+    # the first graph's counts were replaced by the second warm-up
+    replay_and_check(0, *pairs[0])
+    del pairs[0]  # the first graph freed: its pool may be reused
+    replay_and_check(1, *pairs[0])
+
+
+def test_flash_decode_inside_two_captured_graphs_on_the_same_stream(cuda):
+    """Two live graphs on one stream, replayed in turns with new queries
+    copied into their static inputs: each agrees with the plain version
+    every time, and the counts are left at 0."""
+    rng = np.random.default_rng(15)
+    B, KV, G, D, T = 8, 8, 2, 64, 2048
+    k, v = (_rand(rng, (B, T, KV, D), "bfloat16", cuda) for _ in range(2))
+    lengths = [torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32)).to(cuda)
+               for _ in range(2)]
+    qs = [_rand(rng, (B, KV, G, D), "bfloat16", cuda, Q_STD) for _ in range(2)]
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        fd.flash_decode(qs[0], k, v, lengths[0])
+    torch.cuda.synchronize()
+    pairs = [_attention_graph(qs[i], k, v, lengths[i], stream) for i in range(2)]
+    atol, rtol = TOL["bfloat16"]
+    for turn in range(4):
+        for i, (g, out) in enumerate(pairs):
+            qs[i].copy_(_rand(rng, (B, KV, G, D), "bfloat16", cuda, Q_STD))
+            g.replay()
+            want = flash_decode_ref(qs[i].float(), k.float(), v.float(), lengths[i])
+            np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+    assert not any(bool(c.any()) for c in fd._COUNTERS.values())

@@ -72,11 +72,7 @@ def test_engine_without_a_device_needs_cuda():
         serve.run(["--requests", "1"])
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"session": object()}, {"page_size": 4096}, {"block_size": 4},
-     {"greedy": False}],
-)
+@pytest.mark.parametrize("kwargs", [{"session": object()}, {"page_size": 4096}])
 def test_later_slices_raise(kwargs):
     with pytest.raises(NotImplementedError):
         InferenceEngine(get_reduced(ARCH), {}, n_slots=2, max_len=16,

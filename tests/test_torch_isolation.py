@@ -63,3 +63,14 @@ def test_no_source_imports_jax_or_the_reference(path):
 )
 def test_the_mamba2_modules_are_checked(path):
     assert path in SOURCES
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/runtime/executor.py", "src/repro_torch/runtime/graphs.py",
+     "src/repro_torch/runtime/sampling.py", "src/repro_torch/analysis/counters.py",
+     "src/repro_torch/analysis/decode_lint.py", "src/repro_torch/analysis/findings.py",
+     "src/repro_torch/core/plan_io.py"],
+)
+def test_the_captured_serving_modules_are_checked(path):
+    assert path in SOURCES

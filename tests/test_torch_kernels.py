@@ -210,3 +210,29 @@ def test_num_splits_comes_from_the_shapes(B, KV, T, want):
 def test_serving_scratch_is_a_quarter_mib():
     """8 slots x 8 KV heads x 8 spans x G=2 x (64 + 2) fp32: 270,336 B."""
     assert fd.scratch_bytes(8, 8, 2, 64, 2048) == 270_336
+
+
+def test_counts_are_never_made_while_a_graph_is_captured(monkeypatch):
+    """The stream's counts come from a warm-up call, outside any graph's
+    pool: asked for under capture, they exist or the call raises."""
+    key = (torch.device("cpu"), 987654)
+    monkeypatch.setitem(fd._COUNTERS, key, torch.zeros(64, dtype=torch.int32))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert fd._counters(*key, 64) is fd._COUNTERS[key]  # made before: used
+    with pytest.raises(RuntimeError, match="before capturing"):
+        fd._counters(*key, 65)  # would have to grow
+    with pytest.raises(RuntimeError, match="before capturing"):
+        fd._counters(torch.device("cpu"), 987655, 8)  # never made
+    assert (torch.device("cpu"), 987655) not in fd._COUNTERS
+
+
+def test_replaced_counts_stay_alive(monkeypatch):
+    """A graph captured with a stream's counts reads them at every
+    replay, so counts that larger ones replace are kept."""
+    key = (torch.device("cpu"), 987656)
+    monkeypatch.setattr(fd, "_RETIRED", [])
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    small = fd._counters(*key, 8)
+    big = fd._counters(*key, 200)
+    assert big.numel() == 200 and small.numel() == 64
+    assert fd._RETIRED == [small] and fd._COUNTERS.pop(key) is big
