@@ -56,15 +56,32 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 10. serve_mamba — ``serve.run`` on full-width mamba2-2.7b with 8 slots and 8
                requests of 32 prompt + 64 new tokens: all finish, every
                decode step is a replay, and the state is one buffer of
-               exactly the planned size that never moves.
+               exactly the planned size that never moves;
+11. smem      — for each kernel instantiation on the paths, the shared
+               memory ``kernels/smem_plan.py`` plans for one CTA beside what
+               the kernel requests at launch (its exported ``*_smem_bytes``
+               query) and the device's opt-in limit: the plan fits, and plans
+               no more than the kernel requests.
+
+Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
+(activation and state) is certified by ``analysis/soundness`` before it
+captures or serves; the serve, serve_block and serve_mamba phases print
+it as a ``plan`` row (records, the certifier's seconds, findings: 0), and
+the prefill phase certifies the plan its executor runs from with
+``certify_plan``. The profile, serve_block and prefill phases print a
+``roofline`` row: the step's FLOPs and least bytes from
+``launch/roofline.step_count`` (at the positions the profiled waves read),
+its bound on this card, the device time measured, their ratio
+(``roofline_share``) and the model FLOPs utilisation (``mfu``).
 
 Every path runs at its full depth. The kernel counts (each wrapper's
 launches plus each replayed graph's captured launches per replay) are set
 to 0 just before each path (phases 5, 9, 10; 7 for its own check) and read
 just after it.
 
-The last three lines are the card's name and power limit, the per-kernel
-record and the ``ok`` line. ``--phases`` runs a subset (no final lines), and
+Kernel bounds come from ``launch/roofline.kernel_bound``. The last three
+lines are the card's name and power limit, the per-kernel record and the
+``ok`` line. ``--phases`` runs a subset (no final lines), and
 ``--keep-going`` makes the kernels phase check every case before it fails
 (``chip_faults.py`` uses both on copies of the tree with planted faults).
 """
@@ -73,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -95,8 +113,6 @@ KERNELS = {
         "src/repro/kernels/ssd_chunk.py:49",
     ),
 }
-FP32_CUDA_CORE_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
-BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 # queries at 8x the cache's spread: scores of std 2 at any D, so the softmax
 # is peaked and the output is O(0.1) even over 2048 positions
 Q_STD = 4.0
@@ -121,20 +137,6 @@ def fail_case(label: str, msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def peak_bandwidth(name: str) -> float:
-    """Published HBM bandwidth (bytes/s) of the card nvidia-smi names."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12
-    if "H100" in name:
-        return 3.35e12  # SXM
-    fail(f"no published memory bandwidth known for {name!r}")
-    return 0.0
 
 
 def cuda_time_ms(fn, runs: int = 100, warmup: int = 10) -> float:
@@ -165,7 +167,7 @@ def cuda_time_ms(fn, runs: int = 100, warmup: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def phase_device() -> tuple[str, float]:
+def phase_device() -> tuple[str, str]:
     import torch
 
     if not torch.cuda.is_available():
@@ -183,7 +185,10 @@ def phase_device() -> tuple[str, float]:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if cap != (9, 0):
         fail(f"capability {cap}: the kernels are built for sm_90a")
-    return smi, peak_bandwidth(name)
+    from repro_torch.launch import roofline
+
+    roofline.card(name)  # an unknown card has no bounds: it raises here
+    return smi, name
 
 
 def phase_build() -> None:
@@ -225,13 +230,14 @@ def _residency_cache(cfg, n_slots: int, max_len: int, gen):
     return buf, res.views(buf)
 
 
-def phase_kernels(peak_bw: float) -> dict:
+def phase_kernels(card_name: str) -> dict:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.ref import flash_decode_ref
+    from repro_torch.launch.roofline import kernel_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -325,20 +331,18 @@ def phase_kernels(peak_bw: float) -> dict:
         library_ms = cuda_time_ms(library)
         fd.LAUNCHES = before  # timing launches are not the main path's
         total_len = int(lengths.sum())
-        itemsize = q.element_size()
-        nbytes = (total_len * KV * D * 2 * itemsize + 2 * q.numel() * itemsize
-                  + lengths.numel() * 4)
-        flops = 4 * total_len * KV * G * D
-        bytes_ms = nbytes / peak_bw * 1e3
-        ops_ms = flops / FP32_CUDA_CORE_FLOPS * 1e3
+        bound = kernel_bound("flash_decode", {
+            "B": B, "KV": KV, "G": G, "D": D, "T": T, "dtype": "bfloat16",
+            "sum_lengths": total_len}, card_name=card_name)
         row = {"phase": "kernels", "kernel": "flash_decode", "timing": label,
                "shape": [B, KV, G, D, T], "sum_lengths": total_len,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)",
                "library_max_abs_err": lib_err,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": nbytes, "flops": flops, "max_abs_err": err,
+               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+               "bytes": bound.min_bytes, "flops": bound.flops,
+               "bytes_ms": bound.bytes_s * 1e3,
+               "fp32_cuda_core_ms": bound.ops_s * 1e3, "max_abs_err": err,
                "n_split": fd.num_splits(B, KV, T),
                "scratch_bytes": fd.scratch_bytes(B, KV, G, D, T)}
         emit(row)
@@ -406,7 +410,7 @@ def ssd_inputs(gen, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
     return x, dt, dA, Bm, Cm, state
 
 
-def phase_kernels_ssd(peak_bw: float) -> dict:
+def phase_kernels_ssd(card_name: str) -> dict:
     """ssd_chunk against its plain version computed in fp32 on the same
     inputs. Bars, as atol + rtol·|want|: an fp32 output 1e-5 + 1e-5·|want|
     (fp32 summation order); a bf16 output adds one rounding to bf16, at
@@ -457,6 +461,7 @@ def phase_kernels_ssd(peak_bw: float) -> dict:
 
     # the prefill chunk of full-width mamba2-2.7b, as mamba_prefill passes it
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.roofline import kernel_bound
     from repro_torch.models.ssm import ssm_dims
 
     cfg = get_config("mamba2-2.7b")
@@ -472,29 +477,78 @@ def phase_kernels_ssd(peak_bw: float) -> dict:
         ms = cuda_time_ms(lambda: sc.ssd_chunk(*inputs))
         plain_ms = cuda_time_ms(lambda: ssd_chunk_ref(*inputs))
         sc.LAUNCHES = before  # timing launches are not the main path's
-        x, dt, dA, Bm, Cm, state = inputs
-        # each input read once (B and C: the one group), each output written once
-        nbytes = (2 * x.numel() * x.element_size() + 2 * dt.numel() * 4
-                  + 2 * B * L * N * Bm.element_size()
-                  + 2 * state.numel() * state.element_size())
-        pairs = L * (L + 1) // 2  # the causal half of the L x L products
-        flops = B * H * 2 * ((N + P) * pairs + 2 * L * P * N)
+        # each input read once (B and C: the one group), each output
+        # written once; the causal half of the L x L products
+        bound = kernel_bound("ssd_chunk", {
+            "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "bfloat16",
+            "state_dtype": "bfloat16", "groups": cfg.ssm_groups},
+            card_name=card_name)
+        fp32_ms = kernel_bound("ssd_chunk", {
+            "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "float32"},
+            card_name=card_name).ops_s * 1e3
         flops_full = B * H * 2 * ((N + P) * L * L + 2 * L * P * N)
-        bytes_ms = nbytes / peak_bw * 1e3
-        ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
         row = {"phase": "kernels", "kernel": "ssd_chunk", "timing": label,
                "shape": [B, L, H, P, N], "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "library": "none: no one PyTorch call",
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": nbytes, "flops": flops,
+               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+               "bytes": bound.min_bytes, "flops": bound.flops,
                "flops_full_square": flops_full,
-               "bytes_ms": bytes_ms, "bf16_tensor_core_ms": ops_ms,
-               "fp32_cuda_core_ms": flops / FP32_CUDA_CORE_FLOPS * 1e3,
-               "max_abs_err": err}
+               "bytes_ms": bound.bytes_s * 1e3,
+               "bf16_tensor_core_ms": bound.ops_s * 1e3,
+               "fp32_cuda_core_ms": fp32_ms, "max_abs_err": err}
         emit(row)
         record[label] = row
     return record["prefill_original"]
+
+
+# the kernel instantiations the paths run: flash_decode at qwen3-0.6b's
+# heads (G=2, D=64) in bf16 (serve) and fp32 (parity); ssd_chunk at
+# mamba2-2.7b's (P=64, N=128) with bf16 x/B/C and state (prefill) and in
+# fp32 (prefill_parity)
+SMEM_CASES = (
+    ("flash_decode", {"G": 2, "D": 64, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 2, "D": 64, "dtype": "float32"}),
+    ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
+    ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
+)
+
+
+def phase_smem() -> None:
+    """Each instantiation's planned shared memory (one CTA's working set,
+    ``kernels/smem_plan.py``) against what the kernel requests at launch
+    and the device's opt-in limit: it fits, and the plan is no larger
+    than the request (a smaller plan is reuse the kernel does not do)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import smem_plan as sp
+    from repro_torch.kernels import ssd_chunk as sc
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for kernel, shape in SMEM_CASES:
+        if kernel == "flash_decode":
+            kp = sp.plan_flash_decode_smem(**shape)
+            requested = fd.smem_request_bytes(shape["G"], shape["D"],
+                                              getattr(torch, shape["dtype"]))
+        else:
+            kp = sp.plan_ssd_chunk_smem(**shape)
+            requested = sc.smem_request_bytes(shape["P"], shape["N"],
+                                              getattr(torch, shape["dtype"]),
+                                              getattr(torch, shape["state_dtype"]))
+        planned = kp.plan.total_size
+        row = {"phase": "smem", "kernel": kernel, **shape, "planned_bytes": planned,
+               "requested_bytes": requested, "naive_bytes": kp.plan.naive_size,
+               "optin_limit_bytes": limit, "model_budget_bytes": kp.budget,
+               "fits": kp.fits and requested <= limit,
+               "planned_minus_requested": planned - requested}
+        emit(row)
+        if not row["fits"]:
+            fail(f"smem: {kernel} {shape} does not fit ({row})")
+        if planned > requested:
+            fail(f"smem: {kernel} {shape} plans {planned} B, more than the "
+                 f"{requested} B it requests: scratch the kernel does not have")
+    if limit != sp.SMEM_BYTES:
+        fail(f"smem: the card's opt-in limit is {limit} B, the model's {sp.SMEM_BYTES} B")
 
 
 def phase_parity() -> None:
@@ -656,6 +710,77 @@ def graph_stats(stats: dict) -> dict:
     }
 
 
+# the plans certified this run (the plan rows)
+CERTIFIED: list[str] = []
+
+
+def plan_row(label: str, stats: dict) -> None:
+    """A serve run's engine was built with the startup lint on: its
+    unified plan (activation and state) was certified before it captured
+    or served (a finding would have raised in the engine)."""
+    if stats["startup_lint_findings"] is None:
+        fail(f"plan: the {label} engine ran without its startup lint")
+    if stats["startup_lint_findings"]:
+        fail(f"plan: {stats['startup_lint_findings']} findings on the {label} plan")
+    emit({"phase": "plan", "plan": label, "records": stats["plan_records"],
+          "state_leaves": stats["state_leaves"],
+          "certify_s": stats["startup_lint_s"],
+          "findings": stats["startup_lint_findings"], "ok": True})
+    CERTIFIED.append(label)
+
+
+def decode_roofline(label: str, engine, prof: dict, card_name: str) -> dict:
+    """The roofline of the profiled decode waves of ``engine``: each wave's
+    FLOPs and least bytes at the positions it read (every slot active),
+    averaged over the waves, against the device time per wave measured."""
+    import statistics as st
+
+    import torch
+
+    from repro_torch.core.unified import detect_state_axes
+    from repro_torch.launch import roofline
+    from repro_torch.models.api import ShapeSpec
+
+    n, T = engine.n_slots, engine.max_len
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    # the step's inputs besides the params and the caches
+    inputs = (engine.model.rope_freqs, meta((n, 1), torch.int32),
+              meta((n,), torch.int32), meta((n,), torch.bool))
+    axes = detect_state_axes(engine.model.init_cache, n_slots=n, max_len=T)
+
+    def count(lengths):
+        return roofline.step_count(engine.executor.trace, engine.params, inputs,
+                                   state=engine.caches, axes=axes, lengths=lengths)
+
+    first = prof["positions_first"]
+    counts = [count([min(p + i + 1, T) for p in first]) for i in range(prof["waves"])]
+    bounds = [c.bound(card_name) for c in counts]
+    full = count(None)
+    bound_ms = st.mean(b.bound_s for b in bounds) * 1e3
+    device_ms = prof["device_ms_per_wave"]
+    model_flops = roofline.model_flops(engine.cfg, ShapeSpec("decode", T, n, "decode"))
+    row = {"phase": "roofline", "path": label, "waves": prof["waves"],
+           "positions_read": [min(first) + 1, max(first) + prof["waves"]],
+           "flops": st.mean(c.flops for c in counts),
+           "min_bytes": st.mean(c.min_bytes for c in counts),
+           "param_bytes": counts[0].param_bytes,
+           "state_read_bytes": st.mean(c.state_read_bytes for c in counts),
+           "state_write_bytes": counts[0].state_write_bytes,
+           "output_bytes": counts[0].output_bytes,
+           "bound_ms": bound_ms,
+           "bound_by": sorted({b.bound_by for b in bounds}),
+           "bound_ms_all_positions": full.bound(card_name).bound_s * 1e3,
+           "min_bytes_all_positions": full.min_bytes,
+           "device_ms": device_ms, "roofline_share": bound_ms / device_ms,
+           "model_flops": model_flops,
+           "mfu": roofline.mfu(model_flops, device_ms / 1e3, card_name)}
+    emit(row)
+    return row
+
+
 # the serve phases' run: full-width qwen3-0.6b, 8 slots x 2048 positions,
 # 8 requests of 32 prompt + 64 new tokens
 SERVE_ARGS = [
@@ -688,6 +813,7 @@ def phase_serve() -> tuple[dict, object]:
     replayed = check_replayed("serve", stats, "flash_decode")
     if stats["capture_calls"] != 1:
         fail(f"serve: {stats['capture_calls']} graphs captured, expected 1")
+    plan_row("qwen3-0.6b serve (8 slots x 2048)", stats)
     emit({
         "phase": "serve", "arch": "qwen3-0.6b", "layers": stats["n_layers"],
         "requests": stats["requests"], "tokens": stats["tokens"],
@@ -706,7 +832,7 @@ def phase_serve() -> tuple[dict, object]:
     return {"launches": launches, "tokens": toks}, stats["engine"]
 
 
-def phase_serve_block(host_tokens: dict | None) -> None:
+def phase_serve_block(host_tokens: dict | None, card_name: str) -> dict:
     """The serve phase's 8 requests at ``--block-size 8``: the host loop's
     tokens, one host sync per block, every wave a replay of the captured
     wave graph; then the same requests again under the decode lint (no
@@ -730,6 +856,7 @@ def phase_serve_block(host_tokens: dict | None) -> None:
     if stats["state_ptr_before"] != stats["state_ptr_after"]:
         fail("serve_block: the state buffer moved")
     replayed = check_replayed("serve_block", stats, "flash_decode")
+    plan_row("qwen3-0.6b serve_block (8 slots x 2048, blocks of 8)", stats)
     engine = stats["engine"]
     cfg = engine.cfg
     rng = np.random.default_rng(0)  # serve.run's prompts
@@ -753,6 +880,7 @@ def phase_serve_block(host_tokens: dict | None) -> None:
                       max_new_tokens=8 * (2 * blocks + 2))
     engine.step_block()  # admits every request
     prof, _ = serve.profile_waves(engine, blocks, blocks_of_waves=True)
+    roof = decode_roofline("qwen3-0.6b steady block wave", engine, prof, card_name)
     engine.run_until_done()
     emit({
         "phase": "serve_block", "arch": cfg.name, "layers": stats["n_layers"],
@@ -767,9 +895,10 @@ def phase_serve_block(host_tokens: dict | None) -> None:
     })
     del engine, stats
     torch.cuda.empty_cache()
+    return roof
 
 
-def phase_profile(engine) -> None:
+def phase_profile(engine, card_name: str) -> dict:
     """Where a steady wave's time goes, on the served engine: 8 requests
     more, then 8 waves timed by the host clock and 8 more under
     torch.profiler (every slot active in both)."""
@@ -791,6 +920,7 @@ def phase_profile(engine) -> None:
         fail("profile: the profiler saw no device time")
     emit({"phase": "profile", "decode_step_ops": len(engine.decode_graph.ops),
           "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
+    return decode_roofline("qwen3-0.6b steady host-loop wave", engine, prof, card_name)
 
 
 def _mamba_model(n_periods: int | None, dtype: str, seed: int):
@@ -910,7 +1040,7 @@ def phase_prefill_parity() -> None:
         torch.cuda.empty_cache()
 
 
-def phase_prefill() -> dict:
+def phase_prefill(card_name: str) -> tuple[dict, dict]:
     """Full-width mamba2-2.7b (64 layers, bf16): one 2048-token request
     through ``ArenaExecutor`` (every intermediate at its planned offset in
     one arena, each ssd_chunk result copied into its slot), against the
@@ -919,7 +1049,10 @@ def phase_prefill() -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch.analysis import soundness
+    from repro_torch.launch import roofline
     from repro_torch.launch.compile import plan_prefill
+    from repro_torch.models.api import ShapeSpec
     from repro_torch.runtime.executor import ArenaExecutor
 
     S = 2048
@@ -938,6 +1071,17 @@ def phase_prefill() -> dict:
     executor = ArenaExecutor(prefill, params, tokens, device=DEVICE,
                              name=f"{cfg.name}-prefill{S}")
     executor_s = time.perf_counter() - t0
+    # the plan the executor runs from, certified (plan_prefill certified
+    # the meta trace's plan of the same records)
+    t0 = time.perf_counter()
+    findings = soundness.certify_plan(executor.plan)
+    certify_s = time.perf_counter() - t0
+    if findings:
+        fail(f"plan: the prefill plan has findings {[f.render() for f in findings]}")
+    emit({"phase": "plan", "plan": f"{cfg.name} prefill {S}",
+          "records": len(executor.plan.records), "certify_s": certify_s,
+          "findings": 0, "ok": True})
+    CERTIFIED.append(f"{cfg.name} prefill {S}")
     arena_ptr = executor.arena.buf.data_ptr()
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -1030,9 +1174,22 @@ def phase_prefill() -> dict:
            "equal_to_eager_bitwise": bitwise, "max_abs_diff_vs_eager": diffs,
            "ok": True}
     emit(row)
+    count = roofline.step_count(executor.trace, params, (tokens,))
+    bound = count.bound(card_name)
+    device_ms = device_us / 1e3
+    model_flops = roofline.model_flops(cfg, ShapeSpec("prefill", S, 1, "prefill"))
+    roof = {"phase": "roofline", "path": f"{cfg.name} prefill {S}",
+            "flops": count.flops, "flops_by_op": count.flops_by_op,
+            "min_bytes": count.min_bytes, "param_bytes": count.param_bytes,
+            "output_bytes": count.output_bytes, "bound_ms": bound.bound_s * 1e3,
+            "bound_by": bound.bound_by, "device_ms": device_ms,
+            "roofline_share": bound.bound_s * 1e3 / device_ms,
+            "model_flops": model_flops,
+            "mfu": roofline.mfu(model_flops, device_ms / 1e3, card_name)}
+    emit(roof)
     del params, model, executor
     torch.cuda.empty_cache()
-    return row
+    return row, roof
 
 
 def phase_serve_mamba() -> None:
@@ -1064,6 +1221,7 @@ def phase_serve_mamba() -> None:
     if stats["state_ptr_before"] != stats["state_ptr_after"]:
         fail("serve_mamba: the state buffer moved")
     replayed = check_replayed("serve_mamba", stats, None)
+    plan_row("mamba2-2.7b serve (8 slots x 2048)", stats)
     _, H, conv_dim = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                               cfg.ssm_groups, cfg.ssm_state)
     itemsize = getattr(torch, cfg.dtype).itemsize
@@ -1091,7 +1249,7 @@ def phase_serve_mamba() -> None:
 
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
-          "serve_block", "prefill_parity", "prefill", "serve_mamba")
+          "serve_block", "prefill_parity", "prefill", "serve_mamba", "smem")
 
 
 def main() -> None:
@@ -1111,13 +1269,15 @@ def main() -> None:
     KEEP_GOING = args.keep_going
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
-    smi, peak_bw = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
+    smi, card_name = phase_device()
+    # every engine built below certifies its unified plan before it serves
+    os.environ["REPRO_STARTUP_LINT"] = "1"
     phase_build()
     timing = {}
     if "kernels" in phases:
-        timing["flash_decode"] = phase_kernels(peak_bw)
-        timing["ssd_chunk"] = phase_kernels_ssd(peak_bw)
+        timing["flash_decode"] = phase_kernels(card_name)
+        timing["ssd_chunk"] = phase_kernels_ssd(card_name)
         emit({"phase": "kernels", "checked": list(KERNELS),
               "failed_cases": FAILED_CASES})
         if FAILED_CASES:
@@ -1126,23 +1286,31 @@ def main() -> None:
     if "parity" in phases:
         phase_parity()
     host_tokens = None
+    roofs = []
     if "serve" in phases:
         serve, engine = phase_serve()
         launches["flash_decode"] = serve["launches"]
         host_tokens = serve["tokens"]
         if "profile" in phases:
-            phase_profile(engine)
+            roofs.append(phase_profile(engine, card_name))
         del engine
     if "serve_block" in phases:
-        phase_serve_block(host_tokens)
+        roofs.append(phase_serve_block(host_tokens, card_name))
     if "prefill_parity" in phases:
         phase_prefill_parity()
     if "prefill" in phases:
-        launches["ssd_chunk"] = phase_prefill()["launches"]["ssd_chunk"]
+        row, roof = phase_prefill(card_name)
+        launches["ssd_chunk"] = row["launches"]["ssd_chunk"]
+        roofs.append(roof)
     if "serve_mamba" in phases:
         phase_serve_mamba()
+    if "smem" in phases:
+        phase_smem()
     if phases != set(PHASES):
         return
+    if len(CERTIFIED) != 4 or len(roofs) != 3:
+        fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
+             f"expected 4 and 3")
     import torch
 
     print(smi, flush=True)

@@ -1,11 +1,22 @@
-"""Interval-overlap engine of the offsets planner (copy of the reference's
-``core/interval_set.py``, limited to what the offsets strategies use).
+"""Shared interval-overlap engine for the planning core.
 
-Every offsets strategy reduces to one query over closed integer
+Every strategy in this package reduces to two queries over closed integer
 intervals ``[first_op, last_op]`` (the paper's tensor usage intervals):
-"which already-placed tensors overlap this interval?". Two data
-structures answer it; the code is the reference's, line for line, so
-the port's offsets are byte-identical to the JAX package's.
+
+* "does this interval overlap anything already placed *here*?"
+* "which already-placed tensors overlap this interval?"
+
+The seed implementations answered both with per-object/per-record linear
+walks (the paper's O(k·n²) inner loop). This module centralizes the three
+data structures that make every strategy O(n log n)-ish; the frozen naive
+versions live on in :mod:`repro_torch.core.reference` as the differential-test
+oracle.
+
+* :class:`DisjointIntervalSet` — the intervals assigned to one shared
+  object are pairwise disjoint *by construction* (that is the shared-object
+  invariant), so sorted-by-start order is a total order and only the
+  immediate predecessor/successor of a query interval can matter:
+  overlap and smallest-gap queries are a single ``bisect``, O(log n).
 
 * :class:`IntervalTree` — a balanced interval tree (treap with
   deterministic pseudo-random priorities) augmented with the maximum
@@ -25,9 +36,12 @@ the port's offsets are byte-identical to the JAX package's.
 
 from __future__ import annotations
 
-from typing import Any
+import bisect
+from typing import Any, Iterator
 
 import numpy as _np
+
+_INF = 1 << 60
 
 # Overlap count at which BestFitArena.find_offset switches from the
 # per-record Python gap scan to the numpy batch path. Dense graphs (long
@@ -39,6 +53,70 @@ VECTOR_THRESHOLD = 1024
 
 _MASK64 = (1 << 64) - 1
 _GAMMA = 0x9E3779B97F4A7C15  # splitmix64 increment
+
+
+class DisjointIntervalSet:
+    """Sorted set of pairwise-disjoint closed intervals ``[first, last]``.
+
+    The caller guarantees disjointness (``add`` only after ``overlaps``
+    returned False); under that invariant start order == end order, so
+    every query is one predecessor lookup.
+    """
+
+    __slots__ = ("_starts", "_ends", "_items")
+
+    def __init__(self) -> None:
+        self._starts: list[int] = []
+        self._ends: list[int] = []
+        self._items: list[Any] = []
+
+    def __len__(self) -> int:
+        return len(self._starts)
+
+    def __iter__(self) -> Iterator[tuple[int, int, Any]]:
+        return iter(zip(self._starts, self._ends, self._items))
+
+    def add(self, first: int, last: int, item: Any = None) -> None:
+        idx = bisect.bisect_left(self._starts, first)
+        self._starts.insert(idx, first)
+        self._ends.insert(idx, last)
+        self._items.insert(idx, item)
+
+    def overlaps(self, first: int, last: int) -> bool:
+        """True iff ``[first, last]`` intersects any stored interval.
+
+        Only the stored interval with the greatest start <= ``last`` can
+        intersect: anything starting later begins past the query, anything
+        earlier ends before it (disjointness orders the ends too).
+        """
+        idx = bisect.bisect_right(self._starts, last) - 1
+        return idx >= 0 and self._ends[idx] >= first
+
+    def smallest_gap(self, first: int, last: int) -> int:
+        """Smallest idle gap adjacent to ``[first, last]`` (paper §4.4's
+        pairing criterion), assuming the query overlaps nothing stored.
+        ``_INF``-ish when the set is empty / has no neighbor on either side.
+        """
+        best = _INF
+        i = bisect.bisect_left(self._starts, first) - 1
+        if i >= 0:
+            best = first - self._ends[i] - 1
+        j = bisect.bisect_right(self._starts, last)
+        if j < len(self._starts):
+            best = min(best, self._starts[j] - last - 1)
+        return best
+
+    def neighbors(self, first: int, last: int) -> tuple[int, int]:
+        """``(pred_end, succ_start)`` of the intervals flanking
+        ``[first, last]`` — which may itself be stored or merely storable
+        (disjoint from everything). Sentinels ``-_INF`` / ``_INF`` stand in
+        for a missing flank, so the pair always bounds the idle window
+        around the query."""
+        i = bisect.bisect_left(self._starts, first) - 1
+        pred = self._ends[i] if i >= 0 else -_INF
+        j = bisect.bisect_right(self._starts, last)
+        succ = self._starts[j] if j < len(self._starts) else _INF
+        return pred, succ
 
 
 class _Node:

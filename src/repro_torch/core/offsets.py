@@ -1,4 +1,4 @@
-"""Offset Calculation strategies (paper §5), copied from the reference.
+"""Offset Calculation strategies (paper §5).
 
 One flat memory arena; each intermediate tensor gets a byte offset. Tensors
 with intersecting usage intervals must occupy disjoint byte ranges.
@@ -7,11 +7,14 @@ Objective: minimize ``max(offset_t + size_t)``.
 * ``greedy_by_size_offsets``    — §5.2, Algorithm 3 (best-fit gap search)
 * ``greedy_by_breadth_offsets`` — §5.3 (operator-breadth outer order, same
   gap logic)
-* ``strip_packing_bestfit``     — Sekiyama'18 strip packing (the
-  reference keeps it in ``core/baselines.py``)
+* ``from_shared_objects``       — §5: any Shared Objects solution converts
+  by laying the objects out contiguously.
 
-These three are the reference's ``auto`` offsets portfolio, so the
-port's ``auto`` plan is the JAX package's, byte for byte.
+The gap search runs on :class:`repro_torch.core.interval_set.BestFitArena`: an
+interval tree narrows each placement to the already-placed records that
+actually overlap the new tensor's lifetime, instead of the seed's rescan
+of every placed record (O(n²) total, preserved as the oracle in
+:mod:`repro_torch.core.reference`). Placement results are byte-identical.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from repro_torch.core.records import (
     operator_breadths,
     operator_profiles,
 )
+from repro_torch.core.shared_objects import SharedObjectsAssignment
 
 
 @dataclasses.dataclass
@@ -66,20 +70,19 @@ def greedy_by_breadth_offsets(
     return OffsetAssignment("greedy_by_breadth", arena.offsets, arena.total)
 
 
-def strip_packing_bestfit(
-    records: Sequence[TensorUsageRecord],
-) -> OffsetAssignment:
-    """Best-fit-decreasing strip packing: size-descending order, each tensor
-    placed at the lowest feasible offset (first-fit over the gap list)."""
-    arena = BestFitArena(first_fit=True)
-    order = sorted(records, key=lambda r: (-r.size, r.first_op, r.tensor_id))
-    for rec in order:
-        arena.place(rec)
-    return OffsetAssignment("strip_packing_bestfit", arena.offsets, arena.total)
+def from_shared_objects(asn: SharedObjectsAssignment) -> OffsetAssignment:
+    """Lay shared objects out contiguously (paper §5: SO ⇒ offsets; the
+    converse does not hold)."""
+    base: dict[int, int] = {}
+    cursor = 0
+    for obj in asn.objects:
+        base[obj.object_id] = cursor
+        cursor += obj.size
+    offsets = {tid: base[oid] for tid, oid in asn.assignment.items()}
+    return OffsetAssignment(f"{asn.strategy}+contiguous", offsets, cursor)
 
 
 STRATEGIES: dict[str, Callable[[Sequence[TensorUsageRecord]], OffsetAssignment]] = {
     "greedy_by_size": greedy_by_size_offsets,
     "greedy_by_breadth": greedy_by_breadth_offsets,
-    "strip_packing_bestfit": strip_packing_bestfit,
 }

@@ -483,3 +483,13 @@ extern "C" int flash_decode_launch(int dtype, int batch, int n_kv, int g,
       return cudaErrorInvalidValue;
   }
 }
+
+// Bytes of dynamic shared memory one CTA of the instantiation (dtype, d, g)
+// requests at launch: the kStages ring, which the merges reuse after the
+// loop. 0 for an instantiation that does not exist. A size query only;
+// kernels/smem_plan.py plans the same working set with the paper's planner.
+extern "C" int flash_decode_smem_bytes(int dtype, int d, int g) {
+  const bool ok = (dtype == 0 || dtype == 1) && (d == 64 || d == 128) &&
+                  (g == 1 || g == 2 || g == 4 || g == 8);
+  return ok ? kSmemBytes : 0;
+}

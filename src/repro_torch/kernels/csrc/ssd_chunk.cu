@@ -1062,3 +1062,24 @@ extern "C" int ssd_chunk_launch(int x_dtype, int state_dtype, int batch, int L,
       return cudaErrorInvalidValue;
   }
 }
+
+// Bytes of dynamic shared memory one CTA of the instantiation (x_dtype,
+// state_dtype, p) requests at launch for n state columns: TcLayout(p, n)
+// for bf16 x/B/C, smem_bytes(p, n) for fp32. 0 for an instantiation that
+// does not exist. A size query only; kernels/smem_plan.py plans the same
+// working set with the paper's planner.
+extern "C" int64_t ssd_chunk_smem_bytes(int x_dtype, int state_dtype, int p,
+                                        int n) {
+  if ((state_dtype != 0 && state_dtype != 1) || (p != 8 && p != 32 && p != 64) ||
+      n < 1 || n > kMaxN) {
+    return 0;
+  }
+  switch (x_dtype) {
+    case 0:
+      return static_cast<int64_t>(smem_bytes(p, n));
+    case 1:
+      return static_cast<int64_t>(TcLayout(p, n, state_dtype == 0).total);
+    default:
+      return 0;
+  }
+}

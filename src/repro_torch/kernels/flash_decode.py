@@ -63,6 +63,19 @@ _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 _RETIRED: list[torch.Tensor] = []
 
 
+def smem_request_bytes(G: int, D: int, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory one CTA of the instantiation
+    ``(dtype, D, G)`` requests at launch, as ``csrc/flash_decode.cu``
+    reports them (``flash_decode_smem_bytes``); builds the library."""
+    fn = build.load("flash_decode").flash_decode_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(_DTYPE_CODE[dtype], D, G)
+    if n <= 0:
+        raise ValueError(f"flash_decode has no instantiation for {dtype}, D={D}, G={G}")
+    return n
+
+
 def _kernel():
     global _FN
     if _FN is None:

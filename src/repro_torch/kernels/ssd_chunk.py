@@ -44,6 +44,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
 
+def smem_request_bytes(P: int, N: int, dtype: torch.dtype,
+                       state_dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory one CTA of the instantiation
+    ``(dtype, state_dtype, P)`` requests at launch for ``N`` state
+    columns, as ``csrc/ssd_chunk.cu`` reports them
+    (``ssd_chunk_smem_bytes``); builds the library."""
+    fn = build.load("ssd_chunk").ssd_chunk_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int64
+    n = fn(_DTYPE_CODE[dtype], _DTYPE_CODE[state_dtype], P, N)
+    if n <= 0:
+        raise ValueError(f"ssd_chunk has no instantiation for {dtype}/"
+                         f"{state_dtype}, P={P}, N={N}")
+    return n
+
+
 def _kernel():
     global _FN
     if _FN is None:

@@ -6,14 +6,18 @@ request (batch 1 — the engine fills slots one request at a time) at
 ``prefill_len`` tokens, traced on fake tensors over a shape-only
 (``meta``) parameter template, so nothing is drawn, computed or
 allocated. This is the long-activation-lifetime regime in which the
-paper's strategies matter most. Plan bundles, sessions, AOT artifacts
-and a command line come with ROADMAP A12.
+paper's strategies matter most. Every prefill plan it returns has been
+certified by ``analysis/soundness.certify_plan`` (a plan with findings
+raises ``LintGateError``). Plan bundles, sessions, AOT artifacts and a
+command line come with ROADMAP A12.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import soundness
+from repro_torch.analysis.findings import LintGateError, Report
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import Graph
 from repro_torch.core.planner import MemoryPlan, plan_graph
@@ -39,8 +43,12 @@ def trace_prefill_graph(cfg: ArchConfig, *, prefill_len: int) -> Graph:
 
 
 def plan_prefill(cfg: ArchConfig, *, prefill_len: int) -> tuple[Graph, MemoryPlan]:
-    """Trace the prefill and plan its activations with the paper's
-    planner (offsets mode and the ``auto`` portfolio, as the reference's
-    ``--prefill-len``)."""
+    """Trace the prefill, plan its activations with the paper's planner
+    (offsets mode and the ``auto`` portfolio, as the reference's
+    ``--prefill-len``) and certify the plan; findings raise."""
     graph = trace_prefill_graph(cfg, prefill_len=prefill_len)
-    return graph, plan_graph(graph, mode="offsets", strategy="auto")
+    plan = plan_graph(graph, mode="offsets", strategy="auto")
+    report = Report().extend(soundness.certify_plan(plan), checked=graph.name)
+    if not report.ok():
+        raise LintGateError(report, context="the prefill plan is not sound")
+    return graph, plan

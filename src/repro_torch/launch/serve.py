@@ -149,6 +149,10 @@ def run(argv: list[str] | None = None) -> dict:
         "plan_total_bytes": report.activation_plan.total_size,
         "plan_lower_bound_bytes": report.activation_plan.lower_bound,
         "plan_naive_bytes": report.activation_plan.naive_size,
+        "plan_records": len(report.activation_plan.records),
+        "state_leaves": len(report.state_plan.leaves),
+        "startup_lint_s": report.startup_lint_s,
+        "startup_lint_findings": report.startup_lint_findings,
         "allocator_step_peak_bytes": report.allocator_step_peak_bytes,
         "state_planned_bytes": report.state_planned_bytes,
         "state_live_bytes": report.state_live_bytes,
@@ -179,7 +183,9 @@ def profile_waves(engine: InferenceEngine, waves: int, *,
     took the most device time — and the requests that finished. The
     waves must be alike (every slot active throughout). With
     ``blocks_of_waves`` each unit is one ``step_block`` of the engine's
-    full block size, and the summary is per block (and per wave)."""
+    full block size, and the summary is per block (and per wave).
+    ``positions_first`` is each slot's position at the first profiled
+    wave."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -196,6 +202,9 @@ def profile_waves(engine: InferenceEngine, waves: int, *,
         finished += step()
     _sync(engine.device)
     wall_us = (time.perf_counter() - t0) * 1e6
+    # each slot's position at the first profiled wave (the step at position
+    # p reads p + 1 cache positions)
+    positions_first = [int(p) for p in engine._slot_pos]
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(waves):
@@ -208,6 +217,7 @@ def profile_waves(engine: InferenceEngine, waves: int, *,
     n = waves * per
     return {
         "waves": n,
+        "positions_first": positions_first,
         "wall_ms_per_wave": wall_us / 1e3 / n,
         "tokens_per_s": active * n / (wall_us / 1e6),
         "profiled_wall_ms_per_wave": profiled_wall_us / 1e3 / n,

@@ -13,6 +13,8 @@ of Mamba2 prefill together: ``"kernel"`` (the served path, the
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -22,6 +24,22 @@ from repro_torch.models.layers import rope_freqs
 
 # the families the port builds; the rest come with later slices
 FAMILIES = ("dense", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 class DecoderModel:

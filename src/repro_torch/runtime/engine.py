@@ -27,6 +27,11 @@ token budget / max_len. ``block_size=1`` is the single-wave host loop
 ``block_size=K > 1`` runs up to K waves per host sync with on-device
 sampling and stop detection (the reference's scan-block decode).
 
+With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
+certifies its unified plan (activation and state) with
+``analysis/soundness.certify_unified`` before it captures or serves
+anything, and refuses a plan with findings (``LintGateError``).
+
 Left for later slices, each raising ``NotImplementedError``: plan
 sessions and bundles (ROADMAP A12) and paged state (A10).
 """
@@ -34,13 +39,17 @@ sessions and bundles (ROADMAP A12) and paged state (A10).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import soundness
+from repro_torch.analysis.findings import LintGateError, Report
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import unified
 from repro_torch.core.planner import MemoryPlan
 from repro_torch.core.unified import StatePlan, plan_state, state_records_from_cache
 from repro_torch.models.api import DecoderModel
@@ -129,6 +138,10 @@ class MemoryReport:
     # CUDA graphs captured for this engine, and the seconds they took
     capture_calls: int = 0
     capture_s: float | None = None
+    # the startup lint (soundness.certify_unified) over the unified plan:
+    # its seconds and findings (None when it did not run)
+    startup_lint_s: float | None = None
+    startup_lint_findings: int | None = None
 
     @property
     def state_planned_bytes(self) -> int:
@@ -201,6 +214,10 @@ class InferenceEngine:
         cores: str = "kernel",
         session=None,
         page_size: int | None = None,
+        # certify the unified plan at startup with the static analyzer
+        # (analysis/soundness); None -> the REPRO_STARTUP_LINT env knob
+        # (default: off), as in the reference
+        startup_lint: bool | None = None,
     ):
         if session is not None:
             raise _later("session= (plan sessions and bundles)",
@@ -230,10 +247,8 @@ class InferenceEngine:
         # --- cross-step state: plan the slot/KV layout from a shape-only
         # template, then allocate the ONE buffer and bind the views
         template = self.model.init_cache(n_slots, max_len, device="meta")
-        state_plan = plan_state(
-            state_records_from_cache(template, n_slots=n_slots),
-            n_slots=n_slots, max_len=max_len,
-        )
+        state_records = state_records_from_cache(template, n_slots=n_slots)
+        state_plan = plan_state(state_records, n_slots=n_slots, max_len=max_len)
         self.state_layout = ArenaLayout.from_state_plan(state_plan)
         self.residency = StateResidency(
             state_plan, template, n_slots=n_slots, layout=self.state_layout
@@ -258,6 +273,33 @@ class InferenceEngine:
         self.decode_graph = self.executor.graph
         plan = self.executor.plan
         self.activation_arena = self.executor.arena
+        # both halves under one fingerprint (the content fingerprint of the
+        # bucket: bundles and their config-level fingerprint come with A12)
+        self.unified_plan = unified.UnifiedPlan(
+            activation=plan, state=state_plan,
+            fingerprint=unified._spec_fingerprint(
+                unified.PlanSpec(n_slots=n_slots, max_len=max_len),
+                plan.records, state_records),
+        )
+        lint_s = lint_findings = None
+        if (
+            startup_lint
+            if startup_lint is not None
+            else os.environ.get("REPRO_STARTUP_LINT", "").lower()
+            in ("1", "on", "true")
+        ):
+            t0 = time.perf_counter()
+            report = Report().extend(
+                soundness.certify_unified(
+                    self.unified_plan, label=f"{cfg.name}-startup"
+                ),
+                checked=f"{cfg.name}-startup",
+            )
+            lint_s, lint_findings = time.perf_counter() - t0, len(report.findings)
+            if not report.ok():
+                raise LintGateError(
+                    report, context="startup lint refused the unified plan"
+                )
 
         # --- the steps: static inputs, and on the card their CUDA graphs
         self._token_sampler = TokenSampler(self.sampling, max_len=max_len)
@@ -282,6 +324,8 @@ class InferenceEngine:
             executor_copied=stats.n_copied,
             capture_calls=len(captured),
             capture_s=capture_s if captured else None,
+            startup_lint_s=lint_s,
+            startup_lint_findings=lint_findings,
         )
 
         # serving state — per-slot positions (continuous batching: every

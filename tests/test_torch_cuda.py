@@ -532,3 +532,44 @@ def test_flash_decode_inside_two_captured_graphs_on_the_same_stream(cuda):
             np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                        rtol=rtol, atol=atol)
     assert not any(bool(c.any()) for c in fd._COUNTERS.values())
+
+
+# ------------------------------------------------------ the SMEM plans
+
+
+def _smem_instantiations():
+    from repro_torch.kernels import smem_plan as sp
+
+    for dtype in ("float32", "bfloat16"):
+        for D in sp.FD_HEAD_DIMS:
+            for G in sp.FD_GROUP_SIZES:
+                yield "flash_decode", dict(G=G, D=D, dtype=dtype)
+        for state in ("float32", "bfloat16"):
+            for P in sp.SSD_HEAD_DIMS:
+                for N in (4, 13, 16, 40, 64, 128):
+                    yield "ssd_chunk", dict(P=P, N=N, dtype=dtype, state_dtype=state)
+
+
+@pytest.mark.parametrize("kernel,shape", list(_smem_instantiations()))
+def test_smem_plan_against_the_kernels_request(cuda, kernel, shape):
+    """The planned shared memory of one CTA fits the device's opt-in limit
+    and is no more than the kernel requests at launch: where it is less,
+    the gap is the warps' scan totals of ssd_chunk's prefix sum, dead
+    after the scan, which the kernel does not reuse (PERF.md)."""
+    from repro_torch.kernels import smem_plan as sp
+
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert limit == sp.SMEM_BYTES
+    if kernel == "flash_decode":
+        kp = sp.plan_flash_decode_smem(**shape)
+        requested = fd.smem_request_bytes(shape["G"], shape["D"],
+                                          getattr(torch, shape["dtype"]))
+        gap = 0
+    else:
+        kp = sp.plan_ssd_chunk_smem(**shape)
+        requested = sc.smem_request_bytes(shape["P"], shape["N"],
+                                          getattr(torch, shape["dtype"]),
+                                          getattr(torch, shape["state_dtype"]))
+        gap = 8 * (4 if shape["dtype"] == "bfloat16" else 8)  # warps' float64 totals
+    assert kp.fits and requested <= limit
+    assert kp.plan.total_size == requested - gap

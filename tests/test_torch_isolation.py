@@ -22,7 +22,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke, chip_faults
 leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print("modules=%d" % len(list(
     pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))))
 print("leaked=" + ",".join(leaked))
@@ -74,3 +74,24 @@ def test_the_mamba2_modules_are_checked(path):
 )
 def test_the_captured_serving_modules_are_checked(path):
     assert path in SOURCES
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/core/shared_objects.py", "src/repro_torch/core/baselines.py",
+     "src/repro_torch/core/extensions.py", "src/repro_torch/core/optimal.py",
+     "src/repro_torch/core/reference.py", "src/repro_torch/core/validate.py",
+     "src/repro_torch/core/dynamic.py", "src/repro_torch/core/order_search.py",
+     "src/repro_torch/core/fusion_search.py", "src/repro_torch/core/__init__.py",
+     "src/repro_torch/analysis/soundness.py", "src/repro_torch/analysis/__init__.py",
+     "src/repro_torch/models/convnets.py", "src/repro_torch/kernels/smem_plan.py",
+     "src/repro_torch/launch/roofline.py"],
+)
+def test_the_planning_core_modules_are_checked(path):
+    assert path in SOURCES
+
+
+def test_no_source_imports_ml_dtypes():
+    """The card machine has no ml_dtypes: the port sizes bfloat16 itself."""
+    pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.MULTILINE)
+    assert not [p for p in SOURCES if pattern.search((ROOT / p).read_text())]
