@@ -14,9 +14,16 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                version and (where one exists) one PyTorch library call with
                CUDA events (median of 100 runs, L2 flushed before each run).
                ``flash_decode``: the CPU test cases, a length-1 row, a cache
-               that is a strided view into a state buffer, and the serving
-               shape at full, random and the serve phase's lengths (with
-               its split count and scratch bytes). ``ssd_chunk``: the CPU
+               that is a strided view into a state buffer, every (D, G)
+               pair built beyond D = 64 and 128 (gemma3's (320, 2) and
+               (168, 2) among them) with empty spans, gemma3's global
+               layer read through views of a full-width period's state
+               buffer, and the serving shapes of qwen3-0.6b (full, random
+               and the serve phase's lengths) and gemma3-4b (full and the
+               serve mix's lengths; there SDPA runs on its math backend,
+               named with each backend's time: the fused ones refuse
+               D = 320 or the mask), with split count and scratch bytes.
+               ``ssd_chunk``: the CPU
                test cases (slow decay included, and the tensor-core
                kernel's edge shapes) in every dtype pair, and mamba2-2.7b's
                prefill chunk (L=256, H=80, P=64, N=128, bf16, B/C one group
@@ -57,7 +64,24 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                requests of 32 prompt + 64 new tokens: all finish, every
                decode step is a replay, and the state is one buffer of
                exactly the planned size that never moves;
-11. smem      — for each kernel instantiation on the paths, the shared
+11. parity_gemma3 — gemma3-4b at full width, one period (5 window layers
+               of 1024 and a global layer), fp32, 2 slots: a 1,090-token
+               prompt with 16 new tokens (every ring wraps) and two short
+               requests, served as ``parity`` serves qwen3;
+12. serve_gemma3 — ``serve.run`` on full-width gemma3-4b (34 layers, bf16)
+               with the serve phase's slots and requests: all finish, the
+               state is one buffer of exactly 1,635,778,560 B (29 rings of
+               1024 positions, 5 global caches of 2048) that never moves,
+               every decode step is a replay of one graph holding 5
+               flash_decode launches (the global layers; window layers run
+               the plain attention, as in the reference); then 8 steady
+               waves timed and 8 profiled;
+13. prefill_gemma3 — full-width gemma3-4b prefills 2048 tokens through
+               ``ArenaExecutor`` from its certified plan, equal to eager:
+               four 512-query chunks per global layer, 1,536-key slices on
+               the window layers; no kernel (attention prefill is plain, as
+               in the reference);
+14. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -65,23 +89,25 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
-captures or serves; the serve, serve_block and serve_mamba phases print
-it as a ``plan`` row (records, the certifier's seconds, findings: 0), and
-the prefill phase certifies the plan its executor runs from with
-``certify_plan``. The profile, serve_block and prefill phases print a
-``roofline`` row: the step's FLOPs and least bytes from
-``launch/roofline.step_count`` (at the positions the profiled waves read),
-its bound on this card, the device time measured, their ratio
-(``roofline_share``) and the model FLOPs utilisation (``mfu``).
+captures or serves; the serve, serve_block, serve_mamba and serve_gemma3
+phases print it as a ``plan`` row (records, the certifier's seconds,
+findings: 0), and the prefill phases certify the plan their executor runs
+from with ``certify_plan``. The profile, serve_block, serve_gemma3 and
+prefill phases print a ``roofline`` row: the step's FLOPs and least bytes
+from ``launch/roofline.step_count`` (at the positions the profiled waves
+read; a ring up to its window), its bound on this card, the device time
+measured, their ratio (``roofline_share``) and the model FLOPs
+utilisation (``mfu``).
 
-Every path runs at its full depth. The kernel counts (each wrapper's
-launches plus each replayed graph's captured launches per replay) are set
-to 0 just before each path (phases 5, 9, 10; 7 for its own check) and read
-just after it.
+Every path runs at its full depth (the parity phases cut depth). The
+kernel counts (each wrapper's launches plus each replayed graph's
+captured launches per replay) are set to 0 just before each path (phases
+5, 9, 10, 12, 13; 7 for its own check) and read just after it.
 
-Kernel bounds come from ``launch/roofline.kernel_bound``. The last three
-lines are the card's name and power limit, the per-kernel record and the
-``ok`` line. ``--phases`` runs a subset (no final lines), and
+Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
+lines are the run's total seconds, the card's name and power limit, the
+per-kernel record (launches summed over the paths that run each kernel,
+and by path) and the ``ok`` line. ``--phases`` runs a subset (no final lines), and
 ``--keep-going`` makes the kernels phase check every case before it fails
 (``chip_faults.py`` uses both on copies of the tree with planted faults).
 """
@@ -117,6 +143,11 @@ KERNELS = {
 # is peaked and the output is O(0.1) even over 2048 positions
 Q_STD = 4.0
 DEVICE = "cuda"
+# the flash_decode (D, G) pairs built beyond the powers of two at D = 64 and
+# 128: gemma3-4b's (320, 2) and gemma3-27b's (168, 2) among them
+NEW_PAIRS = ((168, 2), (192, 12), (224, 1), (320, 2), (64, 7), (128, 5))
+# flash_decode's timing at gemma3-4b's serving shape (the kernels phase)
+GEMMA3_TIMING: dict = {}
 
 
 # --keep-going: the kernels phase records failed cases here and fails at
@@ -232,12 +263,10 @@ def _residency_cache(cfg, n_slots: int, max_len: int, gen):
 
 def phase_kernels(card_name: str) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.ref import flash_decode_ref
-    from repro_torch.launch.roofline import kernel_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -294,26 +323,114 @@ def phase_kernels(card_name: str) -> dict:
         q = rand((3, 8, 2, 64), dt, Q_STD)
         lengths = torch.tensor([1, 50, 96], dtype=torch.int32, device=DEVICE)
         check("strided_residency_view", q, k, v, lengths)
+        # every pair built beyond the powers of two at D = 64 and 128 (a
+        # warp reads one position): 8 spans of 128, a length-1 row (seven
+        # empty spans), a row one position into a span, a full row
+        for D, G in NEW_PAIRS:
+            B, KV, T = 3, 2, 1024
+            q = rand((B, KV, G, D), dt, Q_STD)
+            k, v = rand((B, T, KV, D), dt), rand((B, T, KV, D), dt)
+            lengths = torch.tensor([1, 385, T], dtype=torch.int32, device=DEVICE)
+            check(f"D{D}_G{G}_empty_spans", q, k, v, lengths)
+        # gemma3's global layer read through views into the state buffer of
+        # one full-width period (5 rings and a global cache) at 3 x 96
+        for arch in ("gemma3-4b", "gemma3-27b"):
+            one = dataclasses.replace(get_config(arch), n_periods=1, remainder=(),
+                                      dtype=str(dt).removeprefix("torch."))
+            _, caches = _residency_cache(one, 3, 96, gen)
+            k, v = caches["period"][5]["attn"][0][0], caches["period"][5]["attn"][1][0]
+            if k.stride(0) <= k.shape[1] * k.shape[2] * k.shape[3]:
+                fail(f"{arch} view: batch stride {k.stride(0)} is not a slot stride")
+            G = one.n_heads // one.n_kv_heads
+            q = rand((3, one.n_kv_heads, G, one.resolved_head_dim), dt, Q_STD)
+            lengths = torch.tensor([1, 50, 96], dtype=torch.int32, device=DEVICE)
+            check(f"{arch}_residency_view", q, k, v, lengths)
+            del caches
 
-    # the serving shape, on the serving layout: layer 0 of full-width
-    # qwen3-0.6b's state buffer at 8 slots x 2048 positions, bf16
-    cfg = get_config("qwen3-0.6b")
+    # the serving shapes, on the serving layout: the first global layer of
+    # full-width qwen3-0.6b's and gemma3-4b's state buffers at 8 slots x
+    # 2048 positions, bf16
+    record = {}
+    for arch, prefix, labels in (
+        ("qwen3-0.6b", "", ("serving_full", "serving_random", "serve_mix")),
+        ("gemma3-4b", "gemma3_", ("serving_full", "serve_mix")),
+    ):
+        record.update(time_serving(card_name, gen, check, arch, prefix, labels))
+    GEMMA3_TIMING.update(record["gemma3_serving_full"])
+    return record["serving_full"]
+
+
+def sdpa_backends(call) -> tuple[str, dict]:
+    """The SDPA backend the default dispatch runs ``call`` on, and each
+    backend's time: the first of torch's own priority order that takes
+    the inputs (a backend that refuses them raises under ``sdpa_kernel``;
+    flash attention takes no attention mask and no D above 256)."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = ([SDPBackend(i) for i in torch._C._get_sdp_priority_order()]
+             if hasattr(torch._C, "_get_sdp_priority_order") else
+             [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.MATH])
+    ran, times = None, {}
+    for backend in order:
+        if backend.name in ("OVERRIDEABLE", "ERROR"):
+            continue
+
+        def under(b=backend):
+            with sdpa_kernel(b):
+                return call()
+
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                under()
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            times[backend.name] = f"refused: {str(e).splitlines()[0][:80]}"
+            continue
+        ran = ran or backend.name
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            times[backend.name] = cuda_time_ms(under, runs=30)
+    return ran, times
+
+
+def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
+    """``flash_decode`` on the first global layer of ``arch``'s full-width
+    state buffer at 8 slots x 2048 positions (bf16): checked, then timed
+    beside its bound, its plain version and one SDPA call with
+    ``enable_gqa=True``, at full lengths (``serving_full``), random ones
+    and the serve phase's own (32 prompt + 64 new tokens: 33 to 96 of the
+    2048 positions)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import flash_decode_ref
+    from repro_torch.launch.roofline import kernel_bound
+
+    cfg = get_config(arch)
     B, T = 8, 2048
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // KV
+    layer = next(j for j, spec in enumerate(cfg.period) if spec.window is None)
     buf, caches = _residency_cache(cfg, B, T, gen)
-    k, v = caches["period"][0]["attn"][0][0], caches["period"][0]["attn"][1][0]
-    q = rand((B, KV, G, D), torch.bfloat16, Q_STD)
+    k, v = caches["period"][layer]["attn"][0][0], caches["period"][layer]["attn"][1][0]
+    q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
+    lengths_of = {
+        "serving_full": lambda: torch.full((B,), T, dtype=torch.int32, device=DEVICE),
+        "serving_random": lambda: torch.randint(1, T + 1, (B,), generator=gen,
+                                                device=DEVICE, dtype=torch.int32),
+        "serve_mix": lambda: torch.linspace(33, 96, B, device=DEVICE).round().to(torch.int32),
+    }
     record = {}
-    for label, lengths in (
-        ("serving_full", torch.full((B,), T, dtype=torch.int32, device=DEVICE)),
-        ("serving_random", torch.randint(1, T + 1, (B,), generator=gen,
-                                         device=DEVICE, dtype=torch.int32)),
-        # the serve phase's own lengths: 32 prompt + 64 new tokens per slot,
-        # so 33 to 96 positions of the 2048
-        ("serve_mix", torch.linspace(33, 96, B, device=DEVICE).round().to(torch.int32)),
-    ):
-        err = check(label, q, k, v, lengths)
+    for label in labels:
+        lengths = lengths_of[label]()
+        err = check(prefix + label, q, k, v, lengths)
         qs = q.reshape(B, KV * G, 1, D)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, T, D) views
         mask = (torch.arange(T, device=DEVICE)[None, :] < lengths[:, None])[:, None, None, :]
@@ -334,8 +451,8 @@ def phase_kernels(card_name: str) -> dict:
         bound = kernel_bound("flash_decode", {
             "B": B, "KV": KV, "G": G, "D": D, "T": T, "dtype": "bfloat16",
             "sum_lengths": total_len}, card_name=card_name)
-        row = {"phase": "kernels", "kernel": "flash_decode", "timing": label,
-               "shape": [B, KV, G, D, T], "sum_lengths": total_len,
+        row = {"phase": "kernels", "kernel": "flash_decode", "timing": prefix + label,
+               "arch": arch, "shape": [B, KV, G, D, T], "sum_lengths": total_len,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)",
                "library_max_abs_err": lib_err,
@@ -345,10 +462,13 @@ def phase_kernels(card_name: str) -> dict:
                "fp32_cuda_core_ms": bound.ops_s * 1e3, "max_abs_err": err,
                "n_split": fd.num_splits(B, KV, T),
                "scratch_bytes": fd.scratch_bytes(B, KV, G, D, T)}
+        if prefix:
+            row["library_backend"], row["library_ms_by_backend"] = sdpa_backends(library)
         emit(row)
-        record[label] = row
+        record[prefix + label] = row
     del buf, caches
-    return record["serving_full"]
+    torch.cuda.empty_cache()
+    return record
 
 
 # ssd_chunk cases: (B, L, H, P, N) and the decay; the CPU test cases of
@@ -502,12 +622,14 @@ def phase_kernels_ssd(card_name: str) -> dict:
 
 
 # the kernel instantiations the paths run: flash_decode at qwen3-0.6b's
-# heads (G=2, D=64) in bf16 (serve) and fp32 (parity); ssd_chunk at
-# mamba2-2.7b's (P=64, N=128) with bf16 x/B/C and state (prefill) and in
-# fp32 (prefill_parity)
+# heads (G=2, D=64) and gemma3-4b's global heads (G=2, D=320) in bf16
+# (serve) and fp32 (parity); ssd_chunk at mamba2-2.7b's (P=64, N=128) with
+# bf16 x/B/C and state (prefill) and in fp32 (prefill_parity)
 SMEM_CASES = (
     ("flash_decode", {"G": 2, "D": 64, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 2, "D": 64, "dtype": "float32"}),
+    ("flash_decode", {"G": 2, "D": 320, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 2, "D": 320, "dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
 )
@@ -560,25 +682,51 @@ def phase_parity() -> None:
     the eager step's (bit for bit expected, else within 1e-6) and the
     plain attention's within 1e-4; greedy tokens and slot logs are
     identical."""
-    import numpy as np
-    import torch
-
     from repro_torch.configs.base import get_config
-    from repro_torch.models.api import DecoderModel
-    from repro_torch.runtime.engine import InferenceEngine
 
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_periods=2,
                               dtype="float32")
+    requests = list(zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)))
+    run_parity("parity", cfg, requests, n_slots=4, max_len=128)
+
+
+def phase_parity_gemma3() -> None:
+    """gemma3-4b at full width, its depth cut to one period (5 window
+    layers of 1024 and a global layer), fp32, 2 slots: one request of a
+    1,090-token prompt and 16 new tokens, so every ring wraps, and two
+    short ones, so a slot is reused. The same three ways as ``parity``.
+    fp32, as qwen3's parity: in bf16 the plain attention rounds its scores
+    to bf16 (the reference's cast point) where the kernel keeps fp32, so
+    greedy tokens would test rounding, not the kernel; the bf16 kernel is
+    held in the kernels phase and served in serve_gemma3."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("gemma3-4b"), n_periods=1, remainder=(),
+                              dtype="float32")
+    run_parity("parity_gemma3", cfg, [(1090, 16), (37, 20), (5, 12)], n_slots=2,
+               max_len=1280)
+
+
+def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int) -> None:
+    """Serve ``requests`` ((prompt length, new tokens) each) on ``cfg``
+    with the kernel-core and the plain-core engine, and hold every
+    captured step of the first against the eager ``decode_step``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import DecoderModel
+    from repro_torch.runtime.engine import InferenceEngine
+
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = DecoderModel(cfg, DEVICE).init(gen)
     engines = {
-        a: InferenceEngine(cfg, params, n_slots=4, max_len=128, device=DEVICE,
-                           cores=a)
+        a: InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                           device=DEVICE, cores=a)
         for a in ("kernel", "plain")
     }
     ek, ep = engines["kernel"], engines["plain"]
     # the eager twin of the kernel engine
-    eager = ek.model.init_cache(4, 128)
+    eager = ek.model.init_cache(n_slots, max_len)
     twin = {"steps": 0, "bitwise": 0, "max_abs_diff": 0.0}
     step_tokens, reset = ek._step_tokens, ek.state.reset
 
@@ -595,7 +743,7 @@ def phase_parity() -> None:
         twin["bitwise"] += int(torch.equal(got, want))
         twin["max_abs_diff"] = max(twin["max_abs_diff"], diff)
         if not bool(((got - want).abs() <= 1e-6 + 1e-6 * want.abs()).all()):
-            fail(f"parity: captured step differs from the eager step by {diff}")
+            fail(f"{phase}: captured step differs from the eager step by {diff}")
         return got
 
     def checked_reset(keep):
@@ -604,7 +752,7 @@ def phase_parity() -> None:
 
     ek._step_tokens, ek.state.reset = checked_step, checked_reset
     rng = np.random.default_rng(0)
-    for n, new in zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)):
+    for n, new in requests:
         prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
         for e in engines.values():
             e.submit(prompt, max_new_tokens=new)
@@ -618,22 +766,34 @@ def phase_parity() -> None:
         diff = np.abs(ek.last_logits - ep.last_logits)
         worst = max(worst, float(diff.max()))
         if not np.all(diff <= 1e-4 + 1e-4 * np.abs(ep.last_logits)):
-            fail(f"parity: logits differ by {float(diff.max())} at wave {ek.waves}")
-    if done["kernel"] != done["plain"] or len(done["kernel"]) != 6:
-        fail(f"parity: greedy tokens differ {done['kernel']} vs {done['plain']}")
+            fail(f"{phase}: logits differ by {float(diff.max())} at wave {ek.waves}")
+    if done["kernel"] != done["plain"] or len(done["kernel"]) != len(requests):
+        fail(f"{phase}: greedy tokens differ {done['kernel']} vs {done['plain']}")
     if ek.slot_log != ep.slot_log:
-        fail(f"parity: slot logs differ {ek.slot_log} vs {ep.slot_log}")
+        fail(f"{phase}: slot logs differ {ek.slot_log} vs {ep.slot_log}")
     for leaf, want in zip(torch.utils._pytree.tree_leaves(ek.caches),
                           torch.utils._pytree.tree_leaves(eager)):
         if not torch.equal(leaf, want) and \
                 float((leaf - want).abs().max()) > 1e-6 * (1 + float(want.abs().max())):
-            fail("parity: the state differs from the eager twin's caches")
+            fail(f"{phase}: the state differs from the eager twin's caches")
     if twin["steps"] != ek.decode_calls or ek.state.graphs["step"].replays != ek.decode_calls:
-        fail(f"parity: {twin['steps']} checked steps, {ek.decode_calls} decode steps")
-    emit({"phase": "parity", "layers": cfg.n_layers, "waves": ek.waves,
-          "decode_steps": ek.decode_calls,
-          "kernel_vs_plain_logits_max_abs_diff": worst,
-          "captured_vs_eager": twin, "slot_log": ek.slot_log, "ok": True})
+        fail(f"{phase}: {twin['steps']} checked steps, {ek.decode_calls} decode steps")
+    row = {"phase": phase, "layers": cfg.n_layers, "waves": ek.waves,
+           "decode_steps": ek.decode_calls,
+           "kernel_vs_plain_logits_max_abs_diff": worst,
+           "captured_vs_eager": twin, "slot_log": ek.slot_log, "ok": True}
+    windows = {spec.window for spec in cfg.period if spec.window}
+    if windows:
+        reached = [n + len(done["kernel"][i]) for i, (n, _) in enumerate(requests)]
+        if max(reached) <= max(windows):
+            fail(f"{phase}: no ring wrapped (positions {reached}, windows {windows})")
+        row.update({"arch": cfg.name, "dtype": cfg.dtype,
+                    "requests": [list(r) for r in requests],
+                    "positions_reached": reached, "windows": sorted(windows),
+                    "first_tokens": {k: v[:6] for k, v in done["kernel"].items()}})
+    emit(row)
+    del engines, ek, ep, eager, params
+    torch.cuda.empty_cache()
 
 
 def reset_launches() -> None:
@@ -659,11 +819,13 @@ def wrapper_launches() -> dict:
     return {"flash_decode": fd.LAUNCHES, "ssd_chunk": sc.LAUNCHES}
 
 
-def check_replayed(phase: str, stats: dict, kernel: str | None) -> dict:
+def check_replayed(phase: str, stats: dict, kernel: str | None,
+                   per_step: int | None = None) -> dict:
     """Every decode step of a serve run (counts reset before the engine
     was built) was a replay: the graphs' replays add up to the decode
     steps, nothing was captured while serving, the arena stayed put, and
-    ``kernel`` ran once per layer per step, by replays, with the wrapper
+    ``kernel`` ran ``per_step`` times per step (default: once per layer;
+    gemma3: once per global layer), by replays, with the wrapper
     launching it only in the warm-up run of each capture. Returns the
     per-graph accounting."""
     graphs = stats["graphs"]
@@ -675,22 +837,23 @@ def check_replayed(phase: str, stats: dict, kernel: str | None) -> dict:
         fail(f"{phase}: {stats['capture_calls_while_serving']} captures while serving")
     if stats["arena_ptr_before"] != stats["arena_ptr_after"]:
         fail(f"{phase}: the activation arena moved")
-    layers, warmups = stats["n_layers"], len(graphs)
+    per_step = stats["n_layers"] if per_step is None else per_step
+    warmups = len(graphs)
     eager = wrapper_launches()
-    want_eager = {k: (layers * warmups if k == kernel else 0) for k in eager}
+    want_eager = {k: (per_step * warmups if k == kernel else 0) for k in eager}
     if eager != want_eager:
         fail(f"{phase}: the wrappers launched {eager}, expected {want_eager} "
              f"(the warm-up run of each of the {warmups} captures)")
     if kernel is not None:
         held = {k: g["launches"][kernel] for k, g in graphs.items()}
         replayed = sum(held[k] * g["replays"] for k, g in graphs.items())
-        if set(held.values()) != {layers}:
+        if set(held.values()) != {per_step}:
             fail(f"{phase}: captured {kernel} launches per graph {held}, expected "
-                 f"{layers} (one per layer)")
-        if replayed != stats["decode_calls"] * layers or \
+                 f"{per_step} per step")
+        if replayed != stats["decode_calls"] * per_step or \
                 read_launches()[kernel] != replayed + eager[kernel]:
             fail(f"{phase}: {replayed} replayed {kernel} launches, expected "
-                 f"{stats['decode_calls']} decode steps x {layers} layers")
+                 f"{stats['decode_calls']} decode steps x {per_step}")
     return {k: {"captured_launches": g["launches"], "replays": g["replays"]}
             for k, g in graphs.items()}
 
@@ -731,8 +894,9 @@ def plan_row(label: str, stats: dict) -> None:
 
 def decode_roofline(label: str, engine, prof: dict, card_name: str) -> dict:
     """The roofline of the profiled decode waves of ``engine``: each wave's
-    FLOPs and least bytes at the positions it read (every slot active),
-    averaged over the waves, against the device time per wave measured."""
+    FLOPs and least bytes at the positions it read (every slot active; a
+    ring read up to its window), averaged over the waves, against the
+    device time per wave measured."""
     import statistics as st
 
     import torch
@@ -751,9 +915,12 @@ def decode_roofline(label: str, engine, prof: dict, card_name: str) -> dict:
               meta((n,), torch.int32), meta((n,), torch.bool))
     axes = detect_state_axes(engine.model.init_cache, n_slots=n, max_len=T)
 
+    rings = roofline.ring_windows(engine.cfg, engine.caches)
+
     def count(lengths):
         return roofline.step_count(engine.executor.trace, engine.params, inputs,
-                                   state=engine.caches, axes=axes, lengths=lengths)
+                                   state=engine.caches, axes=axes, lengths=lengths,
+                                   rings=rings)
 
     first = prof["positions_first"]
     counts = [count([min(p + i + 1, T) for p in first]) for i in range(prof["waves"])]
@@ -1045,6 +1212,34 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
     through ``ArenaExecutor`` (every intermediate at its planned offset in
     one arena, each ssd_chunk result copied into its slot), against the
     eager ``Model.prefill`` on the same weights and tokens."""
+    cfg, model, params = _mamba_model(None, "bfloat16", 0)
+    return run_prefill(card_name, cfg, model, params, "ssd_chunk")
+
+
+def phase_prefill_gemma3(card_name: str) -> tuple[dict, dict]:
+    """Full-width gemma3-4b (34 layers, bf16, random weights from a seed):
+    one 2048-token request through ``ArenaExecutor`` from its certified
+    plan, against the eager prefill: four 512-query chunks per global
+    layer, 1,536-key slices per query chunk on the window layers, whose
+    caches are the rings of the last 1024 positions. Attention prefill
+    has no kernel (the reference's is plain XLA attention), so no kernel
+    launches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import DecoderModel
+
+    cfg = get_config("gemma3-4b")
+    model = DecoderModel(cfg, DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    return run_prefill(card_name, cfg, model, params, None)
+
+
+def run_prefill(card_name: str, cfg, model, params, kernel: str | None
+                ) -> tuple[dict, dict]:
+    """One 2048-token prefill of ``model`` through ``ArenaExecutor`` from
+    a certified plan, against the eager prefill; ``kernel`` is the kernel
+    it launches once per chunk per layer (None: no kernel at all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1057,18 +1252,18 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
 
     S = 2048
     mib = 2**20
-    cfg, model, params = _mamba_model(None, "bfloat16", 0)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+    freqs = model.rope_freqs
     t0 = time.perf_counter()
     _, meta_plan = plan_prefill(cfg, prefill_len=S)
     plan_s = time.perf_counter() - t0
 
-    def prefill(p, t):
-        return model.prefill(p, {"tokens": t})
+    def prefill(p, f, t):
+        return model.prefill(p, {"tokens": t}, rope_freqs=f)
 
     t0 = time.perf_counter()
-    executor = ArenaExecutor(prefill, params, tokens, device=DEVICE,
+    executor = ArenaExecutor(prefill, params, freqs, tokens, device=DEVICE,
                              name=f"{cfg.name}-prefill{S}")
     executor_s = time.perf_counter() - t0
     # the plan the executor runs from, certified (plan_prefill certified
@@ -1089,7 +1284,7 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
         base = torch.cuda.memory_allocated()  # the arena included
         reset_launches()
         t0 = time.perf_counter()
-        logits, caches = executor(params, tokens)
+        logits, caches = executor(params, freqs, tokens)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = read_launches()
@@ -1108,12 +1303,14 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
             diffs[name] = float((g.float() - w.float()).abs().max())
             if not bool(((g.float() - w.float()).abs()
                          <= 1e-6 + 1e-6 * w.float().abs()).all()):
-                fail(f"prefill: the arena-backed {name} differs from eager by "
-                     f"{diffs[name]}")
+                fail(f"prefill: the arena-backed {name} of {cfg.name} differs from "
+                     f"eager by {diffs[name]}")
         finite = bool(torch.isfinite(logits.float()).all())
+        cache_lens = sorted({int(x.shape[-3]) for x in
+                             torch.utils._pytree.tree_leaves(caches) if x.dim() >= 4})
         del logits, caches, want_logits, want_caches
         t0 = time.perf_counter()
-        executor(params, tokens)
+        executor(params, freqs, tokens)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1126,7 +1323,7 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
-                executor(params, tokens)
+                executor(params, freqs, tokens)
                 torch.cuda.synchronize()
                 prof.step()
     # the schedule's step annotation (ProfilerStep#) also lies on the
@@ -1134,16 +1331,22 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not e.key.startswith("ProfilerStep")]
     device_us = sum(e.self_device_time_total for e in kernels)
-    ssd_us = sum(e.self_device_time_total for e in kernels if "ssd_chunk" in e.key)
-    ssd_count = sum(e.count for e in kernels if "ssd_chunk" in e.key)
     n_chunks = -(-S // 256)
-    if counts["ssd_chunk"] != n_chunks * cfg.n_layers:
-        fail(f"prefill: {counts['ssd_chunk']} ssd_chunk launches, expected "
-             f"{n_chunks} chunks x {cfg.n_layers} layers")
+    if kernel is None:
+        if any(counts.values()):
+            fail(f"prefill: {cfg.name} launched kernels {counts}, expected none")
+    else:
+        kernel_us = sum(e.self_device_time_total for e in kernels if kernel in e.key)
+        kernel_count = sum(e.count for e in kernels if kernel in e.key)
+        if counts[kernel] != n_chunks * cfg.n_layers:
+            fail(f"prefill: {counts[kernel]} {kernel} launches, expected "
+                 f"{n_chunks} chunks x {cfg.n_layers} layers")
+        if kernel_count != n_chunks * cfg.n_layers or kernel_us <= 0:
+            fail(f"prefill: the profiler saw {kernel_count} {kernel} kernels")
     if not finite:
         fail("prefill: non-finite logits")
-    if ssd_count != n_chunks * cfg.n_layers or ssd_us <= 0:
-        fail(f"prefill: the profiler saw {ssd_count} ssd_chunk kernels")
+    if device_us <= 0:
+        fail("prefill: the profiler saw no device time")
     if executor.arena.buf.data_ptr() != arena_ptr:
         fail("prefill: the arena moved")
     if executor.plan.total_size != meta_plan.total_size:
@@ -1155,8 +1358,11 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
            "tokens": S, "launches": counts, "first_wall_s": first_s,
            "warm_wall_s": warm_s, "tokens_per_s_warm": S / warm_s,
            "eager_warm_wall_s": eager_warm_s,
-           "device_ms": device_us / 1e3, "ssd_chunk_device_ms": ssd_us / 1e3,
-           "ssd_chunk_us_per_launch": ssd_us / ssd_count,
+           "device_ms": device_us / 1e3}
+    if kernel is not None:
+        row.update({f"{kernel}_device_ms": kernel_us / 1e3,
+                    f"{kernel}_us_per_launch": kernel_us / kernel_count})
+    row.update({
            "device_kernel_launches": sum(e.count for e in kernels),
            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                               for e in top},
@@ -1171,10 +1377,11 @@ def phase_prefill(card_name: str) -> tuple[dict, dict]:
            "executor_in_place": st.n_in_place, "executor_copied": st.n_copied,
            "executor_boundary": st.n_boundary,
            "executor_copied_mib_per_call": st.copied_bytes / mib,
+           "cache_lengths": cache_lens,
            "equal_to_eager_bitwise": bitwise, "max_abs_diff_vs_eager": diffs,
-           "ok": True}
+           "ok": True})
     emit(row)
-    count = roofline.step_count(executor.trace, params, (tokens,))
+    count = roofline.step_count(executor.trace, params, (freqs, tokens))
     bound = count.bound(card_name)
     device_ms = device_us / 1e3
     model_flops = roofline.model_flops(cfg, ShapeSpec("prefill", S, 1, "prefill"))
@@ -1248,8 +1455,101 @@ def phase_serve_mamba() -> None:
     torch.cuda.empty_cache()
 
 
+# the serve_gemma3 run: full-width gemma3-4b, the qwen3 serve mix
+GEMMA3_SERVE_ARGS = [
+    "--full", "--arch", "gemma3-4b", "--slots", "8", "--max-len", "2048",
+    "--requests", "8", "--prompt-len", "32", "--max-new", "64", "--seed", "0",
+]
+# gemma3-4b's state at 8 slots x 2048 positions, bf16: 5 global layers of
+# 2048 positions and 29 rings of 1024, 5,120 B of K+V per position
+GEMMA3_STATE_BYTES = (5 * 8 * 2048 + 29 * 8 * 1024) * 5120  # 1,635,778,560
+
+
+def phase_serve_gemma3(card_name: str) -> tuple[dict, dict]:
+    """``serve.run`` on full-width gemma3-4b (34 layers: 29 window layers
+    of 1024, 5 global layers; bf16, random weights from a seed) with 8
+    slots x 2048 positions and the qwen3 serve mix: all finish, every
+    decode step is a replay of the one captured graph, whose flash_decode
+    launches are the 5 global layers', the state is one buffer of
+    exactly the planned 1,635,778,560 B that never moves; then 8 more
+    requests for a steady window, 8 waves timed and 8 profiled, and its
+    roofline (rings read up to their window)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    n_req, max_new = 8, 64
+    reset_launches()
+    stats = serve.run(GEMMA3_SERVE_ARGS)
+    counts = read_launches()
+    engine = stats["engine"]
+    cfg = engine.cfg
+    toks = stats["tokens_per_request"]
+    if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
+        fail(f"serve_gemma3: {stats['requests']} of {n_req} requests finished, "
+             f"lengths {[len(t) for t in toks.values()]}")
+    if not all(0 <= x < cfg.vocab for t in toks.values() for x in t):
+        fail("serve_gemma3: a token outside the vocabulary")
+    if not stats["last_logits_finite"]:
+        fail("serve_gemma3: non-finite logits")
+    if not stats["state_live_bytes"] == stats["state_planned_bytes"] == GEMMA3_STATE_BYTES:
+        fail(f"serve_gemma3: live state {stats['state_live_bytes']} B, planned "
+             f"{stats['state_planned_bytes']} B, expected {GEMMA3_STATE_BYTES} B")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail("serve_gemma3: the state buffer moved")
+    n_global = sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
+                   if spec.mixer == "attn" and spec.window is None)
+    replayed = check_replayed("serve_gemma3", stats, "flash_decode", per_step=n_global)
+    if stats["capture_calls"] != 1:
+        fail(f"serve_gemma3: {stats['capture_calls']} graphs captured, expected 1")
+    plan_row("gemma3-4b serve (8 slots x 2048)", stats)
+    emit({
+        "phase": "serve_gemma3", "arch": cfg.name, "layers": stats["n_layers"],
+        "global_layers": n_global, "requests": stats["requests"],
+        "tokens": stats["tokens"], "waves": stats["waves"],
+        "decode_steps": stats["decode_calls"], "host_syncs": stats["host_syncs"],
+        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+        "cold_start_s": stats["cold_start_s"], "launches": counts,
+        "graphs": replayed, **graph_stats(stats),
+        "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
+        "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
+        "state_bytes": stats["state_live_bytes"],
+        "state_mib": stats["state_live_bytes"] / 2**20,
+        "state_mib_if_every_layer_kept_2048": 34 * 8 * 2048 * 5120 / 2**20,
+        "decode_step_ops": stats["decode_step_ops"],
+        "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
+        "ok": True,
+    })
+    launches = counts["flash_decode"]
+    # a steady window: 8 requests more, every slot active
+    waves = 8
+    rng = np.random.default_rng(1)
+    for _ in range(n_req):
+        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
+                      max_new_tokens=2 * waves + 4)
+    done = engine.step()  # admits every request
+    prof, finished = serve.profile_waves(engine, waves)
+    done += finished + engine.run_until_done()
+    if len(done) != n_req:
+        fail(f"serve_gemma3: {len(done)} of {n_req} profiled requests finished")
+    if not prof["device_ms_per_wave"] > 0:
+        fail("serve_gemma3: the profiler saw no device time")
+    emit({"phase": "profile", "arch": cfg.name,
+          "decode_step_ops": len(engine.decode_graph.ops),
+          "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
+    roof = decode_roofline("gemma3-4b steady host-loop wave", engine, prof, card_name)
+    del engine, stats
+    torch.cuda.empty_cache()
+    return {"launches": launches}, roof
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
-          "serve_block", "prefill_parity", "prefill", "serve_mamba", "smem")
+          "serve_block", "prefill_parity", "prefill", "serve_mamba",
+          "parity_gemma3", "serve_gemma3", "prefill_gemma3", "smem")
+
+
+T0 = time.perf_counter()
 
 
 def main() -> None:
@@ -1282,14 +1582,15 @@ def main() -> None:
               "failed_cases": FAILED_CASES})
         if FAILED_CASES:
             fail(f"{len(FAILED_CASES)} kernel case(s) over their bars: {FAILED_CASES}")
-    launches = {}
+    # kernel -> path -> its launches in that path's run
+    launches: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
     if "parity" in phases:
         phase_parity()
     host_tokens = None
     roofs = []
     if "serve" in phases:
         serve, engine = phase_serve()
-        launches["flash_decode"] = serve["launches"]
+        launches["flash_decode"]["qwen3-0.6b serve"] = serve["launches"]
         host_tokens = serve["tokens"]
         if "profile" in phases:
             roofs.append(phase_profile(engine, card_name))
@@ -1300,28 +1601,50 @@ def main() -> None:
         phase_prefill_parity()
     if "prefill" in phases:
         row, roof = phase_prefill(card_name)
-        launches["ssd_chunk"] = row["launches"]["ssd_chunk"]
+        launches["ssd_chunk"]["mamba2-2.7b prefill"] = row["launches"]["ssd_chunk"]
         roofs.append(roof)
     if "serve_mamba" in phases:
         phase_serve_mamba()
+    if "parity_gemma3" in phases:
+        phase_parity_gemma3()
+    if "serve_gemma3" in phases:
+        serve_g, roof = phase_serve_gemma3(card_name)
+        launches["flash_decode"]["gemma3-4b serve"] = serve_g["launches"]
+        roofs.append(roof)
+    if "prefill_gemma3" in phases:
+        _, roof = phase_prefill_gemma3(card_name)
+        roofs.append(roof)
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 4 or len(roofs) != 3:
+    if len(CERTIFIED) != 6 or len(roofs) != 5:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 4 and 3")
+             f"expected 6 and 5")
     import torch
 
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": name, "route": route, "source": source, "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
-        "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
-        "bound_by": timing[name]["bound_by"],
-        "library_ms": timing[name]["library_ms"],
-    } for name, (route, source, replaces) in KERNELS.items()]})
+    # one row per kernel: its launches on every path that runs it (the
+    # counts read after each path), its timing at qwen3-0.6b's serving
+    # shape (flash_decode) or mamba2-2.7b's chunk (ssd_chunk); flash_decode
+    # adds its timing at gemma3-4b's serving shape
+    rows = []
+    for name, (route, source, replaces) in KERNELS.items():
+        row = {"name": name, "route": route, "source": source,
+               "replaces": replaces, "launches": sum(launches[name].values()),
+               "launches_by_path": launches[name],
+               "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
+               "plain_ms": timing[name]["plain_ms"],
+               "bound_ms": timing[name]["bound_ms"],
+               "bound_by": timing[name]["bound_by"],
+               "library_ms": timing[name]["library_ms"]}
+        if name == "flash_decode":
+            row["gemma3_4b"] = {k: GEMMA3_TIMING[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_backend", "max_abs_err")}
+        rows.append(row)
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

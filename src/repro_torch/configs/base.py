@@ -4,6 +4,8 @@ The schema is the reference's, field for field, so a config means the
 same model in both packages. The registry is limited to the archs the
 port serves; every other arch of the reference raises
 ``NotImplementedError`` naming the slice of the port that brings it.
+nemotron-4-340b has its reduced config only (``get_reduced``): its
+full width needs more than one card.
 """
 
 from __future__ import annotations
@@ -115,19 +117,24 @@ ARCH_IDS: tuple[str, ...] = (
 )
 
 # the archs this port serves; the rest wait for the slice named here
-PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b")
+PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b", "gemma3-4b",
+                                    "gemma3-27b")
+# archs whose reduced config the port builds and tests, while the full
+# width waits for the slice named here
+_REDUCED_ONLY = {
+    "nemotron-4-340b": "the multi-device slice (ROADMAP A15): 340B parameters "
+                       "do not fit one card",
+}
 _LATER_SLICE = {
-    "gemma3-27b": "the sliding-window decode slice (ROADMAP A8)",
-    "gemma3-4b": "the sliding-window decode slice (ROADMAP A8)",
     "granite-moe-3b-a800m": "the MoE slice (ROADMAP A8)",
     "llama4-maverick-400b-a17b": "the MoE slice (ROADMAP A8)",
     "zamba2-7b": "the shared-block slice (ROADMAP A8)",
     "internvl2-1b": "the VLM-prefix slice (ROADMAP A8)",
-    "nemotron-4-340b": "the multi-device slice (ROADMAP A15)",
     "seamless-m4t-medium": "the enc-dec slice (ROADMAP A15)",
 }
 
-_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in PORTED_ARCH_IDS}
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_")
+               for a in (*PORTED_ARCH_IDS, *_REDUCED_ONLY)}
 
 
 def _module(arch_id: str):
@@ -144,6 +151,11 @@ def _module(arch_id: str):
 
 
 def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in _REDUCED_ONLY:
+        raise NotImplementedError(
+            f"arch {arch_id!r}: the port builds its reduced config only "
+            f"(get_reduced); the full width comes with {_REDUCED_ONLY[arch_id]}"
+        )
     return _module(arch_id).CONFIG
 
 

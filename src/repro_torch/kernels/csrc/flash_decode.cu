@@ -20,14 +20,19 @@
 //     whose merge weight exp(-1e30 - m) is 0 beside any real span, and which
 //     gives 0 / max(0, 1e-30) = 0 when every span of a row is empty;
 //   * inside a span, tiles of K and V rows are copied with 16-byte cp.async
-//     into a ring of kStages tiles in shared memory (8 KiB each), so three
-//     tiles are in flight while a fourth is used; all G query heads of h share
-//     each row. CTAs of 4 warps keep the registers of five CTAs on an SM at
-//     the serving shape, so its 512 CTAs run in one wave;
-//   * a cache row is split into 16-byte vectors, one per lane, so a position is
-//     read by D*itemsize/16 lanes and a warp covers 32*16/(D*itemsize)
-//     positions at a time; each lane keeps its own fp32 (m, l, acc), merged
-//     through warp shuffles, then across warps through shared memory.
+//     into a ring of kStages tiles in shared memory, so three tiles are in
+//     flight while a fourth is used; all G query heads of h share each row.
+//     CTAs of 4 warps keep the registers of five CTAs on an SM at qwen3's
+//     serving shape, so its 512 CTAs run in one wave;
+//   * a cache row is split into CH = D*itemsize/16 vectors of 16 bytes (the
+//     Layout below). Where CH divides 32 (D = 64 or 128), one vector per lane:
+//     a position is read by CH lanes and a warp covers 32/CH positions at a
+//     time. Otherwise (D = 168, 192, 224, 320: CH = 21, 24, 28, 40 in bf16) a
+//     whole warp reads one position, each lane its vectors lane, lane + 32,
+//     ..., and lanes past CH hold none; the tile, the stage (2 * TILE * CH * 16
+//     bytes) and the shared memory follow from D. Each lane keeps its own fp32
+//     (m, l, acc), merged through warp shuffles, then across warps through
+//     shared memory.
 // The TPU kernel walks T sequentially over a grid axis with its state in VMEM
 // scratch; here the spans run in parallel and their states merge at the end.
 //
@@ -50,14 +55,13 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 2;             // positions per lane per tile
+constexpr int kUnroll = 2;             // positions per lane group per tile
 constexpr int kStages = 4;             // tiles in the shared-memory ring
-// the K and V rows of one tile: each thread copies kUnroll 16-byte chunks of
-// K and as many of V
-constexpr int kStageBytes = 2 * kThreads * kUnroll * 16;  // 8 KiB
-constexpr int kSmemBytes = kStages * kStageBytes;  // 32 KiB: no opt-in needed
 constexpr int kMaxSplits = 64;         // the wrapper's num_splits never exceeds it
 constexpr float kNegInf = -1e30f;
+
+constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <typename T>
 struct VecWidth;
@@ -68,6 +72,36 @@ struct VecWidth<float> {
 template <>
 struct VecWidth<__nv_bfloat16> {
   static constexpr int value = 8;
+};
+
+// How one CTA of the instantiation (T, D, G) lays a span out: 16-byte chunks
+// per cache row, lanes per position, positions per tile, the ring, and the
+// shared memory the two merges need (each array 16-byte aligned, as
+// kernels/smem_plan.py plans them). The merges reuse the ring after the loop;
+// the CTA requests the largest of the three.
+template <typename T, int D, int G>
+struct Layout {
+  static constexpr int VEC = VecWidth<T>::value;  // elements per 16-byte chunk
+  static constexpr int CH = D / VEC;              // chunks per cache row
+  static constexpr int LANES = (CH <= 32 && 32 % CH == 0) ? CH : 32;
+  static constexpr int CPL = (CH + LANES - 1) / LANES;  // chunks per lane
+  static constexpr bool FULL = CH % LANES == 0;  // every lane holds CPL chunks
+  static constexpr int POS_PER_WARP = 32 / LANES;
+  static constexpr int GROUPS = kWarps * POS_PER_WARP;
+  static constexpr int TILE = GROUPS * kUnroll;  // positions per tile
+  static constexpr int CHUNKS = TILE * CH;       // 16-byte chunks of K per tile
+  static constexpr int STAGE = 2 * CHUNKS * 16;  // K and V rows of one tile
+  static constexpr int RING = kStages * STAGE;
+  // the warps' merge: m [kWarps][G], l [kWarps][G], acc [kWarps][G][D]
+  static constexpr int WARP_ML = align16(kWarps * G * 4);
+  static constexpr int WARP_MERGE = 2 * WARP_ML + align16(kWarps * G * D * 4);
+  // the spans' merge: m then weights [kMaxSplits][G], l [kMaxSplits][G],
+  // 1 / sum [G]
+  static constexpr int SPLIT_ML = align16(kMaxSplits * G * 4);
+  static constexpr int SPLIT_MERGE = 2 * SPLIT_ML + align16(G * 4);
+  static constexpr int SMEM = cmax(RING, cmax(WARP_MERGE, SPLIT_MERGE));
+  static_assert(D % VEC == 0, "a cache row is whole 16-byte chunks");
+  static_assert((LANES & (LANES - 1)) == 0, "shuffle reductions need 2^k lanes");
 };
 
 template <typename T>
@@ -133,9 +167,10 @@ __device__ __forceinline__ void merge_if_last(const float* part_acc,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  float* sm_w = sm;                       // [s][g]: m_s, then its weight
-  float* sm_l = sm + kMaxSplits * G;      // [s][g]: l_s
-  float* sm_inv = sm_l + kMaxSplits * G;  // [g]: 1 / max(sum_s l_s w_s, 1e-30)
+  constexpr int ML = Layout<T, D, G>::SPLIT_ML / 4;
+  float* sm_w = sm;             // [s][g]: m_s, then its weight
+  float* sm_l = sm + ML;        // [s][g]: l_s
+  float* sm_inv = sm + 2 * ML;  // [g]: 1 / max(sum_s l_s w_s, 1e-30)
   const float* ml = part_ml + static_cast<int64_t>(bh) * n_split * G * 2;
   const float* acc = part_acc + static_cast<int64_t>(bh) * n_split * G * D;
   T* ob = out + static_cast<int64_t>(bh) * G * D;
@@ -181,17 +216,16 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int n_kv, int t_len, int n_split, int span, int64_t k_sb,
                           int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
                           int64_t v_sh, float scale) {
-  constexpr int VEC = VecWidth<T>::value;      // elements per 16-byte load
-  constexpr int LANES = D / VEC;               // lanes reading one position
-  constexpr int POS_PER_WARP = 32 / LANES;     // positions a warp reads at once
-  constexpr int GROUPS = kWarps * POS_PER_WARP;
-  constexpr int TILE = GROUPS * kUnroll;       // positions per tile
-  constexpr int CHUNKS = TILE * LANES;         // 16-byte chunks of K per tile
-  static_assert(D % VEC == 0 && 32 % LANES == 0, "unsupported head size");
-  static_assert(2 * CHUNKS * 16 == kStageBytes, "a tile fills one stage");
-  static_assert(CHUNKS % kThreads == 0, "whole chunks per thread");
-  static_assert(kWarps * G * (D + 2) * 4 <= kSmemBytes, "merge fits the ring");
-  static_assert((2 * kMaxSplits + 1) * G * 4 <= kSmemBytes, "merge fits the ring");
+  using L = Layout<T, D, G>;
+  constexpr int VEC = L::VEC;
+  constexpr int CH = L::CH;
+  constexpr int LANES = L::LANES;
+  constexpr int CPL = L::CPL;
+  constexpr int POS_PER_WARP = L::POS_PER_WARP;
+  constexpr int GROUPS = L::GROUPS;
+  constexpr int TILE = L::TILE;
+  constexpr int CHUNKS = L::CHUNKS;
+  constexpr int STAGE = L::STAGE;
 
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -218,8 +252,10 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int sub = lane % LANES;                      // which 16-byte chunk of D
+  const int sub = lane % LANES;  // this lane's first 16-byte chunk of a row
   const int group = warp * POS_PER_WARP + lane / LANES;
+  // chunk j of this lane is sub + j * LANES, when it lies inside the row
+  auto has = [&](int j) { return L::FULL || sub + j * LANES < CH; };
 
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
@@ -228,15 +264,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // tile `tile` of the span into ring slot `slot`: K rows then V rows, each
   // row D*itemsize contiguous bytes; rows past `end` are zero-filled
   auto load_tile = [&](int tile, int slot) {
-    unsigned char* ks = smem + slot * kStageBytes;
-    unsigned char* vs = ks + kStageBytes / 2;
+    unsigned char* ks = smem + slot * STAGE;
+    unsigned char* vs = ks + STAGE / 2;
     const int t0 = start + tile * TILE;
 #pragma unroll
     for (int c = threadIdx.x; c < CHUNKS; c += kThreads) {
-      const int t = t0 + c / LANES;
+      const int t = t0 + c / CH;
       const bool ok = t < end;
       const int64_t tc = ok ? t : start;
-      const int off = (c % LANES) * VEC;
+      const int off = (c % CH) * VEC;
       cp_async16(ks + c * 16, kb + tc * k_st + off, ok);
       cp_async16(vs + c * 16, vb + tc * v_st + off, ok);
     }
@@ -247,23 +283,36 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
   }
 
-  // this lane's chunk of every query head of KV head h, scaled, in fp32
-  float qf[G][VEC];
-  const T* qb = q + static_cast<int64_t>(bh) * G * D + sub * VEC;
+  // this lane's chunks of every query head of KV head h, scaled, in fp32
+  // (zero where the lane holds no chunk)
+  float qf[CPL][G][VEC];
+  const T* qb = q + static_cast<int64_t>(bh) * G * D;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D), qf[g]);
+  for (int j = 0; j < CPL; ++j) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) qf[g][i] *= scale;
+    for (int g = 0; g < G; ++g) {
+      if (has(j)) {
+        unpack<T>(*reinterpret_cast<const uint4*>(qb + g * D + (sub + j * LANES) * VEC),
+                  qf[j][g]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qf[j][g][i] *= scale;
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qf[j][g][i] = 0.f;
+      }
+    }
   }
 
-  float m[G], l[G], acc[G][VEC];
+  float m[G], l[G], acc[CPL][G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[j][g][i] = 0.f;
+    }
   }
 
   // n_tiles is the same for every thread of the CTA, so the shuffles below
@@ -275,8 +324,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_tile(tile + kStages - 1, (tile + kStages - 1) % kStages);
     }
     cp_async_commit();
-    const unsigned char* ks = smem + (tile % kStages) * kStageBytes;
-    const unsigned char* vs = ks + kStageBytes / 2;
+    const unsigned char* ks = smem + (tile % kStages) * STAGE;
+    const unsigned char* vs = ks + STAGE / 2;
     const int t0 = start + tile * TILE;
 
     bool valid[kUnroll];
@@ -285,14 +334,21 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kUnroll; ++u) {
       const int row = u * GROUPS + group;
       valid[u] = t0 + row < end;
-      float kf[VEC];
-      unpack<T>(*reinterpret_cast<const uint4*>(ks + (row * LANES + sub) * 16), kf);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
+      for (int g = 0; g < G; ++g) s[u][g] = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) dot = fmaf(qf[g][i], kf[i], dot);
-        s[u][g] = dot;
+      for (int j = 0; j < CPL; ++j) {
+        if (!has(j)) continue;
+        float kf[VEC];
+        unpack<T>(*reinterpret_cast<const uint4*>(
+                      ks + (row * CH + sub + j * LANES) * 16), kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = s[u][g];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) dot = fmaf(qf[j][g][i], kf[i], dot);
+          s[u][g] = dot;
+        }
       }
     }
     // sum the partial dot products over the LANES lanes of each position
@@ -318,20 +374,32 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[g] = mx;
       l[g] *= corr;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
+      for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[j][g][i] *= corr;
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (!valid[u]) continue;
-      float vf[VEC];
       const int row = u * GROUPS + group;
-      unpack<T>(*reinterpret_cast<const uint4*>(vs + (row * LANES + sub) * 16), vf);
+      float p[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = expf(s[u][g] - m[g]);
-        l[g] += p;
+        p[g] = expf(s[u][g] - m[g]);
+        l[g] += p[g];
+      }
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+      for (int j = 0; j < CPL; ++j) {
+        if (!has(j)) continue;
+        float vf[VEC];
+        unpack<T>(*reinterpret_cast<const uint4*>(
+                      vs + (row * CH + sub + j * LANES) * 16), vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[j][g][i] = fmaf(p[g], vf[i], acc[j][g][i]);
+        }
       }
     }
   }
@@ -350,22 +418,29 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float c = expf(m_o - mx);
       l[g] = l[g] * a + l_o * c;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
-        acc[g][i] = acc[g][i] * a + acc_o * c;
+      for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float acc_o = __shfl_xor_sync(0xffffffffu, acc[j][g][i], off);
+          acc[j][g][i] = acc[j][g][i] * a + acc_o * c;
+        }
       }
       m[g] = mx;
     }
   }
   float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
-  float* sm_l = sm_m + kWarps * G;               // [kWarps][G]
-  float* sm_acc = sm_l + kWarps * G;             // [kWarps][G][D]
+  float* sm_l = sm_m + L::WARP_ML / 4;           // [kWarps][G]
+  float* sm_acc = sm_m + 2 * L::WARP_ML / 4;     // [kWarps][G][D]
   if (lane < LANES) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        sm_acc[(warp * G + g) * D + sub * VEC + i] = acc[g][i];
+      for (int j = 0; j < CPL; ++j) {
+        if (!has(j)) continue;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          sm_acc[(warp * G + g) * D + (sub + j * LANES) * VEC + i] = acc[j][g][i];
+        }
       }
       if (lane == 0) {
         sm_m[warp * G + g] = m[g];
@@ -413,11 +488,21 @@ struct Args {
 
 template <typename T, int D, int G>
 cudaError_t launch(const Args& a) {
+  constexpr int smem = Layout<T, D, G>::SMEM;
+  auto kernel = flash_decode_split_kernel<T, D, G>;
+  // the opt-in to `smem` bytes of dynamic shared memory, once per
+  // instantiation before its first launch (a warm-up call precedes every
+  // graph capture, so a capture never sets it). Every instantiation takes
+  // it: the 48 KiB a launch gets without it include the static `last` of
+  // merge_if_last, so 48 KiB of dynamic memory already needs it.
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
   const int span = (a.t_len + a.n_split - 1) / a.n_split;
   const int parts = a.batch * a.n_kv * a.n_split;
   float* part_acc = a.part;
   float* part_ml = a.part + static_cast<int64_t>(parts) * G * D;
-  flash_decode_split_kernel<T, D, G><<<parts, kThreads, kSmemBytes, a.stream>>>(
+  kernel<<<parts, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.lengths), part_acc,
       part_ml, static_cast<T*>(a.out), a.counters, a.n_kv, a.t_len, a.n_split,
@@ -425,32 +510,31 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_g(int g, const Args& a) {
-  switch (g) {
-    case 1:
-      return launch<T, D, 1>(a);
-    case 2:
-      return launch<T, D, 2>(a);
-    case 4:
-      return launch<T, D, 4>(a);
-    case 8:
-      return launch<T, D, 8>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// The (D, G) pairs built, each in fp32 and bf16: qwen3 (64, 2) and the other
+// powers of two at D = 64 and 128, gemma3-4b's global layers (320, 2),
+// gemma3-27b's (168, 2), internvl2 (64, 7), zamba2 (224, 1), llama4 (128, 5)
+// and nemotron (192, 12). kernels/flash_decode.py (PAIRS) and
+// kernels/smem_plan.py (FD_PAIRS) list the same.
+#define FD_PAIRS(X)                                                        \
+  X(64, 1) X(64, 2) X(64, 4) X(64, 7) X(64, 8) X(128, 1) X(128, 2) X(128, 4) \
+  X(128, 5) X(128, 8) X(168, 2) X(192, 12) X(224, 1) X(320, 2)
+
+template <typename T>
+cudaError_t dispatch(int d, int g, const Args& a) {
+#define FD_LAUNCH(DD, GG) \
+  if (d == DD && g == GG) return launch<T, DD, GG>(a);
+  FD_PAIRS(FD_LAUNCH)
+#undef FD_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, int g, const Args& a) {
-  switch (d) {
-    case 64:
-      return dispatch_g<T, 64>(g, a);
-    case 128:
-      return dispatch_g<T, 128>(g, a);
-    default:
-      return cudaErrorInvalidValue;
-  }
+int smem_bytes(int d, int g) {
+#define FD_SMEM(DD, GG) \
+  if (d == DD && g == GG) return Layout<T, DD, GG>::SMEM;
+  FD_PAIRS(FD_SMEM)
+#undef FD_SMEM
+  return 0;
 }
 
 }  // namespace
@@ -476,20 +560,26 @@ extern "C" int flash_decode_launch(int dtype, int batch, int n_kv, int g,
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0:
-      return dispatch_d<float>(d, g, a);
+      return dispatch<float>(d, g, a);
     case 1:
-      return dispatch_d<__nv_bfloat16>(d, g, a);
+      return dispatch<__nv_bfloat16>(d, g, a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // Bytes of dynamic shared memory one CTA of the instantiation (dtype, d, g)
-// requests at launch: the kStages ring, which the merges reuse after the
-// loop. 0 for an instantiation that does not exist. A size query only;
-// kernels/smem_plan.py plans the same working set with the paper's planner.
+// requests at launch: Layout::SMEM, the largest of the kStages ring and the
+// two merges that reuse it after the loop. 0 for an instantiation that does
+// not exist. A size query only; kernels/smem_plan.py plans the same working
+// set with the paper's planner.
 extern "C" int flash_decode_smem_bytes(int dtype, int d, int g) {
-  const bool ok = (dtype == 0 || dtype == 1) && (d == 64 || d == 128) &&
-                  (g == 1 || g == 2 || g == 4 || g == 8);
-  return ok ? kSmemBytes : 0;
+  switch (dtype) {
+    case 0:
+      return smem_bytes<float>(d, g);
+    case 1:
+      return smem_bytes<__nv_bfloat16>(d, g);
+    default:
+      return 0;
+  }
 }

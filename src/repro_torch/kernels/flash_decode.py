@@ -47,8 +47,13 @@ from repro_torch.kernels.ref import flash_decode_ref
 
 LAUNCHES = 0
 
-HEAD_DIMS = (64, 128)
-GROUP_SIZES = (1, 2, 4, 8)
+# the (head_dim, group size) pairs csrc/flash_decode.cu builds (FD_PAIRS),
+# each in fp32 and bf16: the powers of two at D = 64 and 128 (qwen3: 64, 2),
+# gemma3-4b's global layers (320, 2), gemma3-27b's (168, 2), internvl2
+# (64, 7), zamba2 (224, 1), llama4 (128, 5) and nemotron (192, 12)
+PAIRS = frozenset({(64, 1), (64, 2), (64, 4), (64, 7), (64, 8),
+                   (128, 1), (128, 2), (128, 4), (128, 5), (128, 8),
+                   (168, 2), (192, 12), (224, 1), (320, 2)})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # split T until there are at least two CTAs per SM of an H100 (132 SMs),
 # keeping every span at least MIN_SPAN positions long
@@ -129,10 +134,10 @@ def check_inputs(q, k_cache, v_cache, lengths) -> None:
             f"flash_decode: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}; "
             f"one of float32, bfloat16 expected"
         )
-    if D not in HEAD_DIMS or G not in GROUP_SIZES:
+    if (D, G) not in PAIRS:
         raise ValueError(
-            f"flash_decode: head_dim {D} (of {HEAD_DIMS}) and group size "
-            f"{G} (of {GROUP_SIZES}) are what the kernel is built for"
+            f"flash_decode: (head_dim, group size) ({D}, {G}) is not built; "
+            f"the kernel is built for {sorted(PAIRS)}"
         )
 
 

@@ -45,14 +45,15 @@ SMEM_PIPELINE_RESERVE_BYTES = 112 * 2**10
 _ALIGN = 16
 
 # csrc/flash_decode.cu: 4 warps; a ring of kStages tiles of K and V rows,
-# each thread copying kUnroll 16-byte chunks of K and as many of V per
-# tile; the merge of up to kMaxSplits partials
+# kUnroll positions per lane group per tile; the merge of up to kMaxSplits
+# partials; the (D, G) pairs it builds (FD_PAIRS)
 FD_WARPS = 4
 FD_UNROLL = 2
 FD_STAGES = 4
 FD_MAX_SPLITS = 64
-FD_HEAD_DIMS = (64, 128)
-FD_GROUP_SIZES = (1, 2, 4, 8)
+FD_PAIRS = ((64, 1), (64, 2), (64, 4), (64, 7), (64, 8), (128, 1), (128, 2),
+            (128, 4), (128, 5), (128, 8), (168, 2), (192, 12), (224, 1),
+            (320, 2))
 
 # csrc/ssd_chunk.cu: chunks of at most kMaxL positions, N <= kMaxN; the
 # tensor-core kernel (bf16 x/B/C) has 4 warps and 64-row tiles, the
@@ -117,6 +118,16 @@ def _check_dtype(dtype: str) -> None:
         raise ValueError(f"dtype {dtype!r}: one of {sorted(_ITEMSIZE)}")
 
 
+def flash_decode_tile(D: int, dtype: str) -> tuple[int, int]:
+    """``(positions per tile, 16-byte chunks per cache row)`` of one
+    ``flash_decode`` CTA (``Layout`` of ``csrc/flash_decode.cu``): a row
+    is CH chunks; where CH divides 32 a position takes CH lanes, else a
+    whole warp."""
+    ch = D * _ITEMSIZE[dtype] // 16
+    lanes = ch if ch <= 32 and 32 % ch == 0 else 32
+    return FD_WARPS * (32 // lanes) * FD_UNROLL, ch
+
+
 def plan_flash_decode_smem(
     *, G: int, D: int, dtype: str = "bfloat16", stages: int = FD_STAGES
 ) -> KernelSmemPlan:
@@ -125,16 +136,17 @@ def plan_flash_decode_smem(
     Stages (ops): 0 prologue, the first ``stages - 1`` tiles in flight |
     1 the span's loop over the whole ring | 2 the merge of the warps'
     (m, l, acc) | 3 the merge of the spans' partials by the last CTA.
-    A ring slot holds the K rows and the V rows of one tile (8 KiB in
-    all, for any D and dtype: the tile holds as many positions as the
-    CTA's 16-byte chunks cover). The two merges reuse the ring.
+    A ring slot holds the K rows and the V rows of one tile
+    (``flash_decode_tile``): 8 KiB where a row's chunks divide a warp
+    (D = 64, 128), ``2 · 8 · D · itemsize`` bytes where a warp reads one
+    position (bf16 D = 320: 10 KiB). The two merges reuse the ring.
     """
     _check_dtype(dtype)
-    if D not in FD_HEAD_DIMS or G not in FD_GROUP_SIZES:
-        raise ValueError(f"flash_decode is built for D in {FD_HEAD_DIMS}, "
-                         f"G in {FD_GROUP_SIZES}; got D={D}, G={G}")
-    threads = FD_WARPS * 32
-    half_tile = threads * FD_UNROLL * 16  # the K (or V) rows of one tile
+    if (D, G) not in FD_PAIRS:
+        raise ValueError(f"flash_decode is built for (D, G) in {FD_PAIRS}; "
+                         f"got D={D}, G={G}")
+    tile, ch = flash_decode_tile(D, dtype)
+    half_tile = tile * ch * 16  # the K (or V) rows of one tile
     r = _Records()
     for s in range(stages):
         first = 0 if s < stages - 1 else 1

@@ -5,7 +5,9 @@ Partial twin of the reference's ``launch/compile.py``
 request (batch 1 — the engine fills slots one request at a time) at
 ``prefill_len`` tokens, traced on fake tensors over a shape-only
 (``meta``) parameter template, so nothing is drawn, computed or
-allocated. This is the long-activation-lifetime regime in which the
+allocated. Every ported family prefills: attention (global and
+sliding-window, qwen3 and gemma3) and Mamba2. The RoPE table is an
+input of the traced function, as in the decode step's trace. This is the long-activation-lifetime regime in which the
 paper's strategies matter most. Every prefill plan it returns has been
 certified by ``analysis/soundness.certify_plan`` (a plan with findings
 raises ``LintGateError``). Plan bundles, sessions, AOT artifacts and a
@@ -35,10 +37,10 @@ def trace_prefill_graph(cfg: ArchConfig, *, prefill_len: int) -> Graph:
     params = model.init(None)
     tokens = torch.zeros((1, prefill_len), dtype=torch.int64, device="meta")
 
-    def prefill(p, t):
-        return model.prefill(p, {"tokens": t})
+    def prefill(p, freqs, t):
+        return model.prefill(p, {"tokens": t}, rope_freqs=freqs)
 
-    return trace_graph(prefill, params, tokens,
+    return trace_graph(prefill, params, model.rope_freqs, tokens,
                        name=f"{cfg.name}-prefill{prefill_len}")
 
 

@@ -17,7 +17,8 @@ Two counts read one model:
   the operations of PERF.md's kernel rows (the causal half for
   ``ssd_chunk``); and its ``min_bytes``, what any implementation of the
   step must move once: the parameters, the other inputs, the state read
-  up to ``lengths`` (default: every position), the state written, and
+  up to ``lengths`` (default: every position; a sliding-window ring,
+  named by ``ring_windows``, up to its window), the state written, and
   the outputs that are not the state itself.
   ``bound_s = max(flops / peak_flops, min_bytes / peak_bandwidth)``;
 * ``kernel_bound(kernel, shape, card=...)`` is the bound of one kernel
@@ -226,6 +227,19 @@ def _val(a):
     return a.meta.get("val") if isinstance(a, torch.fx.Node) else a
 
 
+def ring_windows(cfg, state) -> dict[str, int]:
+    """``path -> window`` of every sliding-window attention cache leaf of
+    ``state`` (a cache structure of ``cfg``): the rings whose token axis
+    ``detect_state_axes`` does not find once ``max_len >= window``."""
+    rings: dict[str, int] = {}
+    for part in ("period", "remainder"):
+        for j, spec in enumerate(getattr(cfg, part)):
+            if spec.mixer == "attn" and spec.window:
+                for path, _ in iter_leaves(state[part][j], f"[{part!r}][{j}]"):
+                    rings[path] = spec.window
+    return rings
+
+
 def step_count(
     trace,
     params,
@@ -234,6 +248,7 @@ def step_count(
     state=None,
     axes: dict[str, tuple[int, int | None]] | None = None,
     lengths: Sequence[int] | None = None,
+    rings: dict[str, int] | None = None,
 ) -> StepCount:
     """Count one traced step (see the module docstring).
 
@@ -242,9 +257,14 @@ def step_count(
     with ``axes`` from :func:`~repro_torch.core.unified.detect_state_axes`.
     A state leaf with a token axis is read up to ``lengths[slot]``
     positions of each slot (default: all of them) and written one
-    position per slot; a leaf without one (Mamba2's conv window and SSM
-    state) is read and written whole. ``flash_decode`` is counted over
-    the same positions."""
+    position per slot. A ring of ``rings`` (``ring_windows``; its token
+    axis follows the slot axis) is read up to ``min(length, window)``
+    positions of each slot — the least any implementation reads, where
+    the plain attention reads the whole ring — and written one position
+    per slot. Any other leaf without a token axis (Mamba2's conv window
+    and SSM state) is read and written whole. ``flash_decode`` is counted
+    over the same positions."""
+    rings = rings or {}
     flops_by_op: dict[str, int] = {}
     fd = torch.ops.repro_torch.flash_decode
     for node in trace.gm.graph.nodes:
@@ -270,6 +290,14 @@ def step_count(
         for path, leaf in iter_leaves(state):
             slot_ax, tok_ax = axes[path]
             nbytes = _nbytes(leaf)
+            window = rings.get(path)
+            if tok_ax is None and window is not None:
+                n_slots, T = leaf.shape[slot_ax], leaf.shape[slot_ax + 1]
+                row = nbytes // (n_slots * T)
+                lens = [T] * n_slots if lengths is None else lengths
+                read += row * sum(min(int(x), window, T) for x in lens)
+                written += row * n_slots
+                continue
             if tok_ax is None:
                 read += nbytes
                 written += nbytes
@@ -389,5 +417,5 @@ def mfu(model_flops_: float, device_s: float, card_name: str) -> float:
 __all__ = [
     "Bound", "Card", "StepCount", "active_params", "card", "count_params",
     "flash_decode_flops", "kernel_bound", "mfu", "model_flops", "peak_bandwidth",
-    "peak_flops", "ssd_chunk_flops", "step_count",
+    "peak_flops", "ring_windows", "ssd_chunk_flops", "step_count",
 ]

@@ -18,8 +18,9 @@ sampling; ``--sample`` draws with ``--temperature``/``--top-k`` instead
 of the greedy argmax (on the host in the host loop, on the device in
 blocks), seeded by ``--seed``.
 
-``--arch`` takes the ported archs (qwen3-0.6b, mamba2-2.7b); prompts go
-token by token through the decode step, as in the reference.
+``--arch`` takes the ported archs (qwen3-0.6b, mamba2-2.7b, gemma3-4b,
+gemma3-27b; nemotron-4-340b without ``--full``); prompts go token by
+token through the decode step, as in the reference.
 
 ``--device cpu`` runs on the CPU (tests); the default is the card, and
 without one the engine raises.

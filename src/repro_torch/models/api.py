@@ -2,12 +2,14 @@
 
 ``DecoderModel(cfg, device)`` offers ``init``, ``forward``, ``prefill``,
 ``decode_step``, ``init_cache`` and ``reset_slots`` for the dense decoder
-and the attention-free SSM families. It holds the model's constant
+(global and sliding-window attention) and the attention-free SSM
+families. ``grow_caches`` stays a function of ``models/transformer.py``,
+as in the reference, whose ``Model`` does not expose it. It holds the model's constant
 tables on its device (the RoPE frequencies, computed once, so the decode
 step never copies from the host).
 
 ``cores`` picks the attention core of the decode step and the SSD core
-of Mamba2 prefill together: ``"kernel"`` (the served path, the
+of Mamba2 prefill together (attention prefill has one core): ``"kernel"`` (the served path, the
 ``repro_torch`` ops) or ``"plain"`` (parity checks on the card).
 """
 
@@ -61,14 +63,21 @@ class DecoderModel:
     def init(self, generator: torch.Generator) -> dict:
         return transformer.init_params(self.cfg, generator, self.device)
 
-    def forward(self, params, batch: dict):
-        """(logits (B, S, vocab), aux) over ``batch["tokens"]`` (B, S)."""
-        return transformer.forward(params, self.cfg, batch["tokens"], cores=self.cores)
+    def forward(self, params, batch: dict, rope_freqs=None):
+        """(logits (B, S, vocab), aux) over ``batch["tokens"]`` (B, S).
+        ``rope_freqs`` defaults to the model's table; a traced call
+        passes it as an input (a tensor the traced function closes over
+        is not a fake tensor)."""
+        return transformer.forward(
+            params, self.cfg, batch["tokens"], cores=self.cores,
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
 
-    def prefill(self, params, batch: dict):
+    def prefill(self, params, batch: dict, rope_freqs=None):
         """(last-position logits (B, vocab), caches) over
-        ``batch["tokens"]`` (B, S)."""
-        return transformer.prefill(params, self.cfg, batch["tokens"], cores=self.cores)
+        ``batch["tokens"]`` (B, S); ``rope_freqs`` as in ``forward``."""
+        return transformer.prefill(
+            params, self.cfg, batch["tokens"], cores=self.cores,
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
 
     def decode_step(self, params, token, caches, pos, active=None, rope_freqs=None):
         return transformer.decode_step(

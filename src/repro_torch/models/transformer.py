@@ -1,10 +1,11 @@
 """Config-driven decoder stack: params, caches, prefill, forward and the
 decode step.
 
-Port of the reference's ``models/transformer.py`` for two layer specs:
-global attention + MLP (decode only; attention prefill is ROADMAP A9) and
-Mamba2 with no FFN (prefill, forward and decode). Other mixers come with
-later slices and raise ``NotImplementedError``.
+Port of the reference's ``models/transformer.py`` for the layer specs
+of the dense and SSM families: attention (global or sliding-window) +
+MLP, with prefill, forward and decode, and Mamba2 with no FFN, with the
+same three. MoE, shared-block and VLM/enc-dec layers come with later
+slices and raise ``NotImplementedError``.
 
 The layer program is ``period × n_periods + remainder``. Period params
 and caches are stacked on a leading ``n_periods`` axis, as in the
@@ -14,10 +15,12 @@ runs a Python loop over it and reads layer i as a view of the stack.
 Caches mirror the reference's structure —
 ``{"period": ({"attn": (k, v)} or {"mamba": (conv, ssm)}, ...),
 "remainder": (...)}`` with period leaves ``(n_periods, B, T, KV, hd)``,
-``(n_periods, B, conv-1, conv_dim)`` and ``(n_periods, B, H, P, N)`` —
-and are updated IN PLACE by the decode step (see ``models/attention.py``
+``(n_periods, B, conv-1, conv_dim)`` and ``(n_periods, B, H, P, N)``;
+a sliding-window layer's T is ``min(window, cache_len)`` (a ring) — and
+are updated IN PLACE by the decode step (see ``models/attention.py``
 and ``models/ssm.py``). ``prefill`` returns new caches, stacked the same
-way.
+way, at the prompt's length (a window layer's at ``window``);
+``grow_caches`` pads the global ones to a decode capacity.
 """
 
 from __future__ import annotations
@@ -163,17 +166,16 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
     x = rms_norm(h, p["ln1"], cfg.rms_eps)
     new_cache: dict[str, Any] = {}
     if spec.mixer == "attn":
-        if not decode:
-            raise NotImplementedError(
-                "attention prefill (attn_prefill) comes with ROADMAP A9"
-            )
-        a, new_cache["attn"] = ATTENTION[cores](
-            p["attn"], x, cache["attn"], pos,
+        kwargs = dict(
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
-            window=spec.window, eps=cfg.rms_eps, active=active,
-            rope_freqs=rope_freqs,
+            window=spec.window, eps=cfg.rms_eps, rope_freqs=rope_freqs,
         )
+        if decode:
+            a, new_cache["attn"] = ATTENTION[cores](
+                p["attn"], x, cache["attn"], pos, active=active, **kwargs)
+        else:
+            a, new_cache["attn"] = attn.attn_prefill(p["attn"], x, **kwargs)
     else:
         kwargs = dict(
             expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
@@ -246,38 +248,73 @@ def _stack(caches: list) -> Any:
     return torch.stack(caches)
 
 
-def _run_stack(params, cfg: ArchConfig, h, cores: str):
+def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None):
     """The whole stack over a full sequence (no caches in); returns (h,
     caches) with the caches in the reference's stacked structure."""
     per_layer: list[list] = [[] for _ in cfg.period]
     for i in range(cfg.n_periods):
         for j, spec in enumerate(cfg.period):
             h, c = _block(_layer(params["period"][j], i), spec, cfg, h,
-                          cores=cores, decode=False)
+                          rope_freqs=rope_freqs, cores=cores, decode=False)
             per_layer[j].append(c)
     period = tuple(_stack(cs) for cs in per_layer) if cfg.n_periods else ()
     remainder = []
     for j, spec in enumerate(cfg.remainder):
-        h, c = _block(params["remainder"][j], spec, cfg, h, cores=cores, decode=False)
+        h, c = _block(params["remainder"][j], spec, cfg, h, rope_freqs=rope_freqs,
+                      cores=cores, decode=False)
         remainder.append(c)
     return h, {"period": period, "remainder": tuple(remainder)}
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            cores: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+            cores: str = "kernel", rope_freqs: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, S, vocab) and the aux loss (zero: no MoE
     layer is ported)."""
-    h, _ = _run_stack(params, cfg, params["embed"][tokens], cores)
+    h, _ = _run_stack(params, cfg, params["embed"][tokens], cores, rope_freqs)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-            cores: str = "kernel") -> tuple[torch.Tensor, dict]:
+            cores: str = "kernel", rope_freqs: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """Returns (logits for the LAST position (B, vocab), caches).
-    ``cores`` picks the SSD core of the Mamba2 layers (see ``CORES``)."""
-    h, caches = _run_stack(params, cfg, params["embed"][tokens], cores)
+    ``cores`` picks the SSD core of the Mamba2 layers (see ``CORES``);
+    attention prefill has one core, the plain chunked attention, as in
+    the reference."""
+    h, caches = _run_stack(params, cfg, params["embed"][tokens], cores, rope_freqs)
     return _logits(params, cfg, h[:, -1:])[:, 0], caches
+
+
+def grow_caches(cfg: ArchConfig, caches: dict, new_len: int) -> dict:
+    """Pad attention caches (axis -3 of (…, B, T, KV, hd)) with zeros to
+    ``new_len`` so decode can continue past the prefill length
+    (reference ``transformer.py:336``). Ring-buffer (window) caches grow
+    to at most ``window`` and Mamba2 states keep their size. Returns new
+    caches; a leaf that needs no padding is returned as it is."""
+
+    def pad_kv(kv, keep: int | None):
+        k, v = kv
+        T = k.shape[-3]
+        target = min(keep, new_len) if keep else new_len
+        if T >= target:
+            return (k, v)
+        pad = (0, 0, 0, 0, 0, target - T)
+        return (torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
+
+    def grow_spec(spec: LayerSpec, c: dict) -> dict:
+        out = dict(c)
+        if "attn" in c:
+            out["attn"] = pad_kv(c["attn"], spec.window)
+        return out
+
+    return {
+        "period": tuple(grow_spec(spec, c)
+                        for spec, c in zip(cfg.period, caches["period"])),
+        "remainder": tuple(grow_spec(spec, c)
+                           for spec, c in zip(cfg.remainder, caches["remainder"])),
+    }
 
 
 def _leaves(tree: Any):

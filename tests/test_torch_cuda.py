@@ -130,6 +130,54 @@ def test_flash_decode_kernel_merges_spans_with_empty_ones(cuda, case, dtype):
     _check(q, k, v, lengths, dtype)
 
 
+# the pairs built beyond the powers of two at D = 64 and 128: gemma3-4b's
+# global layers (320, 2) and gemma3-27b's (168, 2) among them
+NEW_PAIRS = sorted({(D, G) for D, G in fd.PAIRS
+                    if not (D in (64, 128) and G in (1, 2, 4, 8))})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", NEW_PAIRS)
+def test_flash_decode_kernel_at_every_new_pair(cuda, D, G, dtype):
+    """A warp reads one position (D·itemsize/16 chunks do not divide 32):
+    8 spans of 128, a length-1 row (seven empty spans), a row ending one
+    position into a span and a full row."""
+    B, KV, T = 3, 2, 1024
+    assert fd.num_splits(B, KV, T) == 8
+    rng = np.random.default_rng(12)
+    q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
+    k, v = (_rand(rng, (B, T, KV, D), dtype, cuda) for _ in range(2))
+    lengths = torch.tensor([1, 385, T], dtype=torch.int32, device=cuda)
+    _check(q, k, v, lengths, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma3-27b"])
+def test_flash_decode_kernel_on_a_gemma3_residency_view(cuda, arch, dtype):
+    """The global layer of one full-width gemma3 period (5 rings and a
+    global cache) at 3 slots x 96 positions: the kernel reads the global
+    K/V through views whose batch stride is the plan's slot stride."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_periods=1, remainder=(), dtype=dtype)
+    n_slots, T = 3, 96
+    template = init_cache(cfg, n_slots, T, "meta")
+    plan = plan_state(state_records_from_cache(template, n_slots=n_slots),
+                      n_slots=n_slots, max_len=T)
+    res = StateResidency(plan, template, n_slots=n_slots)
+    buf = res.init_buffer(cuda)
+    buf.view(getattr(torch, dtype)).normal_(0.0, 0.5)
+    caches = res.views(buf)
+    k, v = caches["period"][5]["attn"][0][0], caches["period"][5]["attn"][1][0]
+    assert k.shape[1] == T and k.stride(0) > T * k.shape[2] * k.shape[3]
+    rng = np.random.default_rng(13)
+    G = cfg.n_heads // cfg.n_kv_heads
+    q = _rand(rng, (n_slots, cfg.n_kv_heads, G, cfg.resolved_head_dim), dtype, cuda,
+              Q_STD)
+    lengths = torch.tensor([1, 50, T], dtype=torch.int32, device=cuda)
+    _check(q, k, v, lengths, dtype)
+
+
 def test_flash_decode_kernel_gives_zeros_for_a_length0_row(cuda):
     """Every span of a length-0 row is empty: the merge gives 0, not NaN
     (the deliberate departure of ROADMAP §C)."""
@@ -541,9 +589,8 @@ def _smem_instantiations():
     from repro_torch.kernels import smem_plan as sp
 
     for dtype in ("float32", "bfloat16"):
-        for D in sp.FD_HEAD_DIMS:
-            for G in sp.FD_GROUP_SIZES:
-                yield "flash_decode", dict(G=G, D=D, dtype=dtype)
+        for D, G in sp.FD_PAIRS:
+            yield "flash_decode", dict(G=G, D=D, dtype=dtype)
         for state in ("float32", "bfloat16"):
             for P in sp.SSD_HEAD_DIMS:
                 for N in (4, 13, 16, 40, 64, 128):

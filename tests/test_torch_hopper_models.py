@@ -40,9 +40,8 @@ PREFILL = [dict(P=64, N=128, dtype="bfloat16", state_dtype="bfloat16"),
 
 def _every_instantiation():
     for dtype in ("float32", "bfloat16"):
-        for D in sp.FD_HEAD_DIMS:
-            for G in sp.FD_GROUP_SIZES:
-                yield "flash_decode", dict(G=G, D=D, dtype=dtype)
+        for D, G in sp.FD_PAIRS:
+            yield "flash_decode", dict(G=G, D=D, dtype=dtype)
         for state in ("float32", "bfloat16"):
             for P in sp.SSD_HEAD_DIMS:
                 for N in (1, 4, 13, 16, 40, 64, 128):
@@ -65,6 +64,31 @@ def test_flash_decode_plan_fits_at_the_serving_shape(shape):
     # the merges reuse the ring: the plan is the ring alone, 4 x 8 KiB
     assert kp.plan.total_size == sp.FD_STAGES * 8192 < kp.plan.naive_size
     assert kp.plan.lower_bound == kp.plan.total_size
+
+
+# gemma3-4b's global heads (G = 8 / 4, D = 320) in the dtypes the paths
+# run (bf16 serve and prefill, fp32 nowhere yet but built), and gemma3-27b's
+GEMMA3 = [dict(G=2, D=320, dtype="bfloat16"), dict(G=2, D=320, dtype="float32"),
+          dict(G=2, D=168, dtype="bfloat16"), dict(G=2, D=168, dtype="float32")]
+
+
+@pytest.mark.parametrize("shape", GEMMA3)
+def test_flash_decode_plan_at_the_gemma3_heads(shape):
+    """A warp reads one position: tiles of 8 positions, a ring slot of
+    2 x 8 rows of D·itemsize bytes (bf16 D = 320: 10 KiB, the ring 40
+    KiB); the merges reuse the ring."""
+    kp = sp.plan_flash_decode_smem(**shape)
+    item = 2 if shape["dtype"] == "bfloat16" else 4
+    assert sp.flash_decode_tile(shape["D"], shape["dtype"]) == (8, shape["D"] * item // 16)
+    assert kp.fits and kp.plan.total_size == sp.FD_STAGES * 2 * 8 * shape["D"] * item
+    assert kp.plan.total_size == kp.plan.lower_bound < kp.plan.naive_size
+
+
+def test_a_merge_larger_than_the_ring_is_planned():
+    """nemotron's (192, 12) in bf16: the warps' accumulators (4 x 12 x 192
+    fp32, 36 KiB) outgrow the 24 KiB ring, and the plan is the merge."""
+    kp = sp.plan_flash_decode_smem(G=12, D=192, dtype="bfloat16")
+    assert kp.plan.total_size == 2 * 192 + 4 * 12 * 192 * 4 > sp.FD_STAGES * 2 * 8 * 384
 
 
 @pytest.mark.parametrize("shape", PREFILL)
@@ -143,6 +167,16 @@ def test_flash_decode_bound_is_the_tables():
     assert b.bound_by == "bytes"
     assert b.min_bytes == 33_587_232
     assert b.bound_s * 1e6 == pytest.approx(10.03, rel=0.01)
+
+
+def test_flash_decode_bound_at_the_gemma3_serving_shape():
+    """gemma3-4b's global layer at 8 slots x 2048 (KV = 4, G = 2, D = 320,
+    bf16): 83.9 MB of K and V read at 3.35 TB/s, 25.07 us."""
+    b = roofline.kernel_bound("flash_decode", dict(B=8, KV=4, G=2, D=320, T=2048,
+                                                   dtype="bfloat16"), card_name=H100)
+    assert b.bound_by == "bytes"
+    assert b.min_bytes == 83_886_080 + 2 * 8 * 4 * 2 * 320 * 2 + 8 * 4
+    assert b.bound_s * 1e6 == pytest.approx(25.07, rel=0.001)
 
 
 def test_ssd_chunk_bound_is_the_tables():

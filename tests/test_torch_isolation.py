@@ -95,3 +95,13 @@ def test_no_source_imports_ml_dtypes():
     """The card machine has no ml_dtypes: the port sizes bfloat16 itself."""
     pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.MULTILINE)
     assert not [p for p in SOURCES if pattern.search((ROOT / p).read_text())]
+
+
+@pytest.mark.parametrize("name", ["gemma3_4b.py", "gemma3_27b.py", "nemotron_4_340b.py"])
+def test_the_copied_configs_are_the_references_byte_for_byte(name):
+    """Copied with only the import path changed."""
+    want = (ROOT / "src" / "repro" / "configs" / name).read_text().replace(
+        "from repro.configs.base import", "from repro_torch.configs.base import")
+    got = (PORT / "configs" / name).read_text()
+    assert got == want
+    assert f"src/repro_torch/configs/{name}" in SOURCES

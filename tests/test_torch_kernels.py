@@ -72,6 +72,19 @@ def test_flash_decode_ref_matches_jax_oracle(B, KV, G, D, T, dtype):
     _assert_close(fd.flash_decode(tq, tk, tv, tl), want, TOL[dtype])
 
 
+# gemma3-4b's global heads (D = 320, G = 2) and gemma3-27b's (168, 2)
+GEMMA3_CASES = [(2, 4, 2, 320, 300), (2, 2, 2, 168, 300)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,KV,G,D,T", GEMMA3_CASES)
+def test_flash_decode_ref_matches_jax_oracle_at_the_gemma3_heads(B, KV, G, D, T, dtype):
+    q, k, v, lengths = _mk(3, B, KV, G, D, T, dtype)
+    want = jax_flash_decode_ref(q, k, v, lengths)
+    tq, tk, tv, tl = _torch(q, k, v, lengths)
+    _assert_close(fd.flash_decode(tq, tk, tv, tl), want, TOL[dtype])
+
+
 def test_flash_decode_short_lengths():
     """Rows with length=1 attend to exactly one position."""
     B, KV, G, D, T = 2, 1, 2, 64, 256

@@ -249,11 +249,19 @@ def test_port_prefill_then_decode_matches_its_forward(setup):
 
 
 def test_attention_prefill_is_a_later_slice():
+    """Attention prefill (ROADMAP A9), once left to a later slice, has
+    landed: reduced qwen3 prefills, its caches hold the prompt's K/V, and
+    its last logits are forward's (tests/test_torch_window.py holds it
+    against the reference)."""
     cfg = get_reduced("qwen3-0.6b")
     model = DecoderModel(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A9"):
-        model.prefill(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    tokens = torch.arange(4, dtype=torch.int32)[None]
+    last, caches = model.prefill(params, {"tokens": tokens})
+    full, _ = model.forward(params, {"tokens": tokens})
+    assert caches["period"][0]["attn"][0].shape == (
+        cfg.n_periods, 1, 4, cfg.n_kv_heads, cfg.resolved_head_dim)
+    torch.testing.assert_close(last, full[:, -1], rtol=1e-5, atol=1e-5)
 
 
 def test_reset_slots_zeroes_the_recycled_mamba_state():
