@@ -34,6 +34,9 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 # fault -> (kernel, [(text in csrc/<kernel>.cu, its replacement), ...],
 #           cases it must fail in every dtype)
 SLOW_CASES = ("slow_L256", "slow_L200_P8", "one_group_slow_L96", "prefill_slow")
+# qwen3's serving shape, and granite-moe's (64, 3): 8 spans of 128 with
+# empty ones, and its serving shape
+FD_MUST_FAIL = ("serving_full", "D64_G3_empty_spans", "granite_serving_full")
 FAULTS = {
     # y without the incoming state's contribution
     "drop_y_inter": ("ssd_chunk", [
@@ -67,12 +70,12 @@ FAULTS = {
          "for (int s = 0; s < n_split - 1; ++s) {"),
         ("for (int s = 0; s < n_split; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];",
          "for (int s = 0; s < n_split - 1; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];"),
-    ], ("serving_full",)),
+    ], FD_MUST_FAIL),
     # the merge weighs every partial by 1, not by exp(m_s - m)
     "merge_weight_one": ("flash_decode", [
         ("const float weight = expf(sm_w[s * G + g] - mx);",
          "const float weight = 1.f;"),
-    ], ("serving_full",)),
+    ], FD_MUST_FAIL),
 }
 
 

@@ -22,7 +22,10 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                and the serve phase's lengths) and gemma3-4b (full and the
                serve mix's lengths; there SDPA runs on its math backend,
                named with each backend's time: the fused ones refuse
-               D = 320 or the mask), with split count and scratch bytes.
+               D = 320 or the mask) and granite-moe-3b-a800m (G = 3 at
+               D = 64: full and the serve mix's lengths, in bf16 on the
+               full state buffer and in fp32 on a one-layer one), with
+               split count and scratch bytes.
                ``ssd_chunk``: the CPU
                test cases (slow decay included, and the tensor-core
                kernel's edge shapes) in every dtype pair, and mamba2-2.7b's
@@ -81,7 +84,31 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                four 512-query chunks per global layer, 1,536-key slices on
                the window layers; no kernel (attention prefill is plain, as
                in the reference);
-14. smem      — for each kernel instantiation on the paths, the shared
+14. parity_granite — granite-moe-3b-a800m at full width (40 experts top-8,
+               24/8 heads of 64: flash_decode at (64, 3)), 2 layers, fp32,
+               2 slots: a 700-token prompt and two short ones, served as
+               ``parity`` serves qwen3;
+15. serve_granite — ``serve.run`` on full-width granite (32 layers, bf16)
+               with the serve phase's slots and requests: all finish, the
+               state is one buffer of exactly 1,073,741,824 B that never
+               moves, every decode step is a replay of one graph holding 32
+               flash_decode launches; then 8 steady waves timed and 8
+               profiled, and the profiled waves replayed eagerly from a
+               snapshot of the state to read their routing (``moe_route``):
+               the expert bytes a routed read would take beside the whole
+               stacks the one-hot step reads;
+16. prefill_granite — full-width granite prefills 2048 tokens through
+               ``ArenaExecutor`` from its certified plan, equal to eager: 16
+               groups of 128 tokens with capacity 32, the share of (token,
+               expert) assignments dropped read through ``moe_route`` (above
+               0); no kernel;
+17. parity_llama4 — llama4-maverick-400b-a17b at full width cut to one
+               period (a dense layer and a MoE layer of 128 experts top-1
+               with a shared expert: 17,518,755,840 parameters), bf16, 2
+               slots, 3 short requests: all finish, every captured step
+               equals the eager one, 2 flash_decode launches at (128, 5) per
+               replay, the state is the plan, the peak allocated after init;
+18. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -89,8 +116,8 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
-captures or serves; the serve, serve_block, serve_mamba and serve_gemma3
-phases print it as a ``plan`` row (records, the certifier's seconds,
+captures or serves; the serve, serve_block, serve_mamba, serve_gemma3 and
+serve_granite phases print it as a ``plan`` row (records, the certifier's seconds,
 findings: 0), and the prefill phases certify the plan their executor runs
 from with ``certify_plan``. The profile, serve_block, serve_gemma3 and
 prefill phases print a ``roofline`` row: the step's FLOPs and least bytes
@@ -102,7 +129,7 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13; 7 for its own check) and read just after it.
+5, 9, 10, 12, 13, 15, 16, 17; 7 for its own check) and read just after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -145,9 +172,12 @@ Q_STD = 4.0
 DEVICE = "cuda"
 # the flash_decode (D, G) pairs built beyond the powers of two at D = 64 and
 # 128: gemma3-4b's (320, 2) and gemma3-27b's (168, 2) among them
-NEW_PAIRS = ((168, 2), (192, 12), (224, 1), (320, 2), (64, 7), (128, 5))
-# flash_decode's timing at gemma3-4b's serving shape (the kernels phase)
+NEW_PAIRS = ((168, 2), (192, 12), (224, 1), (320, 2), (64, 3), (64, 7), (128, 5))
+# flash_decode's timing at gemma3-4b's and granite's serving shapes (the
+# kernels phase)
 GEMMA3_TIMING: dict = {}
+GRANITE_TIMING: dict = {}
+GRANITE = "granite-moe-3b-a800m"
 
 
 # --keep-going: the kernels phase records failed cases here and fails at
@@ -239,7 +269,27 @@ def phase_build() -> None:
         ptxas[name] = {"instantiations": len(regs),
                        "max_registers": max(regs, default=None),
                        "spill_store_bytes_max": max(spills, default=0)}
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+          "flash_decode_by_instantiation": flash_decode_ptxas(
+              paths["flash_decode"].with_suffix(".log"))})
+
+
+def flash_decode_ptxas(log_path) -> dict:
+    """``-Xptxas -v``'s registers and spill stores of each flash_decode
+    instantiation, keyed ``dtype/D/G`` (from the kernel's mangled name)."""
+    log = log_path.read_text() if log_path.exists() else ""
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        if m is None or regs is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        dtype = "float32" if m.group(1) == "f" else "bfloat16"
+        out[f"{dtype}/{m.group(2)}/{m.group(3)}"] = {
+            "registers": int(regs.group(1)),
+            "spill_store_bytes": int(spill.group(1)) if spill else 0}
+    return out
 
 
 def _residency_cache(cfg, n_slots: int, max_len: int, gen):
@@ -332,13 +382,15 @@ def phase_kernels(card_name: str) -> dict:
             k, v = rand((B, T, KV, D), dt), rand((B, T, KV, D), dt)
             lengths = torch.tensor([1, 385, T], dtype=torch.int32, device=DEVICE)
             check(f"D{D}_G{G}_empty_spans", q, k, v, lengths)
-        # gemma3's global layer read through views into the state buffer of
-        # one full-width period (5 rings and a global cache) at 3 x 96
-        for arch in ("gemma3-4b", "gemma3-27b"):
+        # the global layer of gemma3 (5 rings and a global cache) and
+        # granite's layer read through views into the state buffer of one
+        # full-width period at 3 x 96
+        for arch in ("gemma3-4b", "gemma3-27b", GRANITE):
             one = dataclasses.replace(get_config(arch), n_periods=1, remainder=(),
                                       dtype=str(dt).removeprefix("torch."))
             _, caches = _residency_cache(one, 3, 96, gen)
-            k, v = caches["period"][5]["attn"][0][0], caches["period"][5]["attn"][1][0]
+            j = next(j for j, spec in enumerate(one.period) if spec.window is None)
+            k, v = caches["period"][j]["attn"][0][0], caches["period"][j]["attn"][1][0]
             if k.stride(0) <= k.shape[1] * k.shape[2] * k.shape[3]:
                 fail(f"{arch} view: batch stride {k.stride(0)} is not a slot stride")
             G = one.n_heads // one.n_kv_heads
@@ -348,15 +400,29 @@ def phase_kernels(card_name: str) -> dict:
             del caches
 
     # the serving shapes, on the serving layout: the first global layer of
-    # full-width qwen3-0.6b's and gemma3-4b's state buffers at 8 slots x
-    # 2048 positions, bf16
+    # full-width qwen3-0.6b's, gemma3-4b's and granite's state buffers at 8
+    # slots x 2048 positions, bf16
     record = {}
     for arch, prefix, labels in (
         ("qwen3-0.6b", "", ("serving_full", "serving_random", "serve_mix")),
         ("gemma3-4b", "gemma3_", ("serving_full", "serve_mix")),
+        (GRANITE, "granite_", ("serving_full", "serve_mix")),
     ):
         record.update(time_serving(card_name, gen, check, arch, prefix, labels))
     GEMMA3_TIMING.update(record["gemma3_serving_full"])
+    GRANITE_TIMING.update(record["granite_serving_full"])
+    # granite's serving shape in fp32, on a strided view of a one-layer
+    # fp32 state buffer of 8 slots x 2048 positions
+    one = dataclasses.replace(get_config(GRANITE), n_periods=1, dtype="float32")
+    _, caches = _residency_cache(one, 8, 2048, gen)
+    k, v = caches["period"][0]["attn"][0][0], caches["period"][0]["attn"][1][0]
+    q = rand((8, one.n_kv_heads, one.n_heads // one.n_kv_heads, one.resolved_head_dim),
+             torch.float32, Q_STD)
+    check("granite_serving_full", q, k, v,
+          torch.full((8,), 2048, dtype=torch.int32, device=DEVICE))
+    check("granite_serve_mix", q, k, v,
+          torch.linspace(33, 96, 8, device=DEVICE).round().to(torch.int32))
+    del caches
     return record["serving_full"]
 
 
@@ -622,14 +688,18 @@ def phase_kernels_ssd(card_name: str) -> dict:
 
 
 # the kernel instantiations the paths run: flash_decode at qwen3-0.6b's
-# heads (G=2, D=64) and gemma3-4b's global heads (G=2, D=320) in bf16
-# (serve) and fp32 (parity); ssd_chunk at mamba2-2.7b's (P=64, N=128) with
+# heads (G=2, D=64), gemma3-4b's global heads (G=2, D=320) and granite's
+# (G=3, D=64) in bf16 (serve) and fp32 (parity), and llama4's (G=5, D=128)
+# in bf16 (parity_llama4); ssd_chunk at mamba2-2.7b's (P=64, N=128) with
 # bf16 x/B/C and state (prefill) and in fp32 (prefill_parity)
 SMEM_CASES = (
     ("flash_decode", {"G": 2, "D": 64, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 2, "D": 64, "dtype": "float32"}),
     ("flash_decode", {"G": 2, "D": 320, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 2, "D": 320, "dtype": "float32"}),
+    ("flash_decode", {"G": 3, "D": 64, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 3, "D": 64, "dtype": "float32"}),
+    ("flash_decode", {"G": 5, "D": 128, "dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
 )
@@ -707,27 +777,43 @@ def phase_parity_gemma3() -> None:
                max_len=1280)
 
 
-def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int) -> None:
+def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int,
+               cores=("kernel", "plain")) -> dict:
     """Serve ``requests`` ((prompt length, new tokens) each) on ``cfg``
-    with the kernel-core and the plain-core engine, and hold every
-    captured step of the first against the eager ``decode_step``."""
+    with an engine per core of ``cores`` (the kernel core first), hold
+    every captured step of the kernel-core engine against the eager
+    ``decode_step``, and, with the plain core too, hold the two engines'
+    logits, greedy tokens and slot logs together. Each engine's state is
+    its plan, and each of its graphs holds one ``flash_decode`` launch
+    per global attention layer on the kernel core, none on the plain
+    one. The row's ``launches`` are the engines' own (the warm-up run of
+    each capture and the replays): the eager twin's launches are a
+    check, counted apart in ``captured_vs_eager``. Returns the row."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.api import DecoderModel
     from repro_torch.runtime.engine import InferenceEngine
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     params = DecoderModel(cfg, DEVICE).init(gen)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in torch.utils._pytree.tree_leaves(params))
+    reset_launches()
     engines = {
         a: InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
                            device=DEVICE, cores=a)
-        for a in ("kernel", "plain")
+        for a in cores
     }
-    ek, ep = engines["kernel"], engines["plain"]
+    ek, ep = engines["kernel"], engines.get("plain")
     # the eager twin of the kernel engine
     eager = ek.model.init_cache(n_slots, max_len)
-    twin = {"steps": 0, "bitwise": 0, "max_abs_diff": 0.0}
+    twin = {"steps": 0, "bitwise": 0, "max_abs_diff": 0.0, "launches": 0}
     step_tokens, reset = ek._step_tokens, ek.state.reset
 
     def dev(a):
@@ -735,9 +821,13 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int) -> None
 
     def checked_step(tokens, pos, active):
         got = step_tokens(tokens, pos, active)
+        before = fd.LAUNCHES
         with torch.no_grad():
             want, _ = ek.model.decode_step(params, dev(tokens), eager, dev(pos),
                                            dev(active))
+        # the twin's launches are the check's, not the path's
+        twin["launches"] += fd.LAUNCHES - before
+        fd.LAUNCHES = before
         diff = float((got - want).abs().max())
         twin["steps"] += 1
         twin["bitwise"] += int(torch.equal(got, want))
@@ -757,20 +847,24 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int) -> None
         for e in engines.values():
             e.submit(prompt, max_new_tokens=new)
     worst = 0.0
-    done = {"kernel": {}, "plain": {}}
-    while ek.unfinished_requests() or ep.unfinished_requests():
+    done = {a: {} for a in cores}
+    while any(e.unfinished_requests() for e in engines.values()):
         for a, e in engines.items():
             done[a].update({r.request_id: r.tokens for r in e.step()})
-        if ek.last_logits is None or ep.last_logits is None:
+        if ep is None or ek.last_logits is None or ep.last_logits is None:
             continue
         diff = np.abs(ek.last_logits - ep.last_logits)
         worst = max(worst, float(diff.max()))
         if not np.all(diff <= 1e-4 + 1e-4 * np.abs(ep.last_logits)):
             fail(f"{phase}: logits differ by {float(diff.max())} at wave {ek.waves}")
-    if done["kernel"] != done["plain"] or len(done["kernel"]) != len(requests):
-        fail(f"{phase}: greedy tokens differ {done['kernel']} vs {done['plain']}")
-    if ek.slot_log != ep.slot_log:
-        fail(f"{phase}: slot logs differ {ek.slot_log} vs {ep.slot_log}")
+    if len(done["kernel"]) != len(requests) or any(
+            len(done["kernel"][i]) != new for i, (_, new) in enumerate(requests)):
+        fail(f"{phase}: {len(done['kernel'])} of {len(requests)} requests finished")
+    if ep is not None:
+        if done["kernel"] != done["plain"]:
+            fail(f"{phase}: greedy tokens differ {done['kernel']} vs {done['plain']}")
+        if ek.slot_log != ep.slot_log:
+            fail(f"{phase}: slot logs differ {ek.slot_log} vs {ep.slot_log}")
     for leaf, want in zip(torch.utils._pytree.tree_leaves(ek.caches),
                           torch.utils._pytree.tree_leaves(eager)):
         if not torch.equal(leaf, want) and \
@@ -778,22 +872,48 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int) -> None
             fail(f"{phase}: the state differs from the eager twin's caches")
     if twin["steps"] != ek.decode_calls or ek.state.graphs["step"].replays != ek.decode_calls:
         fail(f"{phase}: {twin['steps']} checked steps, {ek.decode_calls} decode steps")
-    row = {"phase": phase, "layers": cfg.n_layers, "waves": ek.waves,
-           "decode_steps": ek.decode_calls,
-           "kernel_vs_plain_logits_max_abs_diff": worst,
-           "captured_vs_eager": twin, "slot_log": ek.slot_log, "ok": True}
+    launches = read_launches()
+    n_global = sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
+                   if spec.mixer == "attn" and spec.window is None)
+    per_replay, warmups, replayed = {}, 0, 0
+    for a, e in engines.items():
+        rep = e.memory_report
+        if rep.state_live_bytes != rep.state_planned_bytes:
+            fail(f"{phase}: {a} core's live state {rep.state_live_bytes} B, planned "
+                 f"{rep.state_planned_bytes} B")
+        want = n_global if a == "kernel" else 0
+        for name, graph in e.state.graphs.items():
+            per_replay[f"{a}/{name}"] = graph.launches["flash_decode"]
+            if graph.launches["flash_decode"] != want:
+                fail(f"{phase}: the {a} core's {name} graph holds {graph.launches} "
+                     f"launches per replay, expected {want} flash_decode")
+            warmups += want
+            replayed += want * graph.replays
+    if launches["flash_decode"] != replayed + warmups or fd.LAUNCHES != warmups:
+        fail(f"{phase}: {launches} launches by the engines, expected {replayed} "
+             f"replayed + {warmups} in the warm-up runs")
+    row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "cores": list(cores), "waves": ek.waves, "decode_steps": ek.decode_calls,
+           "init_peak_allocated_gib": init_peak / 2**30, "param_bytes": param_bytes,
+           "state_bytes": ek.memory_report.state_live_bytes,
+           "launches": launches, "flash_decode_per_replay": per_replay,
+           "flash_decode_warm_up": warmups,
+           "captured_vs_eager": twin, "slot_log": ek.slot_log}
+    if ep is not None:
+        row["kernel_vs_plain_logits_max_abs_diff"] = worst
     windows = {spec.window for spec in cfg.period if spec.window}
     if windows:
         reached = [n + len(done["kernel"][i]) for i, (n, _) in enumerate(requests)]
         if max(reached) <= max(windows):
             fail(f"{phase}: no ring wrapped (positions {reached}, windows {windows})")
-        row.update({"arch": cfg.name, "dtype": cfg.dtype,
-                    "requests": [list(r) for r in requests],
-                    "positions_reached": reached, "windows": sorted(windows),
-                    "first_tokens": {k: v[:6] for k, v in done["kernel"].items()}})
+        row.update({"positions_reached": reached, "windows": sorted(windows)})
+    row.update({"requests": [list(r) for r in requests],
+                "first_tokens": {k: v[:6] for k, v in done["kernel"].items()}})
+    row["ok"] = True
     emit(row)
     del engines, ek, ep, eager, params
     torch.cuda.empty_cache()
+    return row
 
 
 def reset_launches() -> None:
@@ -892,7 +1012,8 @@ def plan_row(label: str, stats: dict) -> None:
     CERTIFIED.append(label)
 
 
-def decode_roofline(label: str, engine, prof: dict, card_name: str) -> dict:
+def decode_roofline(label: str, engine, prof: dict, card_name: str,
+                    extra: dict | None = None) -> dict:
     """The roofline of the profiled decode waves of ``engine``: each wave's
     FLOPs and least bytes at the positions it read (every slot active; a
     ring read up to its window), averaged over the waves, against the
@@ -943,7 +1064,8 @@ def decode_roofline(label: str, engine, prof: dict, card_name: str) -> dict:
            "min_bytes_all_positions": full.min_bytes,
            "device_ms": device_ms, "roofline_share": bound_ms / device_ms,
            "model_flops": model_flops,
-           "mfu": roofline.mfu(model_flops, device_ms / 1e3, card_name)}
+           "mfu": roofline.mfu(model_flops, device_ms / 1e3, card_name),
+           **(extra or {})}
     emit(row)
     return row
 
@@ -1544,9 +1666,285 @@ def phase_serve_gemma3(card_name: str) -> tuple[dict, dict]:
     return {"launches": launches}, roof
 
 
+class RouteLog:
+    """The routes ``models/moe.moe_route`` computes on real tensors while
+    the log is open (a trace's fake or meta routes are not kept), up to
+    ``limit`` calls: per call the (token, choice) assignments made, those
+    kept, and the distinct experts that took one (read to the host: only
+    eager, untimed calls are logged)."""
+
+    def __init__(self, limit: int | None = None):
+        self.limit = limit
+        self.calls: list[dict] = []
+
+    def __enter__(self) -> "RouteLog":
+        from torch._subclasses.fake_tensor import is_fake
+
+        from repro_torch.models import moe
+
+        real = self._real = moe.moe_route
+
+        def record(sel, gate, **kw):
+            route = real(sel, gate, **kw)
+            d = route.dispatch
+            if (self.limit is None or len(self.calls) < self.limit) \
+                    and d.device.type != "meta" and not is_fake(d):
+                self.calls.append({"made": int(sel.sum()), "kept": int(route.kept),
+                                   "experts": int((d.sum((0, 1, 2, 4)) > 0).sum())})
+            return route
+
+        moe.moe_route = record
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+
+        moe.moe_route = self._real
+
+
+def phase_parity_granite() -> None:
+    """granite-moe-3b-a800m at full width (d_model 1536, 24/8 heads of 64,
+    40 experts top-8 of d_ff 512), its depth cut to 2 layers, fp32, 2
+    slots: a 700-token prompt with 16 new tokens and two short requests,
+    served as ``parity`` serves qwen3 (flash_decode at (64, 3) against
+    the plain attention, every captured step against eager)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(GRANITE), n_periods=2, dtype="float32")
+    run_parity("parity_granite", cfg, [(700, 16), (37, 20), (5, 12)], n_slots=2,
+               max_len=1024)
+
+
+# granite's state at 8 slots x 2048 positions, bf16: 32 layers x K and V x
+# 8 slots x 2048 positions x 8 heads x 64 x 2 B
+GRANITE_STATE_BYTES = 32 * 2 * 8 * 2048 * 8 * 64 * 2  # 1,073,741,824
+
+
+def routed_expert_reads(engine, steps: list, snapshot, first: int) -> dict:
+    """Replay ``steps`` (the decode steps' inputs, as the engine gave
+    them to its captured step) eagerly from ``snapshot`` of the state
+    buffer taken before the first of them, reading the routing of steps
+    ``first`` onwards through ``moe_route``: the distinct experts per MoE
+    layer and step, and the expert bytes a read of only those would
+    take, beside the whole stacks the one-hot step reads. Whether the
+    eager replay left the state as the captured steps did is reported;
+    the state is put back as the served waves left it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import roofline
+
+    cfg = engine.cfg
+    n_moe = sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
+                if spec.ffn == "moe")
+    served = engine.state.buf.clone()
+    engine.state.buf.copy_(snapshot)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(engine.device)
+
+    def replay(part):
+        for tokens, pos, active in part:
+            engine.model.decode_step(engine.params, dev(tokens), engine.caches,
+                                     dev(pos), dev(active))
+
+    with torch.no_grad():
+        replay(steps[:first])
+        with RouteLog() as log:
+            replay(steps[first:])
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(engine.state.buf, served))
+    engine.state.buf.copy_(served)
+    read = len(steps) - first
+    if len(log.calls) != n_moe * read:
+        fail(f"routes: {len(log.calls)} routes for {read} steps x {n_moe} layers")
+    made = sum(c["made"] for c in log.calls)
+    kept = sum(c["kept"] for c in log.calls)
+    distinct = [c["experts"] for c in log.calls]
+    per_step = [sum(distinct[i * n_moe:(i + 1) * n_moe]) for i in range(read)]
+    whole = n_moe * roofline.expert_bytes(cfg)
+    return {"steps": read, "assignments_made": made, "assignments_kept": kept,
+            "distinct_experts_per_layer_mean": sum(distinct) / len(distinct),
+            "distinct_experts_per_layer_max": max(distinct),
+            "expert_bytes_read_whole_per_step": whole,
+            "expert_bytes_routed_per_step": roofline.expert_bytes(cfg, 1)
+            * sum(per_step) / len(per_step),
+            "state_equal_after_eager_replay": equal}
+
+
+def phase_serve_granite(card_name: str) -> tuple[dict, dict]:
+    """``serve.run`` on full-width granite-moe-3b-a800m (32 layers of
+    attention + MoE, bf16, random weights from a seed) with 8 slots x 2048
+    positions and the qwen3 serve mix: all finish, every decode step is a
+    replay of the one captured graph with 32 flash_decode launches at
+    (64, 3), the state is one buffer of exactly 1,073,741,824 B that never
+    moves; then 8 more requests for a steady window, 8 waves timed and 8
+    profiled, their routing read by an eager replay (decode never drops:
+    every assignment kept), and the roofline, whose bytes count every
+    expert whole, as the one-hot step reads them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    n_req, max_new = 8, 64
+    reset_launches()
+    stats = serve.run(["--full", "--arch", GRANITE, "--slots", "8", "--max-len", "2048",
+                       "--requests", "8", "--prompt-len", "32", "--max-new", "64",
+                       "--seed", "0"])
+    counts = read_launches()
+    engine = stats["engine"]
+    cfg = engine.cfg
+    toks = stats["tokens_per_request"]
+    if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
+        fail(f"serve_granite: {stats['requests']} of {n_req} requests finished, "
+             f"lengths {[len(t) for t in toks.values()]}")
+    if not all(0 <= x < cfg.vocab for t in toks.values() for x in t):
+        fail("serve_granite: a token outside the vocabulary")
+    if not stats["last_logits_finite"]:
+        fail("serve_granite: non-finite logits")
+    if not stats["state_live_bytes"] == stats["state_planned_bytes"] == GRANITE_STATE_BYTES:
+        fail(f"serve_granite: live state {stats['state_live_bytes']} B, planned "
+             f"{stats['state_planned_bytes']} B, expected {GRANITE_STATE_BYTES} B")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail("serve_granite: the state buffer moved")
+    replayed = check_replayed("serve_granite", stats, "flash_decode")
+    if stats["capture_calls"] != 1:
+        fail(f"serve_granite: {stats['capture_calls']} graphs captured, expected 1")
+    plan_row("granite-moe-3b-a800m serve (8 slots x 2048)", stats)
+    emit({
+        "phase": "serve_granite", "arch": cfg.name, "layers": stats["n_layers"],
+        "requests": stats["requests"], "tokens": stats["tokens"],
+        "waves": stats["waves"], "decode_steps": stats["decode_calls"],
+        "host_syncs": stats["host_syncs"], "wall_s": stats["wall_s"],
+        "tokens_per_s": stats["tokens_per_s"], "cold_start_s": stats["cold_start_s"],
+        "launches": counts, "graphs": replayed, **graph_stats(stats),
+        "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
+        "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
+        "state_bytes": stats["state_live_bytes"],
+        "state_mib": stats["state_live_bytes"] / 2**20,
+        "decode_step_ops": stats["decode_step_ops"],
+        "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
+        "ok": True,
+    })
+    launches = counts["flash_decode"]
+    # a steady window: 8 requests more, every slot active; the inputs of
+    # every decode step of the window are kept, and the state before it
+    waves = 8
+    rng = np.random.default_rng(1)
+    for _ in range(n_req):
+        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
+                      max_new_tokens=2 * waves + 4)
+    done = engine.step()  # admits every request
+    snapshot = engine.state.buf.clone()
+    steps, step_tokens = [], engine._step_tokens
+
+    def kept_step(tokens, pos, active):
+        steps.append((tokens.copy(), pos.copy(), active.copy()))
+        return step_tokens(tokens, pos, active)
+
+    engine._step_tokens = kept_step
+    prof, finished = serve.profile_waves(engine, waves)
+    engine._step_tokens = step_tokens
+    if len(steps) != 2 * waves:
+        fail(f"serve_granite: {len(steps)} decode steps in {2 * waves} waves")
+    routes = routed_expert_reads(engine, steps, snapshot, waves)
+    del snapshot
+    done += finished + engine.run_until_done()
+    if len(done) != n_req:
+        fail(f"serve_granite: {len(done)} of {n_req} profiled requests finished")
+    if not prof["device_ms_per_wave"] > 0:
+        fail("serve_granite: the profiler saw no device time")
+    if routes["assignments_kept"] != routes["assignments_made"] \
+            or routes["assignments_made"] != waves * cfg.n_layers * 8 * cfg.top_k:
+        fail(f"serve_granite: decode dropped assignments ({routes})")
+    emit({"phase": "profile", "arch": cfg.name,
+          "decode_step_ops": len(engine.decode_graph.ops),
+          "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
+    roof = decode_roofline("granite-moe-3b-a800m steady host-loop wave", engine, prof,
+                           card_name, extra={"experts": routes})
+    del engine, stats
+    torch.cuda.empty_cache()
+    return {"launches": launches}, roof
+
+
+def phase_prefill_granite(card_name: str) -> tuple[dict, dict]:
+    """Full-width granite-moe-3b-a800m (32 layers, bf16): one 2048-token
+    request through ``ArenaExecutor`` from its certified plan, against the
+    eager prefill: 16 groups of 128 tokens per MoE layer, 32 slots per
+    expert and group. The share of (token, expert) assignments dropped
+    is read through ``moe_route`` in the eager prefill (the same router
+    inputs), and is above 0: the capacity path ran at full width.
+    Attention prefill has no kernel (plain, as in the reference)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import DecoderModel
+
+    cfg = get_config(GRANITE)
+    model = DecoderModel(cfg, DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    with RouteLog(limit=cfg.n_layers) as log:
+        row, roof = run_prefill(card_name, cfg, model, params, None)
+    if len(log.calls) != cfg.n_layers:
+        fail(f"prefill_granite: {len(log.calls)} routes read, expected {cfg.n_layers}")
+    made = sum(c["made"] for c in log.calls)
+    kept = sum(c["kept"] for c in log.calls)
+    if made != cfg.n_layers * 2048 * cfg.top_k:
+        fail(f"prefill_granite: {made} assignments made")
+    share = 1 - kept / made
+    if not share > 0:
+        fail("prefill_granite: no assignment was dropped at capacity 32")
+    emit({"phase": "prefill_granite", "groups": 2048 // 128, "group": 128,
+          "capacity": 32, "assignments_made": made, "assignments_kept": kept,
+          "dropped_share": share,
+          "dropped_share_by_layer": [1 - c["kept"] / c["made"] for c in log.calls],
+          "ok": True})
+    return row, roof
+
+
+# llama4-maverick-400b-a17b at full width, cut to one period: a dense layer
+# and a MoE layer (128 experts top-1 and a shared expert)
+LLAMA4_ONE_PERIOD_PARAMS = 17_518_755_840
+
+
+def phase_parity_llama4() -> dict:
+    """llama4 at full width (d_model 5120, 40/8 heads of 128, 128 experts
+    of d_ff 8192 top-1, a shared expert), its depth cut to one period, in
+    bf16 on 2 slots with 3 short requests: all finish, every captured
+    step equals the eager one, each replay holds 2 flash_decode launches
+    at (128, 5), the state is the plan (``run_parity``'s checks). The
+    eager twin's steps give the routing: the one-hot step reads all 128
+    experts for 2 tokens."""
+    from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG
+    from repro_torch.launch import roofline
+
+    cfg = dataclasses.replace(CONFIG, n_periods=1)
+    if roofline.count_params(cfg) != LLAMA4_ONE_PERIOD_PARAMS:
+        fail(f"parity_llama4: {roofline.count_params(cfg)} parameters")
+    with RouteLog() as log:
+        row = run_parity("parity_llama4", cfg, [(6, 5), (9, 4), (4, 6)], n_slots=2,
+                         max_len=64, cores=("kernel",))
+    if row["captured_vs_eager"]["bitwise"] != row["captured_vs_eager"]["steps"]:
+        fail(f"parity_llama4: captured steps not bit-equal to eager "
+             f"({row['captured_vs_eager']})")
+    distinct = [c["experts"] for c in log.calls]
+    whole = roofline.expert_bytes(cfg)
+    routed = roofline.expert_bytes(cfg, 1) * sum(distinct) / max(len(distinct), 1)
+    emit({"phase": "parity_llama4_experts",
+          "depth_cut": "one period of 24: a dense and a MoE layer",
+          "parameters": roofline.count_params(cfg), "param_bytes": row["param_bytes"],
+          "routed_steps": len(distinct),
+          "distinct_experts_per_step_mean": sum(distinct) / max(len(distinct), 1),
+          "param_bytes_read_per_step": row["param_bytes"],
+          "param_bytes_if_routed": row["param_bytes"] - whole + routed, "ok": True})
+    return {"launches": row["launches"]["flash_decode"]}
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
-          "parity_gemma3", "serve_gemma3", "prefill_gemma3", "smem")
+          "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
+          "serve_granite", "prefill_granite", "parity_llama4", "smem")
 
 
 T0 = time.perf_counter()
@@ -1614,13 +2012,25 @@ def main() -> None:
     if "prefill_gemma3" in phases:
         _, roof = phase_prefill_gemma3(card_name)
         roofs.append(roof)
+    if "parity_granite" in phases:
+        phase_parity_granite()
+    if "serve_granite" in phases:
+        serve_m, roof = phase_serve_granite(card_name)
+        launches["flash_decode"]["granite-moe-3b-a800m serve"] = serve_m["launches"]
+        roofs.append(roof)
+    if "prefill_granite" in phases:
+        _, roof = phase_prefill_granite(card_name)
+        roofs.append(roof)
+    if "parity_llama4" in phases:
+        launches["flash_decode"]["llama4 one period (parity_llama4)"] = \
+            phase_parity_llama4()["launches"]
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 6 or len(roofs) != 5:
+    if len(CERTIFIED) != 8 or len(roofs) != 7:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 6 and 5")
+             f"expected 8 and 7")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)
@@ -1628,7 +2038,7 @@ def main() -> None:
     # one row per kernel: its launches on every path that runs it (the
     # counts read after each path), its timing at qwen3-0.6b's serving
     # shape (flash_decode) or mamba2-2.7b's chunk (ssd_chunk); flash_decode
-    # adds its timing at gemma3-4b's serving shape
+    # adds its timing at gemma3-4b's and granite's serving shapes
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         row = {"name": name, "route": route, "source": source,
@@ -1640,9 +2050,11 @@ def main() -> None:
                "bound_by": timing[name]["bound_by"],
                "library_ms": timing[name]["library_ms"]}
         if name == "flash_decode":
-            row["gemma3_4b"] = {k: GEMMA3_TIMING[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_backend", "max_abs_err")}
+            for arch, timing_of in (("gemma3_4b", GEMMA3_TIMING),
+                                    ("granite_moe_3b", GRANITE_TIMING)):
+                row[arch] = {k: timing_of[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend", "max_abs_err")}
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,10 @@ The schema is the reference's, field for field, so a config means the
 same model in both packages. The registry is limited to the archs the
 port serves; every other arch of the reference raises
 ``NotImplementedError`` naming the slice of the port that brings it.
-nemotron-4-340b has its reduced config only (``get_reduced``): its
-full width needs more than one card.
+nemotron-4-340b and llama4-maverick-400b-a17b have their reduced
+configs only (``get_reduced``): their full widths need more than one
+card. llama4's module keeps its ``CONFIG`` importable, so one period of
+it can be built at full width on one card.
 """
 
 from __future__ import annotations
@@ -118,16 +120,16 @@ ARCH_IDS: tuple[str, ...] = (
 
 # the archs this port serves; the rest wait for the slice named here
 PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b", "gemma3-4b",
-                                    "gemma3-27b")
+                                    "gemma3-27b", "granite-moe-3b-a800m")
 # archs whose reduced config the port builds and tests, while the full
 # width waits for the slice named here
 _REDUCED_ONLY = {
     "nemotron-4-340b": "the multi-device slice (ROADMAP A15): 340B parameters "
                        "do not fit one card",
+    "llama4-maverick-400b-a17b": "the multi-device slice (ROADMAP A15): 400B "
+                                 "parameters do not fit one card",
 }
 _LATER_SLICE = {
-    "granite-moe-3b-a800m": "the MoE slice (ROADMAP A8)",
-    "llama4-maverick-400b-a17b": "the MoE slice (ROADMAP A8)",
     "zamba2-7b": "the shared-block slice (ROADMAP A8)",
     "internvl2-1b": "the VLM-prefix slice (ROADMAP A8)",
     "seamless-m4t-medium": "the enc-dec slice (ROADMAP A15)",

@@ -511,13 +511,15 @@ cudaError_t launch(const Args& a) {
 }
 
 // The (D, G) pairs built, each in fp32 and bf16: qwen3 (64, 2) and the other
-// powers of two at D = 64 and 128, gemma3-4b's global layers (320, 2),
-// gemma3-27b's (168, 2), internvl2 (64, 7), zamba2 (224, 1), llama4 (128, 5)
-// and nemotron (192, 12). kernels/flash_decode.py (PAIRS) and
-// kernels/smem_plan.py (FD_PAIRS) list the same.
-#define FD_PAIRS(X)                                                        \
-  X(64, 1) X(64, 2) X(64, 4) X(64, 7) X(64, 8) X(128, 1) X(128, 2) X(128, 4) \
-  X(128, 5) X(128, 8) X(168, 2) X(192, 12) X(224, 1) X(320, 2)
+// powers of two at D = 64 and 128, granite-moe (64, 3), gemma3-4b's global
+// layers (320, 2), gemma3-27b's (168, 2), internvl2 (64, 7), zamba2 (224, 1),
+// llama4 (128, 5) and nemotron (192, 12). G sets only the loop counts: the
+// Layout follows from (dtype, D), so (64, 3) reads a position with CH lanes
+// as (64, 2) does. kernels/flash_decode.py (PAIRS) and kernels/smem_plan.py
+// (FD_PAIRS) list the same.
+#define FD_PAIRS(X)                                                          \
+  X(64, 1) X(64, 2) X(64, 3) X(64, 4) X(64, 7) X(64, 8) X(128, 1) X(128, 2) \
+  X(128, 4) X(128, 5) X(128, 8) X(168, 2) X(192, 12) X(224, 1) X(320, 2)
 
 template <typename T>
 cudaError_t dispatch(int d, int g, const Args& a) {

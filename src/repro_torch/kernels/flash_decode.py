@@ -49,9 +49,10 @@ LAUNCHES = 0
 
 # the (head_dim, group size) pairs csrc/flash_decode.cu builds (FD_PAIRS),
 # each in fp32 and bf16: the powers of two at D = 64 and 128 (qwen3: 64, 2),
-# gemma3-4b's global layers (320, 2), gemma3-27b's (168, 2), internvl2
-# (64, 7), zamba2 (224, 1), llama4 (128, 5) and nemotron (192, 12)
-PAIRS = frozenset({(64, 1), (64, 2), (64, 4), (64, 7), (64, 8),
+# granite-moe (64, 3), gemma3-4b's global layers (320, 2), gemma3-27b's
+# (168, 2), internvl2 (64, 7), zamba2 (224, 1), llama4 (128, 5) and
+# nemotron (192, 12)
+PAIRS = frozenset({(64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8),
                    (128, 1), (128, 2), (128, 4), (128, 5), (128, 8),
                    (168, 2), (192, 12), (224, 1), (320, 2)})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

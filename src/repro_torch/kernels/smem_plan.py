@@ -51,9 +51,9 @@ FD_WARPS = 4
 FD_UNROLL = 2
 FD_STAGES = 4
 FD_MAX_SPLITS = 64
-FD_PAIRS = ((64, 1), (64, 2), (64, 4), (64, 7), (64, 8), (128, 1), (128, 2),
-            (128, 4), (128, 5), (128, 8), (168, 2), (192, 12), (224, 1),
-            (320, 2))
+FD_PAIRS = ((64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8), (128, 1),
+            (128, 2), (128, 4), (128, 5), (128, 8), (168, 2), (192, 12),
+            (224, 1), (320, 2))
 
 # csrc/ssd_chunk.cu: chunks of at most kMaxL positions, N <= kMaxN; the
 # tensor-core kernel (bf16 x/B/C) has 4 warps and 64-row tiles, the

@@ -6,7 +6,9 @@ request (batch 1 — the engine fills slots one request at a time) at
 ``prefill_len`` tokens, traced on fake tensors over a shape-only
 (``meta``) parameter template, so nothing is drawn, computed or
 allocated. Every ported family prefills: attention (global and
-sliding-window, qwen3 and gemma3) and Mamba2. The RoPE table is an
+sliding-window, qwen3 and gemma3), attention + MoE (granite-moe and
+llama4's reduced config: the grouped capacity dispatch's one-hots are
+planned with the rest) and Mamba2. The RoPE table is an
 input of the traced function, as in the decode step's trace. This is the long-activation-lifetime regime in which the
 paper's strategies matter most. Every prefill plan it returns has been
 certified by ``analysis/soundness.certify_plan`` (a plan with findings

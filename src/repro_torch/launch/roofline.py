@@ -26,7 +26,9 @@ Two counts read one model:
   the rate of the units the kernel computes on), from the same formulas.
 
 ``count_params``, ``active_params`` and ``model_flops`` are the
-reference's, for the model FLOPs utilisation (``mfu``).
+reference's, for the model FLOPs utilisation (``mfu``); ``expert_bytes``
+sizes a MoE layer's expert weights, all of them (what the one-hot
+dispatch reads) or the routed ones only.
 """
 
 from __future__ import annotations
@@ -378,6 +380,16 @@ def count_params(cfg) -> int:
     return int(total)
 
 
+def expert_bytes(cfg, experts: int | None = None) -> int:
+    """Bytes of the expert stacks (``w_in``, ``w_gate``, ``w_out``) one
+    MoE layer of ``cfg`` reads for ``experts`` distinct experts. The
+    default is all of them: the one-hot dispatch of ``models/moe.py``
+    reads every expert on every call, routed to or not, and
+    ``step_count`` counts them so (they are parameters, read whole)."""
+    n = cfg.n_experts if experts is None else experts
+    return n * 3 * cfg.d_model * cfg.d_ff * _ITEMSIZE[cfg.dtype]
+
+
 def active_params(cfg) -> int:
     """Active params per token (MoE: top_k of n_experts)."""
     if not cfg.n_experts:
@@ -416,6 +428,7 @@ def mfu(model_flops_: float, device_s: float, card_name: str) -> float:
 
 __all__ = [
     "Bound", "Card", "StepCount", "active_params", "card", "count_params",
+    "expert_bytes",
     "flash_decode_flops", "kernel_bound", "mfu", "model_flops", "peak_bandwidth",
     "peak_flops", "ring_windows", "ssd_chunk_flops", "step_count",
 ]

@@ -10,6 +10,8 @@ report, tokens/s and the slot log.
         --slots 8 --max-len 2048 --requests 8 --prompt-len 32 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --arch mamba2-2.7b --slots 8 --requests 8 --prompt-len 32 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+        --arch granite-moe-3b-a800m --slots 8 --max-len 2048 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --block-size 8 \\
         --sample --temperature 0.8 --top-k 50
 
@@ -19,7 +21,8 @@ of the greedy argmax (on the host in the host loop, on the device in
 blocks), seeded by ``--seed``.
 
 ``--arch`` takes the ported archs (qwen3-0.6b, mamba2-2.7b, gemma3-4b,
-gemma3-27b; nemotron-4-340b without ``--full``); prompts go token by
+gemma3-27b, granite-moe-3b-a800m; nemotron-4-340b and
+llama4-maverick-400b-a17b without ``--full``); prompts go token by
 token through the decode step, as in the reference.
 
 ``--device cpu`` runs on the CPU (tests); the default is the card, and

@@ -2,8 +2,8 @@
 
 ``DecoderModel(cfg, device)`` offers ``init``, ``forward``, ``prefill``,
 ``decode_step``, ``init_cache`` and ``reset_slots`` for the dense decoder
-(global and sliding-window attention) and the attention-free SSM
-families. ``grow_caches`` stays a function of ``models/transformer.py``,
+(global and sliding-window attention), the MoE decoder (attention with
+the grouped capacity dispatch) and the attention-free SSM families. ``grow_caches`` stays a function of ``models/transformer.py``,
 as in the reference, whose ``Model`` does not expose it. It holds the model's constant
 tables on its device (the RoPE frequencies, computed once, so the decode
 step never copies from the host).
@@ -25,7 +25,7 @@ from repro_torch.models.layers import rope_freqs
 
 
 # the families the port builds; the rest come with later slices
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)

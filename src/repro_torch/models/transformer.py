@@ -2,9 +2,12 @@
 decode step.
 
 Port of the reference's ``models/transformer.py`` for the layer specs
-of the dense and SSM families: attention (global or sliding-window) +
-MLP, with prefill, forward and decode, and Mamba2 with no FFN, with the
-same three. MoE, shared-block and VLM/enc-dec layers come with later
+of the dense, MoE and SSM families: attention (global or
+sliding-window) + MLP, attention + MoE (``models/moe.py``: the
+reference's grouped capacity dispatch, its Switch aux loss summed over
+the layers by ``forward``, discarded by ``prefill`` and the decode step
+as in the reference), and Mamba2 with no FFN, each with prefill,
+forward and decode. Shared-block and VLM/enc-dec layers come with later
 slices and raise ``NotImplementedError``.
 
 The layer program is ``period × n_periods + remainder``. Period params
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_rms, mlp_apply, mlp_init, rms_norm
 
@@ -47,14 +51,14 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 # the layer specs the port builds: (mixer, ffn)
-PORTED_SPECS = (("attn", "mlp"), ("mamba", "none"))
+PORTED_SPECS = (("attn", "mlp"), ("attn", "moe"), ("mamba", "none"))
 
 
 def _check_spec(spec: LayerSpec) -> None:
     if (spec.mixer, spec.ffn) not in PORTED_SPECS or spec.shared_attn:
         raise NotImplementedError(
-            f"layer {spec}: the port builds attention + MLP and Mamba2 "
-            f"layers; other mixers come with their slices (ROADMAP A8)"
+            f"layer {spec}: the port builds attention + MLP, attention + MoE "
+            f"and Mamba2 layers; other mixers come with their slices (ROADMAP A8)"
         )
 
 
@@ -83,6 +87,10 @@ def _layer_init(generator, lead, cfg: ArchConfig, spec: LayerSpec, device) -> di
     if spec.ffn == "mlp":
         p["mlp"] = mlp_init(generator, lead, cfg.d_model, cfg.d_ff, cfg.act,
                             dtype, device)
+    elif spec.ffn == "moe":
+        p["moe"] = moe_mod.moe_init(generator, lead, cfg.d_model, cfg.d_ff,
+                                    cfg.n_experts, cfg.act, cfg.shared_expert,
+                                    dtype, device)
     return p
 
 
@@ -162,7 +170,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
 def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
            cores="kernel", decode=True):
     """Apply one layer. Decode writes ``cache`` in place; prefill
-    (``decode=False``) builds the layer's cache. Returns (h, cache)."""
+    (``decode=False``) builds the layer's cache. Returns (h, cache, aux):
+    ``aux`` is the MoE layer's Switch aux loss, None for other layers."""
     x = rms_norm(h, p["ln1"], cfg.rms_eps)
     new_cache: dict[str, Any] = {}
     if spec.mixer == "attn":
@@ -189,9 +198,15 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
             a, new_cache["mamba"] = ssm_mod.mamba_prefill(
                 p["mamba"], x, cores=cores, **kwargs)
     h = h + a
+    aux = None
     if spec.ffn == "mlp":
         h = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.rms_eps), cfg.act)
-    return h, new_cache
+    elif spec.ffn == "moe":
+        delta, aux = moe_mod.moe_apply(
+            p["moe"], rms_norm(h, p["ln2"], cfg.rms_eps), n_experts=cfg.n_experts,
+            top_k=cfg.top_k, act=cfg.act, capacity_factor=cfg.capacity_factor)
+        h = h + delta
+    return h, new_cache, aux
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -220,12 +235,12 @@ def decode_step(
     h = params["embed"][token]
     for i in range(cfg.n_periods):
         for j, spec in enumerate(cfg.period):
-            h, _ = _block(_layer(params["period"][j], i), spec, cfg, h,
-                          _layer(caches["period"][j], i), pos, active,
-                          rope_freqs, cores)
+            h, _, _ = _block(_layer(params["period"][j], i), spec, cfg, h,
+                             _layer(caches["period"][j], i), pos, active,
+                             rope_freqs, cores)
     for j, spec in enumerate(cfg.remainder):
-        h, _ = _block(params["remainder"][j], spec, cfg, h,
-                      caches["remainder"][j], pos, active, rope_freqs, cores)
+        h, _, _ = _block(params["remainder"][j], spec, cfg, h,
+                         caches["remainder"][j], pos, active, rope_freqs, cores)
     return _logits(params, cfg, h)[:, 0], caches
 
 
@@ -248,32 +263,44 @@ def _stack(caches: list) -> Any:
     return torch.stack(caches)
 
 
+def _add_aux(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None):
     """The whole stack over a full sequence (no caches in); returns (h,
-    caches) with the caches in the reference's stacked structure."""
+    caches, aux) with the caches in the reference's stacked structure
+    and aux the MoE layers' aux losses summed in layer order (None
+    without a MoE layer)."""
     per_layer: list[list] = [[] for _ in cfg.period]
+    total = None
     for i in range(cfg.n_periods):
         for j, spec in enumerate(cfg.period):
-            h, c = _block(_layer(params["period"][j], i), spec, cfg, h,
-                          rope_freqs=rope_freqs, cores=cores, decode=False)
+            h, c, aux = _block(_layer(params["period"][j], i), spec, cfg, h,
+                               rope_freqs=rope_freqs, cores=cores, decode=False)
             per_layer[j].append(c)
+            total = _add_aux(total, aux)
     period = tuple(_stack(cs) for cs in per_layer) if cfg.n_periods else ()
     remainder = []
     for j, spec in enumerate(cfg.remainder):
-        h, c = _block(params["remainder"][j], spec, cfg, h, rope_freqs=rope_freqs,
-                      cores=cores, decode=False)
+        h, c, aux = _block(params["remainder"][j], spec, cfg, h,
+                           rope_freqs=rope_freqs, cores=cores, decode=False)
         remainder.append(c)
-    return h, {"period": period, "remainder": tuple(remainder)}
+        total = _add_aux(total, aux)
+    return h, {"period": period, "remainder": tuple(remainder)}, total
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             cores: str = "kernel", rope_freqs: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits (B, S, vocab) and the aux loss (zero: no MoE
-    layer is ported)."""
-    h, _ = _run_stack(params, cfg, params["embed"][tokens], cores, rope_freqs)
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                                device=h.device)
+    """Full-sequence logits (B, S, vocab) and the aux loss: the MoE
+    layers' Switch losses summed, a fp32 zero without a MoE layer."""
+    h, _, aux = _run_stack(params, cfg, params["embed"][tokens], cores, rope_freqs)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -283,7 +310,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``cores`` picks the SSD core of the Mamba2 layers (see ``CORES``);
     attention prefill has one core, the plain chunked attention, as in
     the reference."""
-    h, caches = _run_stack(params, cfg, params["embed"][tokens], cores, rope_freqs)
+    h, caches, _ = _run_stack(params, cfg, params["embed"][tokens], cores,
+                              rope_freqs)
     return _logits(params, cfg, h[:, -1:])[:, 0], caches
 
 

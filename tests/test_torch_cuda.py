@@ -157,6 +157,17 @@ def test_flash_decode_kernel_on_a_gemma3_residency_view(cuda, arch, dtype):
     """The global layer of one full-width gemma3 period (5 rings and a
     global cache) at 3 slots x 96 positions: the kernel reads the global
     K/V through views whose batch stride is the plan's slot stride."""
+    _check_residency_view(cuda, arch, dtype, 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_on_a_granite_residency_view(cuda, dtype):
+    """One full-width granite-moe layer (24/8 heads of 64: G = 3) at 3
+    slots x 96 positions, read through views into its state buffer."""
+    _check_residency_view(cuda, "granite-moe-3b-a800m", dtype, 0)
+
+
+def _check_residency_view(cuda, arch, dtype, layer):
     from repro_torch.configs.base import get_config
 
     cfg = dataclasses.replace(get_config(arch), n_periods=1, remainder=(), dtype=dtype)
@@ -168,7 +179,7 @@ def test_flash_decode_kernel_on_a_gemma3_residency_view(cuda, arch, dtype):
     buf = res.init_buffer(cuda)
     buf.view(getattr(torch, dtype)).normal_(0.0, 0.5)
     caches = res.views(buf)
-    k, v = caches["period"][5]["attn"][0][0], caches["period"][5]["attn"][1][0]
+    k, v = caches["period"][layer]["attn"][0][0], caches["period"][layer]["attn"][1][0]
     assert k.shape[1] == T and k.stride(0) > T * k.shape[2] * k.shape[3]
     rng = np.random.default_rng(13)
     G = cfg.n_heads // cfg.n_kv_heads
@@ -434,6 +445,38 @@ def test_captured_replay_equals_the_eager_step(cuda):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
         pos = pos + act.astype(np.int32)
     assert eng.state.graphs["step"].replays == 4
+
+
+def test_the_moe_decode_step_captured_equals_eager(cuda):
+    """granite-moe-3b-a800m at full width cut to 2 layers, fp32, 4 slots:
+    the captured, arena-backed step (flash_decode at (64, 3), the one-hot
+    dispatch of 40 experts top-8) against the eager decode step on its
+    own caches, with inactive rows: bit for bit, and the graph holds one
+    flash_decode launch per layer."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), n_periods=2,
+                              dtype="float32")
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    n, T = 4, 64
+    eng = InferenceEngine(cfg, params, n_slots=n, max_len=T, device=cuda)
+    assert eng.state.graphs["step"].launches["flash_decode"] == 2
+    eager = eng.model.init_cache(n, T)
+    rng = np.random.default_rng(9)
+    pos = np.zeros(n, np.int32)
+    for mask in ([1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1], [1, 1, 0, 1]):
+        tok = rng.integers(0, cfg.vocab, size=(n, 1)).astype(np.int32)
+        act = np.array(mask, bool)
+        got = eng.state.decode(tok, pos, act).clone()
+        want, _ = eng.model.decode_step(params, torch.from_numpy(tok).to(cuda), eager,
+                                        torch.from_numpy(pos).to(cuda),
+                                        torch.from_numpy(act).to(cuda))
+        assert torch.equal(got, want.float())
+        for g, w in zip(torch.utils._pytree.tree_leaves(eng.caches),
+                        torch.utils._pytree.tree_leaves(eager)):
+            assert torch.equal(g, w)
+        pos = pos + act.astype(np.int32)
+    assert eng.state.graphs["step"].replays == 5
 
 
 def test_block_tokens_equal_the_host_loop_tokens(cuda):

@@ -131,7 +131,7 @@ def test_a_ring_just_under_the_limit_fits():
 
 def test_unbuilt_instantiations_are_refused():
     with pytest.raises(ValueError):
-        sp.plan_flash_decode_smem(G=3, D=64)
+        sp.plan_flash_decode_smem(G=6, D=64)
     with pytest.raises(ValueError):
         sp.plan_ssd_chunk_smem(P=16, N=64)
     with pytest.raises(ValueError):

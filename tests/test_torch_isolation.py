@@ -91,13 +91,24 @@ def test_the_planning_core_modules_are_checked(path):
     assert path in SOURCES
 
 
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/models/moe.py", "src/repro_torch/configs/granite_moe_3b_a800m.py",
+     "src/repro_torch/configs/llama4_maverick_400b_a17b.py"],
+)
+def test_the_moe_modules_are_checked(path):
+    assert path in SOURCES
+
+
 def test_no_source_imports_ml_dtypes():
     """The card machine has no ml_dtypes: the port sizes bfloat16 itself."""
     pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.MULTILINE)
     assert not [p for p in SOURCES if pattern.search((ROOT / p).read_text())]
 
 
-@pytest.mark.parametrize("name", ["gemma3_4b.py", "gemma3_27b.py", "nemotron_4_340b.py"])
+@pytest.mark.parametrize("name", ["gemma3_4b.py", "gemma3_27b.py", "nemotron_4_340b.py",
+                                  "granite_moe_3b_a800m.py",
+                                  "llama4_maverick_400b_a17b.py"])
 def test_the_copied_configs_are_the_references_byte_for_byte(name):
     """Copied with only the import path changed."""
     want = (ROOT / "src" / "repro" / "configs" / name).read_text().replace(

@@ -136,8 +136,8 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(bad):
     q, k, v, lengths = _torch(*_mk(3, 2, 2, 2, 64, 32, "float32"))
     if bad == "head_dim":
         q, k, v = q[..., :32], k[..., :32], v[..., :32]
-    elif bad == "group":
-        q = torch.cat([q, q[:, :, :1]], dim=2)
+    elif bad == "group":  # G = 6 at D = 64: not built
+        q = torch.cat([q, q, q], dim=2)
     elif bad == "lengths_dtype":
         lengths = lengths.long()
     else:

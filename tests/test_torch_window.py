@@ -414,7 +414,8 @@ def test_step_count_reads_a_ring_up_to_its_window(gemma):
 # ------------------------------------------------------ bf16 (ROADMAP C1)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b", ARCH])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b", ARCH,
+                                  "granite-moe-3b-a800m"])
 def test_bf16_decode_stays_within_the_references_own_bf16_error(arch):
     """12 decode steps of 2 slots on the same tokens: the reference in bf16
     and in fp32 (the same bf16 weights, upcast), and the port in bf16 on
