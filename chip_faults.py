@@ -3,6 +3,7 @@
 ``chip_smoke.py``'s kernel checks catch them. Needs one card.
 
     python3 chip_faults.py        # from the repository root
+    python3 chip_faults.py --faults b_c_one_group   # the control and one fault
 
 For each fault below, the port (``src/repro_torch``) and ``chip_smoke.py``
 are copied to ``build/faults/<fault>/`` (ignored by git), the fault is
@@ -13,7 +14,8 @@ unplanted kernels are run the same way first, as the control.
 
 ``ssd_chunk.cu`` holds two kernels, the tensor-core one (bf16 x/B/C) and
 the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
-``drop_lo`` is planted in both.
+``drop_lo`` is planted in both (``b_c_one_group`` in the host entry both
+share).
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -59,6 +61,12 @@ FAULTS = {
         ("const bool keep_w = j <= i && i < L;",
          "const bool keep_w = j <= i + 1 && j < L && i < L;"),
     ], SLOW_CASES),
+    # every head reads head 0's B and C (their head strides taken as 0): one
+    # group still reads right, two groups do not (zamba2's layout)
+    "b_c_one_group": ("ssd_chunk", [
+        ("for (int i = 0; i < kStrides; ++i) st.v[i] = strides[i];",
+         "for (int i = 0; i < kStrides; ++i) st.v[i] = i == 12 || i == 16 ? 0 : strides[i];"),
+    ], ("two_groups_L96", "zamba2_prefill")),
     # W, the decayed x and an fp32 state fed as hi + mid only (tensor cores)
     "drop_lo": ("ssd_chunk", [
         ("const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);",
@@ -131,10 +139,19 @@ def run(name: str, fault: tuple | None) -> dict:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--faults", default=",".join(FAULTS),
+                    help="comma-separated subset of %(default)s (the control "
+                         "always runs)")
+    names = ap.parse_args().faults.split(",")
+    if set(names) - set(FAULTS):
+        raise SystemExit(f"chip_faults: unknown faults {sorted(set(names) - set(FAULTS))}")
     if not (ROOT / CSRC / "ssd_chunk.cu").is_file():
         raise SystemExit(f"chip_faults: {ROOT} is not a checkout of the repository")
     control = run("control", None)
-    results = {name: run(name, fault) for name, fault in FAULTS.items()}
+    results = {name: run(name, FAULTS[name]) for name in names}
     problems = []
     if control["failed"]:
         problems.append(f"the unplanted kernels failed {control['failed']} case(s)")

@@ -24,13 +24,20 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                named with each backend's time: the fused ones refuse
                D = 320 or the mask) and granite-moe-3b-a800m (G = 3 at
                D = 64: full and the serve mix's lengths, in bf16 on the
-               full state buffer and in fp32 on a one-layer one), with
-               split count and scratch bytes.
+               full state buffer and in fp32 on a one-layer one) and
+               zamba2-7b's shared block ((224, 1) on its K/V cache in the
+               8 x 2048 state buffer beside 81 Mamba2 states) and
+               internvl2-1b's layers ((64, 7)), with split count and
+               scratch bytes; zamba2's and internvl2's caches also read
+               through views of one full-width period's state buffer.
                ``ssd_chunk``: the CPU
-               test cases (slow decay included, and the tensor-core
-               kernel's edge shapes) in every dtype pair, and mamba2-2.7b's
+               test cases (slow decay included, the tensor-core kernel's
+               edge shapes, and B/C from two groups repeated over 16
+               heads, zamba2's layout) in every dtype pair, mamba2-2.7b's
                prefill chunk (L=256, H=80, P=64, N=128, bf16, B/C one group
-               at head stride 0) with the original and a slow decay;
+               at head stride 0) with the original and a slow decay, and
+               zamba2-7b's (L=256, H=112, P=64, N=64, bf16, B/C from 2
+               groups);
 4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
                seed, with the kernel attention and with the plain
                attention: greedy tokens identical, logits within 1e-4; and
@@ -108,7 +115,32 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                slots, 3 short requests: all finish, every captured step
                equals the eager one, 2 flash_decode launches at (128, 5) per
                replay, the state is the plan, the peak allocated after init;
-18. smem      — for each kernel instantiation on the paths, the shared
+18. parity_zamba2 — zamba2-7b at full width (the shared block at 7168,
+               32 heads of 224: flash_decode at (224, 1); 2 SSM groups), its
+               depth cut to one period (5 Mamba2 layers, one with the shared
+               block), fp32, 2 slots, three short requests, served as
+               ``parity`` serves qwen3: one flash_decode launch per replay;
+19. serve_zamba2 — ``serve.run`` on full-width zamba2-7b (81 layers, bf16)
+               with the serve phase's slots and requests: all finish, every
+               decode step a replay of one graph holding 13 flash_decode
+               launches (the shared block's insertions), the state one
+               buffer of the leaves' 6,730,313,728 B plus alignment (13
+               shared K/V caches, 81 Mamba2 states) that never moves; then
+               8 steady waves timed and 8 profiled, and a roofline with both
+               floors (the shared block read once, and at every insertion);
+20. prefill_zamba2 — full-width zamba2-7b prefills 2048 tokens through
+               ``ArenaExecutor`` from its certified plan, equal to eager:
+               ssd_chunk launched 8 x 81 = 648 times (B/C from 2 groups);
+21. parity_internvl2 — internvl2-1b at full width and depth (24 layers,
+               flash_decode at (64, 7)), fp32, 2 slots, a 300-token prompt
+               and two short ones, served as ``parity`` serves qwen3;
+22. serve_internvl2 — ``serve.run`` on full-width internvl2-1b: 24
+               flash_decode launches per replay, the state exactly
+               201,326,592 B; 8 steady waves timed and 8 profiled;
+23. prefill_internvl2 — full-width internvl2-1b prefills 256 seeded image
+               embeddings and 1,792 tokens through ``ArenaExecutor`` from
+               its certified plan, equal to eager; no kernel;
+24. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -116,10 +148,10 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
-captures or serves; the serve, serve_block, serve_mamba, serve_gemma3 and
-serve_granite phases print it as a ``plan`` row (records, the certifier's seconds,
-findings: 0), and the prefill phases certify the plan their executor runs
-from with ``certify_plan``. The profile, serve_block, serve_gemma3 and
+captures or serves; the serve, serve_block and every serve_* phase print
+it as a ``plan`` row (records, the certifier's seconds, findings: 0), and
+the prefill phases certify the plan their executor runs from with
+``certify_plan``. The profile, serve_block, serve_* (but serve_mamba) and
 prefill phases print a ``roofline`` row: the step's FLOPs and least bytes
 from ``launch/roofline.step_count`` (at the positions the profiled waves
 read; a ring up to its window), its bound on this card, the device time
@@ -129,7 +161,8 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13, 15, 16, 17; 7 for its own check) and read just after it.
+5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23; 7 for its own check) and
+read just after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -178,6 +211,14 @@ NEW_PAIRS = ((168, 2), (192, 12), (224, 1), (320, 2), (64, 3), (64, 7), (128, 5)
 GEMMA3_TIMING: dict = {}
 GRANITE_TIMING: dict = {}
 GRANITE = "granite-moe-3b-a800m"
+# flash_decode's timing at zamba2-7b's shared block (D = 224, G = 1) and
+# internvl2-1b's layers (D = 64, G = 7), and ssd_chunk's at zamba2's
+# two-group prefill chunk (the kernels phase)
+ZAMBA2_TIMING: dict = {}
+INTERNVL2_TIMING: dict = {}
+ZAMBA2_SSD_TIMING: dict = {}
+ZAMBA2 = "zamba2-7b"
+INTERNVL2 = "internvl2-1b"
 
 
 # --keep-going: the kernels phase records failed cases here and fails at
@@ -311,6 +352,32 @@ def _residency_cache(cfg, n_slots: int, max_len: int, gen):
     return buf, res.views(buf)
 
 
+def decode_kv(cfg, caches, period: int = 0):
+    """The first K/V cache ``flash_decode`` reads in ``cfg``'s decode step,
+    as views of period ``period`` in the state buffer, and its (KV, G, D):
+    zamba2's shared block's (its heads are its own K/V heads), else the
+    first global attention layer's."""
+    from repro_torch.models.transformer import shared_head_dim
+
+    for j, spec in enumerate(cfg.period):
+        if spec.shared_attn:
+            k, v = caches["period"][j]["shared"]
+            return (k[period], v[period], cfg.shared_attn_heads, 1,
+                    shared_head_dim(cfg))
+    j = next(j for j, spec in enumerate(cfg.period)
+             if spec.mixer == "attn" and spec.window is None)
+    k, v = caches["period"][j]["attn"]
+    return (k[period], v[period], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+
+
+def flash_decode_per_step(cfg) -> int:
+    """``flash_decode`` launches in one decode step of ``cfg``: one per
+    global attention layer and one per insertion of the shared block."""
+    return sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
+               if (spec.mixer == "attn" and spec.window is None) or spec.shared_attn)
+
+
 def phase_kernels(card_name: str) -> dict:
     import torch
 
@@ -382,35 +449,39 @@ def phase_kernels(card_name: str) -> dict:
             k, v = rand((B, T, KV, D), dt), rand((B, T, KV, D), dt)
             lengths = torch.tensor([1, 385, T], dtype=torch.int32, device=DEVICE)
             check(f"D{D}_G{G}_empty_spans", q, k, v, lengths)
-        # the global layer of gemma3 (5 rings and a global cache) and
-        # granite's layer read through views into the state buffer of one
+        # the global layer of gemma3 (5 rings and a global cache), granite's
+        # and internvl2's layer and zamba2's shared block (beside 6 Mamba2
+        # states) read through views into the state buffer of one
         # full-width period at 3 x 96
-        for arch in ("gemma3-4b", "gemma3-27b", GRANITE):
+        for arch in ("gemma3-4b", "gemma3-27b", GRANITE, ZAMBA2, INTERNVL2):
             one = dataclasses.replace(get_config(arch), n_periods=1, remainder=(),
                                       dtype=str(dt).removeprefix("torch."))
             _, caches = _residency_cache(one, 3, 96, gen)
-            j = next(j for j, spec in enumerate(one.period) if spec.window is None)
-            k, v = caches["period"][j]["attn"][0][0], caches["period"][j]["attn"][1][0]
+            k, v, KV, G, D = decode_kv(one, caches)
             if k.stride(0) <= k.shape[1] * k.shape[2] * k.shape[3]:
                 fail(f"{arch} view: batch stride {k.stride(0)} is not a slot stride")
-            G = one.n_heads // one.n_kv_heads
-            q = rand((3, one.n_kv_heads, G, one.resolved_head_dim), dt, Q_STD)
+            q = rand((3, KV, G, D), dt, Q_STD)
             lengths = torch.tensor([1, 50, 96], dtype=torch.int32, device=DEVICE)
             check(f"{arch}_residency_view", q, k, v, lengths)
             del caches
 
-    # the serving shapes, on the serving layout: the first global layer of
-    # full-width qwen3-0.6b's, gemma3-4b's and granite's state buffers at 8
-    # slots x 2048 positions, bf16
+    # the serving shapes, on the serving layout: the first K/V cache read
+    # (``decode_kv``) of full-width qwen3-0.6b's, gemma3-4b's, granite's,
+    # zamba2's and internvl2's state buffers at 8 slots x 2048 positions,
+    # bf16
     record = {}
     for arch, prefix, labels in (
         ("qwen3-0.6b", "", ("serving_full", "serving_random", "serve_mix")),
         ("gemma3-4b", "gemma3_", ("serving_full", "serve_mix")),
         (GRANITE, "granite_", ("serving_full", "serve_mix")),
+        (ZAMBA2, "zamba2_", ("serving_full", "serve_mix")),
+        (INTERNVL2, "internvl2_", ("serving_full", "serve_mix")),
     ):
         record.update(time_serving(card_name, gen, check, arch, prefix, labels))
     GEMMA3_TIMING.update(record["gemma3_serving_full"])
     GRANITE_TIMING.update(record["granite_serving_full"])
+    ZAMBA2_TIMING.update(record["zamba2_serving_full"])
+    INTERNVL2_TIMING.update(record["internvl2_serving_full"])
     # granite's serving shape in fp32, on a strided view of a one-layer
     # fp32 state buffer of 8 slots x 2048 positions
     one = dataclasses.replace(get_config(GRANITE), n_periods=1, dtype="float32")
@@ -465,7 +536,7 @@ def sdpa_backends(call) -> tuple[str, dict]:
 
 
 def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
-    """``flash_decode`` on the first global layer of ``arch``'s full-width
+    """``flash_decode`` on the first K/V cache of ``arch``'s full-width
     state buffer at 8 slots x 2048 positions (bf16): checked, then timed
     beside its bound, its plain version and one SDPA call with
     ``enable_gqa=True``, at full lengths (``serving_full``), random ones
@@ -481,11 +552,8 @@ def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
 
     cfg = get_config(arch)
     B, T = 8, 2048
-    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
-    G = cfg.n_heads // KV
-    layer = next(j for j, spec in enumerate(cfg.period) if spec.window is None)
     buf, caches = _residency_cache(cfg, B, T, gen)
-    k, v = caches["period"][layer]["attn"][0][0], caches["period"][layer]["attn"][1][0]
+    k, v, KV, G, D = decode_kv(cfg, caches)
     q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
     lengths_of = {
         "serving_full": lambda: torch.full((B,), T, dtype=torch.int32, device=DEVICE),
@@ -537,26 +605,30 @@ def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
     return record
 
 
-# ssd_chunk cases: (B, L, H, P, N) and the decay; the CPU test cases of
-# tests/test_torch_ssd.py, one group broadcast over the heads, and the
-# prefill chunk of mamba2-2.7b
+# ssd_chunk cases: (B, L, H, P, N), the decay and the SSM groups of B and C
+# (None: B and C drawn per head); the CPU test cases of
+# tests/test_torch_ssd.py, one group broadcast over the heads, two groups
+# repeated over theirs (zamba2's layout), and the prefill chunks of
+# mamba2-2.7b and zamba2-7b
 SSD_CASES = {
-    "kernels_0": ((2, 64, 2, 32, 16), "original", False),
-    "kernels_1": ((1, 128, 4, 64, 128), "original", False),
-    "kernels_2": ((2, 256, 1, 64, 64), "original", False),
-    "ragged_L33": ((2, 33, 3, 64, 128), "original", False),
-    "L1": ((3, 1, 2, 8, 4), "original", False),
-    "slow_L256": ((1, 256, 4, 64, 128), "slow", False),
-    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
-    "one_group_L96": ((1, 96, 4, 32, 16), "original", True),
-    "one_group_slow_L96": ((1, 96, 4, 32, 16), "slow", True),
+    "kernels_0": ((2, 64, 2, 32, 16), "original", None),
+    "kernels_1": ((1, 128, 4, 64, 128), "original", None),
+    "kernels_2": ((2, 256, 1, 64, 64), "original", None),
+    "ragged_L33": ((2, 33, 3, 64, 128), "original", None),
+    "L1": ((3, 1, 2, 8, 4), "original", None),
+    "slow_L256": ((1, 256, 4, 64, 128), "slow", None),
+    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", None),
+    "one_group_L96": ((1, 96, 4, 32, 16), "original", 1),
+    "one_group_slow_L96": ((1, 96, 4, 32, 16), "slow", 1),
+    # heads 0-7 read group 0's B and C, heads 8-15 group 1's
+    "two_groups_L96": ((1, 96, 16, 32, 16), "slow", 2),
     # edges of the tensor-core kernel (bf16 x/B/C): one row in a 64-row tile
     # at P = 64; a ragged second row tile at P = 32, N = 40; N = 13, where x,
     # B and C (slices of one buffer with rows of 154 elements) are loaded
     # element by element, not by 16-byte copies
-    "L1_P64": ((2, 1, 3, 64, 128), "slow", False),
-    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", True),
-    "N13_L130": ((1, 130, 2, 64, 13), "slow", True),
+    "L1_P64": ((2, 1, 3, 64, 128), "slow", None),
+    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", 1),
+    "N13_L130": ((1, 130, 2, 64, 13), "slow", 1),
 }
 # (x/B/C dtype, state dtype): every pair the kernel builds. fp32; bf16 x
 # with an fp32 state (as tests/test_kernels.py passes it); bf16 throughout
@@ -565,14 +637,17 @@ SSD_DTYPES = (("float32", "float32"), ("bfloat16", "float32"),
               ("bfloat16", "bfloat16"), ("float32", "bfloat16"))
 
 
-def ssd_inputs(gen, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
+def ssd_inputs(gen, B, L, H, P, N, decay, groups, x_dtype, state_dtype):
     """The distributions of tests/test_kernels.py ("original": dA =
     -exp(0.3 z)·dt, ~-0.7 per position) or dA uniform in [-0.02, -0.001]
-    ("slow"). With ``one_group``, x, B and C are slices of one (B, L,
-    H·P + 2N) buffer, as the model's conv output, and B and C reach the
-    heads through a head stride of 0."""
+    ("slow"). With ``groups``, x, B and C are slices of one (B, L,
+    H·P + 2·groups·N) buffer, as the model's conv output, and B and C reach
+    the heads as ``mamba_prefill`` hands them over (``ssm._heads``): one
+    group through a head stride of 0, more through ``repeat_interleave``."""
     import torch
     import torch.nn.functional as F
+
+    from repro_torch.models.ssm import _heads
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
@@ -583,11 +658,12 @@ def ssd_inputs(gen, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
         dA = -(torch.rand((B, L, H), generator=gen, device=DEVICE) * 0.019 + 0.001)
     else:
         dA = -torch.exp(randn(B, L, H) * 0.3) * dt
-    if one_group:
-        xbc = (randn(B, L, H * P + 2 * N) * 0.5).to(xd)
+    if groups:
+        GN = groups * N
+        xbc = (randn(B, L, H * P + 2 * GN) * 0.5).to(xd)
         x = xbc[..., : H * P].unflatten(-1, (H, P))
-        Bm = xbc[..., H * P : H * P + N][:, :, None].expand(B, L, H, N)
-        Cm = xbc[..., H * P + N :][:, :, None].expand(B, L, H, N)
+        Bm = _heads(xbc[..., H * P : H * P + GN].unflatten(-1, (groups, N)), H)
+        Cm = _heads(xbc[..., H * P + GN :].unflatten(-1, (groups, N)), H)
     else:
         x = (randn(B, L, H, P) * 0.5).to(xd)
         Bm = (randn(B, L, H, N) * 0.5).to(xd)
@@ -641,40 +717,47 @@ def phase_kernels_ssd(card_name: str) -> dict:
         return worst
 
     for x_dtype, state_dtype in SSD_DTYPES:
-        for label, (shape, decay, one_group) in SSD_CASES.items():
-            check(label, ssd_inputs(gen, *shape, decay, one_group, x_dtype,
+        for label, (shape, decay, groups) in SSD_CASES.items():
+            check(label, ssd_inputs(gen, *shape, decay, groups, x_dtype,
                                     state_dtype))
 
-    # the prefill chunk of full-width mamba2-2.7b, as mamba_prefill passes it
+    # the prefill chunks of full-width mamba2-2.7b (one group, at head
+    # stride 0) and zamba2-7b (two groups, repeated over their heads), as
+    # mamba_prefill passes them
     from repro_torch.configs.base import get_config
     from repro_torch.launch.roofline import kernel_bound
     from repro_torch.models.ssm import ssm_dims
 
-    cfg = get_config("mamba2-2.7b")
-    _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
-                       cfg.ssm_groups, cfg.ssm_state)
-    B, L, P, N = 1, 256, cfg.ssm_head_dim, cfg.ssm_state
     record = {}
-    for decay in ("original", "slow"):
-        label = f"prefill_{decay}"
-        inputs = ssd_inputs(gen, B, L, H, P, N, decay, True, "bfloat16", "bfloat16")
+    for arch, label, decay in (("mamba2-2.7b", "prefill_original", "original"),
+                               ("mamba2-2.7b", "prefill_slow", "slow"),
+                               (ZAMBA2, "zamba2_prefill", "original")):
+        cfg = get_config(arch)
+        _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                           cfg.ssm_groups, cfg.ssm_state)
+        B, L, P, N, G = 1, 256, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+        inputs = ssd_inputs(gen, B, L, H, P, N, decay, G, "bfloat16", "bfloat16")
         err = check(label, inputs)
         before = sc.LAUNCHES
         ms = cuda_time_ms(lambda: sc.ssd_chunk(*inputs))
         plain_ms = cuda_time_ms(lambda: ssd_chunk_ref(*inputs))
         sc.LAUNCHES = before  # timing launches are not the main path's
-        # each input read once (B and C: the one group), each output
-        # written once; the causal half of the L x L products
-        bound = kernel_bound("ssd_chunk", {
-            "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "bfloat16",
-            "state_dtype": "bfloat16", "groups": cfg.ssm_groups},
-            card_name=card_name)
+        # each input read once, each output written once; the causal half
+        # of the L x L products. B and C are read as the call holds them:
+        # one group at head stride 0 is one group's bytes, while
+        # repeat_interleave makes a copy per head
+        read_groups = 1 if G == 1 else H
+        shape = {"B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "bfloat16",
+                 "state_dtype": "bfloat16"}
+        bound = kernel_bound("ssd_chunk", {**shape, "groups": read_groups},
+                             card_name=card_name)
         fp32_ms = kernel_bound("ssd_chunk", {
             "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "float32"},
             card_name=card_name).ops_s * 1e3
         flops_full = B * H * 2 * ((N + P) * L * L + 2 * L * P * N)
         row = {"phase": "kernels", "kernel": "ssd_chunk", "timing": label,
-               "shape": [B, L, H, P, N], "ms": ms, "plain_ms": plain_ms,
+               "arch": arch, "shape": [B, L, H, P, N], "groups": G,
+               "ms": ms, "plain_ms": plain_ms,
                "library_ms": None, "library": "none: no one PyTorch call",
                "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
                "bytes": bound.min_bytes, "flops": bound.flops,
@@ -682,16 +765,22 @@ def phase_kernels_ssd(card_name: str) -> dict:
                "bytes_ms": bound.bytes_s * 1e3,
                "bf16_tensor_core_ms": bound.ops_s * 1e3,
                "fp32_cuda_core_ms": fp32_ms, "max_abs_err": err}
+        if G > 1:
+            row["bound_ms_if_b_c_read_per_group"] = kernel_bound(
+                "ssd_chunk", {**shape, "groups": G}, card_name=card_name).bound_s * 1e3
         emit(row)
         record[label] = row
+    ZAMBA2_SSD_TIMING.update(record["zamba2_prefill"])
     return record["prefill_original"]
 
 
 # the kernel instantiations the paths run: flash_decode at qwen3-0.6b's
-# heads (G=2, D=64), gemma3-4b's global heads (G=2, D=320) and granite's
-# (G=3, D=64) in bf16 (serve) and fp32 (parity), and llama4's (G=5, D=128)
-# in bf16 (parity_llama4); ssd_chunk at mamba2-2.7b's (P=64, N=128) with
-# bf16 x/B/C and state (prefill) and in fp32 (prefill_parity)
+# heads (G=2, D=64), gemma3-4b's global heads (G=2, D=320), granite's
+# (G=3, D=64), zamba2's shared block (G=1, D=224) and internvl2's (G=7,
+# D=64) in bf16 (serve) and fp32 (parity), and llama4's (G=5, D=128) in
+# bf16 (parity_llama4); ssd_chunk at mamba2-2.7b's (P=64, N=128) with bf16
+# x/B/C and state (prefill) and in fp32 (prefill_parity), and at zamba2's
+# (P=64, N=64) in bf16 (prefill_zamba2)
 SMEM_CASES = (
     ("flash_decode", {"G": 2, "D": 64, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 2, "D": 64, "dtype": "float32"}),
@@ -700,8 +789,13 @@ SMEM_CASES = (
     ("flash_decode", {"G": 3, "D": 64, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 3, "D": 64, "dtype": "float32"}),
     ("flash_decode", {"G": 5, "D": 128, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 1, "D": 224, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 1, "D": 224, "dtype": "float32"}),
+    ("flash_decode", {"G": 7, "D": 64, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 7, "D": 64, "dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
+    ("ssd_chunk", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
 )
 
 
@@ -785,8 +879,8 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int,
     ``decode_step``, and, with the plain core too, hold the two engines'
     logits, greedy tokens and slot logs together. Each engine's state is
     its plan, and each of its graphs holds one ``flash_decode`` launch
-    per global attention layer on the kernel core, none on the plain
-    one. The row's ``launches`` are the engines' own (the warm-up run of
+    per global attention layer and shared-block insertion on the kernel
+    core, none on the plain one. The row's ``launches`` are the engines' own (the warm-up run of
     each capture and the replays): the eager twin's launches are a
     check, counted apart in ``captured_vs_eager``. Returns the row."""
     import numpy as np
@@ -873,8 +967,7 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int,
     if twin["steps"] != ek.decode_calls or ek.state.graphs["step"].replays != ek.decode_calls:
         fail(f"{phase}: {twin['steps']} checked steps, {ek.decode_calls} decode steps")
     launches = read_launches()
-    n_global = sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
-                   if spec.mixer == "attn" and spec.window is None)
+    n_global = flash_decode_per_step(cfg)
     per_replay, warmups, replayed = {}, 0, 0
     for a, e in engines.items():
         rep = e.memory_report
@@ -1032,7 +1125,7 @@ def decode_roofline(label: str, engine, prof: dict, card_name: str,
         return torch.empty(shape, dtype=dt, device="meta")
 
     # the step's inputs besides the params and the caches
-    inputs = (engine.model.rope_freqs, meta((n, 1), torch.int32),
+    inputs = (engine.model.rope_tables, meta((n, 1), torch.int32),
               meta((n,), torch.int32), meta((n,), torch.bool))
     axes = detect_state_axes(engine.model.init_cache, n_slots=n, max_len=T)
 
@@ -1066,6 +1159,21 @@ def decode_roofline(label: str, engine, prof: dict, card_name: str,
            "model_flops": model_flops,
            "mfu": roofline.mfu(model_flops, device_ms / 1e3, card_name),
            **(extra or {})}
+    reread = roofline.shared_reread_bytes(engine.cfg, engine.params)
+    if reread:
+        # a second floor: the shared block read again at each of its other
+        # insertions (it does not stay in L2 between them); the share is
+        # read against the first, each parameter once (step_count)
+        spec = roofline.card(card_name)
+        again = roofline.Bound(round(row["flops"]), round(row["min_bytes"]) + reread,
+                               spec.peak_flops, spec.hbm_bytes_per_s)
+        row.update({"shared_insertions": roofline.shared_insertions(engine.cfg),
+                    "shared_reread_bytes": reread,
+                    "min_bytes_shared_at_every_insertion": again.min_bytes,
+                    "bound_ms_shared_at_every_insertion": again.bound_s * 1e3,
+                    "roofline_share_shared_at_every_insertion":
+                        again.bound_s * 1e3 / device_ms,
+                    "share_read_against": "bound_ms: each parameter read once"})
     emit(row)
     return row
 
@@ -1368,24 +1476,28 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
 
     from repro_torch.analysis import soundness
     from repro_torch.launch import roofline
-    from repro_torch.launch.compile import plan_prefill
+    from repro_torch.launch.compile import plan_prefill, prefill_batch
     from repro_torch.models.api import ShapeSpec
     from repro_torch.runtime.executor import ArenaExecutor
 
     S = 2048
     mib = 2**20
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
-    freqs = model.rope_freqs
+    # S positions: a VLM's seeded prefix embeddings, then tokens
+    batch = prefill_batch(cfg, S, DEVICE)
+    batch["tokens"].random_(0, cfg.vocab, generator=gen)
+    if "prefix_embeds" in batch:
+        batch["prefix_embeds"].normal_(generator=gen)
+    tables = model.rope_tables
     t0 = time.perf_counter()
     _, meta_plan = plan_prefill(cfg, prefill_len=S)
     plan_s = time.perf_counter() - t0
 
-    def prefill(p, f, t):
-        return model.prefill(p, {"tokens": t}, rope_freqs=f)
+    def prefill(p, tabs, b):
+        return model.prefill(p, b, **tabs)
 
     t0 = time.perf_counter()
-    executor = ArenaExecutor(prefill, params, freqs, tokens, device=DEVICE,
+    executor = ArenaExecutor(prefill, params, tables, batch, device=DEVICE,
                              name=f"{cfg.name}-prefill{S}")
     executor_s = time.perf_counter() - t0
     # the plan the executor runs from, certified (plan_prefill certified
@@ -1406,14 +1518,14 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
         base = torch.cuda.memory_allocated()  # the arena included
         reset_launches()
         t0 = time.perf_counter()
-        logits, caches = executor(params, freqs, tokens)
+        logits, caches = executor(params, tables, batch)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = read_launches()
         peak_above_arena = torch.cuda.max_memory_allocated() - base
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        want_logits, want_caches = model.prefill(params, {"tokens": tokens})
+        want_logits, want_caches = model.prefill(params, batch)
         torch.cuda.synchronize()
         eager_peak = torch.cuda.max_memory_allocated() - base
         diffs, bitwise = {}, True
@@ -1432,11 +1544,11 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
                              torch.utils._pytree.tree_leaves(caches) if x.dim() >= 4})
         del logits, caches, want_logits, want_caches
         t0 = time.perf_counter()
-        executor(params, freqs, tokens)
+        executor(params, tables, batch)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens})
+        model.prefill(params, batch)
         torch.cuda.synchronize()
         eager_warm_s = time.perf_counter() - t0
         # one prefill with the tracer on but discarded, then the one read:
@@ -1445,7 +1557,7 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
-                executor(params, freqs, tokens)
+                executor(params, tables, batch)
                 torch.cuda.synchronize()
                 prof.step()
     # the schedule's step annotation (ProfilerStep#) also lies on the
@@ -1477,7 +1589,8 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     st = executor.stats
     row = {"phase": "prefill", "arch": cfg.name, "layers": cfg.n_layers,
-           "tokens": S, "launches": counts, "first_wall_s": first_s,
+           "tokens": S, "prefix_embeddings": cfg.n_prefix_tokens,
+           "launches": counts, "first_wall_s": first_s,
            "warm_wall_s": warm_s, "tokens_per_s_warm": S / warm_s,
            "eager_warm_wall_s": eager_warm_s,
            "device_ms": device_us / 1e3}
@@ -1503,7 +1616,7 @@ def run_prefill(card_name: str, cfg, model, params, kernel: str | None
            "equal_to_eager_bitwise": bitwise, "max_abs_diff_vs_eager": diffs,
            "ok": True})
     emit(row)
-    count = roofline.step_count(executor.trace, params, (freqs, tokens))
+    count = roofline.step_count(executor.trace, params, (tables, batch))
     bound = count.bound(card_name)
     device_ms = device_us / 1e3
     model_flops = roofline.model_flops(cfg, ShapeSpec("prefill", S, 1, "prefill"))
@@ -1577,93 +1690,20 @@ def phase_serve_mamba() -> None:
     torch.cuda.empty_cache()
 
 
-# the serve_gemma3 run: full-width gemma3-4b, the qwen3 serve mix
-GEMMA3_SERVE_ARGS = [
-    "--full", "--arch", "gemma3-4b", "--slots", "8", "--max-len", "2048",
-    "--requests", "8", "--prompt-len", "32", "--max-new", "64", "--seed", "0",
-]
 # gemma3-4b's state at 8 slots x 2048 positions, bf16: 5 global layers of
 # 2048 positions and 29 rings of 1024, 5,120 B of K+V per position
 GEMMA3_STATE_BYTES = (5 * 8 * 2048 + 29 * 8 * 1024) * 5120  # 1,635,778,560
 
 
 def phase_serve_gemma3(card_name: str) -> tuple[dict, dict]:
-    """``serve.run`` on full-width gemma3-4b (34 layers: 29 window layers
-    of 1024, 5 global layers; bf16, random weights from a seed) with 8
-    slots x 2048 positions and the qwen3 serve mix: all finish, every
-    decode step is a replay of the one captured graph, whose flash_decode
-    launches are the 5 global layers', the state is one buffer of
-    exactly the planned 1,635,778,560 B that never moves; then 8 more
-    requests for a steady window, 8 waves timed and 8 profiled, and its
-    roofline (rings read up to their window)."""
-    import numpy as np
-    import torch
-
-    from repro_torch.launch import serve
-
-    n_req, max_new = 8, 64
-    reset_launches()
-    stats = serve.run(GEMMA3_SERVE_ARGS)
-    counts = read_launches()
-    engine = stats["engine"]
-    cfg = engine.cfg
-    toks = stats["tokens_per_request"]
-    if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
-        fail(f"serve_gemma3: {stats['requests']} of {n_req} requests finished, "
-             f"lengths {[len(t) for t in toks.values()]}")
-    if not all(0 <= x < cfg.vocab for t in toks.values() for x in t):
-        fail("serve_gemma3: a token outside the vocabulary")
-    if not stats["last_logits_finite"]:
-        fail("serve_gemma3: non-finite logits")
-    if not stats["state_live_bytes"] == stats["state_planned_bytes"] == GEMMA3_STATE_BYTES:
-        fail(f"serve_gemma3: live state {stats['state_live_bytes']} B, planned "
-             f"{stats['state_planned_bytes']} B, expected {GEMMA3_STATE_BYTES} B")
-    if stats["state_ptr_before"] != stats["state_ptr_after"]:
-        fail("serve_gemma3: the state buffer moved")
-    n_global = sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
-                   if spec.mixer == "attn" and spec.window is None)
-    replayed = check_replayed("serve_gemma3", stats, "flash_decode", per_step=n_global)
-    if stats["capture_calls"] != 1:
-        fail(f"serve_gemma3: {stats['capture_calls']} graphs captured, expected 1")
-    plan_row("gemma3-4b serve (8 slots x 2048)", stats)
-    emit({
-        "phase": "serve_gemma3", "arch": cfg.name, "layers": stats["n_layers"],
-        "global_layers": n_global, "requests": stats["requests"],
-        "tokens": stats["tokens"], "waves": stats["waves"],
-        "decode_steps": stats["decode_calls"], "host_syncs": stats["host_syncs"],
-        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
-        "cold_start_s": stats["cold_start_s"], "launches": counts,
-        "graphs": replayed, **graph_stats(stats),
-        "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
-        "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
-        "state_bytes": stats["state_live_bytes"],
-        "state_mib": stats["state_live_bytes"] / 2**20,
-        "state_mib_if_every_layer_kept_2048": 34 * 8 * 2048 * 5120 / 2**20,
-        "decode_step_ops": stats["decode_step_ops"],
-        "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
-        "ok": True,
-    })
-    launches = counts["flash_decode"]
-    # a steady window: 8 requests more, every slot active
-    waves = 8
-    rng = np.random.default_rng(1)
-    for _ in range(n_req):
-        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
-                      max_new_tokens=2 * waves + 4)
-    done = engine.step()  # admits every request
-    prof, finished = serve.profile_waves(engine, waves)
-    done += finished + engine.run_until_done()
-    if len(done) != n_req:
-        fail(f"serve_gemma3: {len(done)} of {n_req} profiled requests finished")
-    if not prof["device_ms_per_wave"] > 0:
-        fail("serve_gemma3: the profiler saw no device time")
-    emit({"phase": "profile", "arch": cfg.name,
-          "decode_step_ops": len(engine.decode_graph.ops),
-          "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
-    roof = decode_roofline("gemma3-4b steady host-loop wave", engine, prof, card_name)
-    del engine, stats
-    torch.cuda.empty_cache()
-    return {"launches": launches}, roof
+    """Full-width gemma3-4b (34 layers: 29 window layers of 1024, 5
+    global layers) served by ``run_serve``: every decode step a replay of
+    one graph whose flash_decode launches are the 5 global layers', the
+    state exactly 1,635,778,560 B; its roofline reads the rings up to
+    their window."""
+    return run_serve("serve_gemma3", "gemma3-4b", card_name,
+                     lambda b: b == GEMMA3_STATE_BYTES,
+                     {"state_mib_if_every_layer_kept_2048": 34 * 8 * 2048 * 5120 / 2**20})
 
 
 class RouteLog:
@@ -1941,10 +1981,185 @@ def phase_parity_llama4() -> dict:
     return {"launches": row["launches"]["flash_decode"]}
 
 
+def phase_parity_zamba2() -> None:
+    """zamba2-7b at full width (d_model 3584, Mamba2 with 2 SSM groups of
+    64 states, the shared block at 7168 with 32 heads of 224:
+    flash_decode at (224, 1)), its depth cut to one period (5 Mamba2
+    layers and one with the shared block), fp32, 2 slots: three short
+    requests, served as ``parity`` serves qwen3 (one flash_decode launch
+    per replay)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(ZAMBA2), n_periods=1, remainder=(),
+                              dtype="float32")
+    run_parity("parity_zamba2", cfg, [(40, 12), (9, 8), (5, 6)], n_slots=2,
+               max_len=128)
+
+
+def phase_parity_internvl2() -> None:
+    """internvl2-1b at full width and depth (24 layers, 14/2 heads of 64:
+    flash_decode at (64, 7)), fp32, 2 slots: a 300-token prompt and two
+    short ones, served as ``parity`` serves qwen3 (decode has no image
+    prefix, as in the reference engine)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(INTERNVL2), dtype="float32")
+    run_parity("parity_internvl2", cfg, [(300, 16), (37, 12), (5, 10)], n_slots=2,
+               max_len=512)
+
+
+# zamba2-7b's state at 8 slots x 2048 positions, bf16, before alignment: 13
+# shared K/V pairs of 2048 x 32 x 224, and 81 Mamba2 layers' conv windows (3
+# x 7424) and states (112 x 64 x 64)
+ZAMBA2_STATE_LEAF_BYTES = (13 * 2 * 2048 * 32 * 224
+                           + 81 * (3 * 7424 + 112 * 64 * 64)) * 2 * 8  # 6,730,313,728
+# internvl2-1b's: 24 layers x K and V x 8 slots x 2048 x 2 heads x 64 x 2 B
+INTERNVL2_STATE_BYTES = 24 * 2 * 8 * 2048 * 2 * 64 * 2  # 201,326,592
+
+
+def run_serve(phase: str, arch: str, card_name: str, state_ok,
+              extra: dict | None = None) -> tuple[dict, dict]:
+    """``serve.run`` on full-width ``arch`` (bf16, random weights from a
+    seed) with 8 slots x 2048 positions and the qwen3 serve mix: all
+    finish, every decode step is a replay of the one captured graph with
+    ``flash_decode_per_step`` launches, the state is one buffer of
+    exactly the planned size (``state_ok`` holds it to the leaves) that
+    never moves; then 8 more requests for a steady window, 8 waves timed
+    and 8 profiled, and the roofline. ``extra`` joins the phase's row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    n_req, max_new = 8, 64
+    reset_launches()
+    stats = serve.run(["--full", "--arch", arch, "--slots", "8", "--max-len", "2048",
+                       "--requests", "8", "--prompt-len", "32", "--max-new", "64",
+                       "--seed", "0"])
+    counts = read_launches()
+    engine = stats["engine"]
+    cfg = engine.cfg
+    toks = stats["tokens_per_request"]
+    if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
+        fail(f"{phase}: {stats['requests']} of {n_req} requests finished, "
+             f"lengths {[len(t) for t in toks.values()]}")
+    if not all(0 <= x < cfg.vocab for t in toks.values() for x in t):
+        fail(f"{phase}: a token outside the vocabulary")
+    if not stats["last_logits_finite"]:
+        fail(f"{phase}: non-finite logits")
+    if stats["state_live_bytes"] != stats["state_planned_bytes"] or \
+            not state_ok(stats["state_planned_bytes"]):
+        fail(f"{phase}: live state {stats['state_live_bytes']} B, planned "
+             f"{stats['state_planned_bytes']} B")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail(f"{phase}: the state buffer moved")
+    per_step = flash_decode_per_step(cfg)
+    replayed = check_replayed(phase, stats, "flash_decode", per_step=per_step)
+    if stats["capture_calls"] != 1:
+        fail(f"{phase}: {stats['capture_calls']} graphs captured, expected 1")
+    plan_row(f"{arch} serve (8 slots x 2048)", stats)
+    emit({
+        "phase": phase, "arch": arch, "layers": stats["n_layers"],
+        "flash_decode_per_step": per_step, "requests": stats["requests"],
+        "tokens": stats["tokens"], "waves": stats["waves"],
+        "decode_steps": stats["decode_calls"], "host_syncs": stats["host_syncs"],
+        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+        "cold_start_s": stats["cold_start_s"], "launches": counts,
+        "graphs": replayed, **graph_stats(stats),
+        "activation_lower_bound_mib": stats["plan_lower_bound_bytes"] / 2**20,
+        "activation_naive_mib": stats["plan_naive_bytes"] / 2**20,
+        "state_bytes": stats["state_live_bytes"],
+        "state_mib": stats["state_live_bytes"] / 2**20,
+        "decode_step_ops": stats["decode_step_ops"],
+        "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
+        **(extra or {}), "ok": True,
+    })
+    # a steady window: 8 requests more, every slot active
+    waves = 8
+    rng = np.random.default_rng(1)
+    for _ in range(n_req):
+        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
+                      max_new_tokens=2 * waves + 4)
+    done = engine.step()  # admits every request
+    prof, finished = serve.profile_waves(engine, waves)
+    done += finished + engine.run_until_done()
+    if len(done) != n_req:
+        fail(f"{phase}: {len(done)} of {n_req} profiled requests finished")
+    if not prof["device_ms_per_wave"] > 0:
+        fail(f"{phase}: the profiler saw no device time")
+    emit({"phase": "profile", "arch": arch,
+          "decode_step_ops": len(engine.decode_graph.ops),
+          "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
+    roof = decode_roofline(f"{arch} steady host-loop wave", engine, prof, card_name)
+    del engine, stats
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_decode"]}, roof
+
+
+def phase_serve_zamba2(card_name: str) -> tuple[dict, dict]:
+    """Full-width zamba2-7b (81 Mamba2 layers, 13 of them after the shared
+    block; 7,006,114,816 parameters) served by ``run_serve``: 13
+    flash_decode launches at (224, 1) per replay, its state (13 shared K/V
+    caches and 81 Mamba2 states in one buffer) the leaves' 6,730,313,728 B
+    plus alignment, and a roofline with both floors (the shared block
+    read once, and at each of its 13 insertions)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import roofline
+
+    if roofline.count_params(get_config(ZAMBA2)) != 7_006_114_816:
+        fail(f"serve_zamba2: {roofline.count_params(get_config(ZAMBA2))} parameters")
+    return run_serve("serve_zamba2", ZAMBA2, card_name,
+                     lambda b: ZAMBA2_STATE_LEAF_BYTES <= b < ZAMBA2_STATE_LEAF_BYTES * 1.001)
+
+
+def phase_serve_internvl2(card_name: str) -> tuple[dict, dict]:
+    """Full-width internvl2-1b (24 layers) served by ``run_serve``: 24
+    flash_decode launches at (64, 7) per replay, its state exactly
+    201,326,592 B."""
+    return run_serve("serve_internvl2", INTERNVL2, card_name,
+                     lambda b: b == INTERNVL2_STATE_BYTES)
+
+
+def phase_prefill_zamba2(card_name: str) -> tuple[dict, dict]:
+    """Full-width zamba2-7b (81 layers, bf16): one 2048-token request
+    through ``ArenaExecutor`` from its certified plan, against the eager
+    prefill: ssd_chunk launched 8 chunks x 81 layers = 648 times, B and C
+    reaching the 112 heads from 2 groups; the shared block's attention
+    prefill (13 insertions, four 512-query chunks) is plain, as in the
+    reference."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import DecoderModel
+
+    cfg = get_config(ZAMBA2)
+    model = DecoderModel(cfg, DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    return run_prefill(card_name, cfg, model, params, "ssd_chunk")
+
+
+def phase_prefill_internvl2(card_name: str) -> tuple[dict, dict]:
+    """Full-width internvl2-1b (24 layers, bf16): one request of 256
+    seeded image embeddings and 1,792 tokens (2048 positions) through
+    ``ArenaExecutor`` from its certified plan, against the eager prefill;
+    no kernel (attention prefill is plain, as in the reference)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import DecoderModel
+
+    cfg = get_config(INTERNVL2)
+    model = DecoderModel(cfg, DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    return run_prefill(card_name, cfg, model, params, None)
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
-          "serve_granite", "prefill_granite", "parity_llama4", "smem")
+          "serve_granite", "prefill_granite", "parity_llama4", "parity_zamba2",
+          "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
+          "prefill_internvl2", "smem")
 
 
 T0 = time.perf_counter()
@@ -2024,13 +2239,32 @@ def main() -> None:
     if "parity_llama4" in phases:
         launches["flash_decode"]["llama4 one period (parity_llama4)"] = \
             phase_parity_llama4()["launches"]
+    if "parity_zamba2" in phases:
+        phase_parity_zamba2()
+    if "serve_zamba2" in phases:
+        serve_z, roof = phase_serve_zamba2(card_name)
+        launches["flash_decode"]["zamba2-7b serve"] = serve_z["launches"]
+        roofs.append(roof)
+    if "prefill_zamba2" in phases:
+        row, roof = phase_prefill_zamba2(card_name)
+        launches["ssd_chunk"]["zamba2-7b prefill"] = row["launches"]["ssd_chunk"]
+        roofs.append(roof)
+    if "parity_internvl2" in phases:
+        phase_parity_internvl2()
+    if "serve_internvl2" in phases:
+        serve_v, roof = phase_serve_internvl2(card_name)
+        launches["flash_decode"]["internvl2-1b serve"] = serve_v["launches"]
+        roofs.append(roof)
+    if "prefill_internvl2" in phases:
+        _, roof = phase_prefill_internvl2(card_name)
+        roofs.append(roof)
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 8 or len(roofs) != 7:
+    if len(CERTIFIED) != 12 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 8 and 7")
+             f"expected 12 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)
@@ -2038,7 +2272,8 @@ def main() -> None:
     # one row per kernel: its launches on every path that runs it (the
     # counts read after each path), its timing at qwen3-0.6b's serving
     # shape (flash_decode) or mamba2-2.7b's chunk (ssd_chunk); flash_decode
-    # adds its timing at gemma3-4b's and granite's serving shapes
+    # adds its timing at gemma3-4b's, granite's, zamba2's and internvl2's
+    # serving shapes, ssd_chunk at zamba2's two-group chunk
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
         row = {"name": name, "route": route, "source": source,
@@ -2051,10 +2286,16 @@ def main() -> None:
                "library_ms": timing[name]["library_ms"]}
         if name == "flash_decode":
             for arch, timing_of in (("gemma3_4b", GEMMA3_TIMING),
-                                    ("granite_moe_3b", GRANITE_TIMING)):
+                                    ("granite_moe_3b", GRANITE_TIMING),
+                                    ("zamba2_7b", ZAMBA2_TIMING),
+                                    ("internvl2_1b", INTERNVL2_TIMING)):
                 row[arch] = {k: timing_of[k] for k in (
                     "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_backend", "max_abs_err")}
+        else:
+            row["zamba2_7b"] = {k: ZAMBA2_SSD_TIMING[k] for k in (
+                "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -120,7 +120,8 @@ ARCH_IDS: tuple[str, ...] = (
 
 # the archs this port serves; the rest wait for the slice named here
 PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b", "gemma3-4b",
-                                    "gemma3-27b", "granite-moe-3b-a800m")
+                                    "gemma3-27b", "granite-moe-3b-a800m",
+                                    "zamba2-7b", "internvl2-1b")
 # archs whose reduced config the port builds and tests, while the full
 # width waits for the slice named here
 _REDUCED_ONLY = {
@@ -130,8 +131,6 @@ _REDUCED_ONLY = {
                                  "parameters do not fit one card",
 }
 _LATER_SLICE = {
-    "zamba2-7b": "the shared-block slice (ROADMAP A8)",
-    "internvl2-1b": "the VLM-prefix slice (ROADMAP A8)",
     "seamless-m4t-medium": "the enc-dec slice (ROADMAP A15)",
 }
 

@@ -28,7 +28,8 @@ Two counts read one model:
 ``count_params``, ``active_params`` and ``model_flops`` are the
 reference's, for the model FLOPs utilisation (``mfu``); ``expert_bytes``
 sizes a MoE layer's expert weights, all of them (what the one-hot
-dispatch reads) or the routed ones only.
+dispatch reads) or the routed ones only; ``shared_reread_bytes`` is
+what zamba2's shared block adds when it is read at every insertion.
 """
 
 from __future__ import annotations
@@ -390,6 +391,24 @@ def expert_bytes(cfg, experts: int | None = None) -> int:
     return n * 3 * cfg.d_model * cfg.d_ff * _ITEMSIZE[cfg.dtype]
 
 
+def shared_insertions(cfg) -> int:
+    """The layers that apply zamba2's shared block (13 at full width)."""
+    return sum(1 for s in (*cfg.period * cfg.n_periods, *cfg.remainder)
+               if s.shared_attn)
+
+
+def shared_reread_bytes(cfg, params) -> int:
+    """What a step that reads the shared block's params at every
+    insertion reads beyond ``step_count``'s parameters, each read once:
+    the block's bytes at each of its other insertions (the block does not
+    stay in L2 between them: 1.079 GB in bf16 at full width); 0 without
+    a shared block."""
+    block = params.get("shared_attn")
+    if block is None:
+        return 0
+    return (shared_insertions(cfg) - 1) * _tensor_bytes(block)
+
+
 def active_params(cfg) -> int:
     """Active params per token (MoE: top_k of n_experts)."""
     if not cfg.n_experts:
@@ -430,5 +449,6 @@ __all__ = [
     "Bound", "Card", "StepCount", "active_params", "card", "count_params",
     "expert_bytes",
     "flash_decode_flops", "kernel_bound", "mfu", "model_flops", "peak_bandwidth",
-    "peak_flops", "ring_windows", "ssd_chunk_flops", "step_count",
+    "peak_flops", "ring_windows", "shared_insertions", "shared_reread_bytes",
+    "ssd_chunk_flops", "step_count",
 ]

@@ -12,6 +12,8 @@ report, tokens/s and the slot log.
         --arch mamba2-2.7b --slots 8 --requests 8 --prompt-len 32 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --arch granite-moe-3b-a800m --slots 8 --max-len 2048 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+        --arch zamba2-7b --slots 8 --max-len 2048 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --full --block-size 8 \\
         --sample --temperature 0.8 --top-k 50
 
@@ -21,9 +23,10 @@ of the greedy argmax (on the host in the host loop, on the device in
 blocks), seeded by ``--seed``.
 
 ``--arch`` takes the ported archs (qwen3-0.6b, mamba2-2.7b, gemma3-4b,
-gemma3-27b, granite-moe-3b-a800m; nemotron-4-340b and
-llama4-maverick-400b-a17b without ``--full``); prompts go token by
-token through the decode step, as in the reference.
+gemma3-27b, granite-moe-3b-a800m, zamba2-7b, internvl2-1b;
+nemotron-4-340b and llama4-maverick-400b-a17b without ``--full``);
+prompts go token by token through the decode step, as in the reference
+(internvl2's decode has no image prefix, as in the reference engine).
 
 ``--device cpu`` runs on the CPU (tests); the default is the card, and
 without one the engine raises.
@@ -40,7 +43,8 @@ import torch
 from repro_torch.analysis import counters
 from repro_torch.configs.base import ARCH_IDS, get_config, get_reduced
 from repro_torch.models.api import DecoderModel
-from repro_torch.runtime.engine import InferenceEngine, resolve_device
+from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.engine import InferenceEngine
 
 
 def run(argv: list[str] | None = None) -> dict:

@@ -24,6 +24,8 @@ from typing import TYPE_CHECKING, Mapping
 
 import torch
 
+from repro_torch.runtime.device import resolve_device
+
 if TYPE_CHECKING:
     from repro_torch.core.planner import MemoryPlan
     from repro_torch.core.unified import StatePlan
@@ -153,14 +155,15 @@ class DeviceArena:
 
 class Arena:
     """One owned buffer on ``device`` with the :class:`DeviceArena` view
-    contract (the activation arena the engine materializes)."""
+    contract (the activation arena the engine materializes). ``device``
+    None is the card (``resolve_device``: it raises without one)."""
 
-    def __init__(self, layout: "ArenaLayout | MemoryPlan", device="cpu"):
+    def __init__(self, layout: "ArenaLayout | MemoryPlan", device=None):
         if not isinstance(layout, ArenaLayout):
             layout = ArenaLayout.from_plan(layout)
         self._arena = DeviceArena(layout)
         self.layout = layout
-        self.buf = self._arena.allocate(device)
+        self.buf = self._arena.allocate(resolve_device(device))
 
     @property
     def nbytes(self) -> int:

@@ -54,6 +54,7 @@ from repro_torch.core.planner import MemoryPlan
 from repro_torch.core.unified import StatePlan, plan_state, state_records_from_cache
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.arena import ArenaLayout
+from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.executor import ArenaExecutor
 from repro_torch.runtime.residency import BlockOut, ResidentState, StateResidency
 from repro_torch.runtime.sampling import SamplingParams, TokenSampler, host_probs
@@ -62,19 +63,6 @@ from repro_torch.runtime.sampling import SamplingParams, TokenSampler, host_prob
 # counter): +1 per host-loop wave (its logits fetch), +1 per block
 # absorbed (its tokens fetch).
 HOST_SYNCS = 0
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card. Without one that is an error, not a
-    silent move to the CPU: pass ``device="cpu"`` to run there."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card unless asked "
-                "for the CPU (pass device='cpu')"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class WavesExhaustedError(RuntimeError):
@@ -263,11 +251,11 @@ class InferenceEngine:
         act0 = torch.ones((n_slots,), dtype=torch.bool, device=self.device)
         model = self.model
 
-        def _decode_fn(p, freqs, t, c, pos, act):
-            return model.decode_step(p, t, c, pos, act, rope_freqs=freqs)
+        def _decode_fn(p, tables, t, c, pos, act):
+            return model.decode_step(p, t, c, pos, act, **tables)
 
         self.executor = ArenaExecutor(
-            _decode_fn, params, model.rope_freqs, tok0, self.state.caches,
+            _decode_fn, params, model.rope_tables, tok0, self.state.caches,
             pos0, act0, device=self.device, name=f"{cfg.name}-decode",
         )
         self.decode_graph = self.executor.graph
@@ -304,7 +292,7 @@ class InferenceEngine:
         # --- the steps: static inputs, and on the card their CUDA graphs
         self._token_sampler = TokenSampler(self.sampling, max_len=max_len)
         t0 = time.perf_counter()
-        self.state.start(self.executor, params, model.rope_freqs,
+        self.state.start(self.executor, params, model.rope_tables,
                          self._token_sampler, n_slots=n_slots,
                          block_size=self.block_size)
         capture_s = time.perf_counter() - t0

@@ -45,6 +45,7 @@ import torch.utils._pytree as pytree
 from repro_torch.core import plan_io
 from repro_torch.core.planner import MemoryPlan, plan_graph
 from repro_torch.runtime.arena import Arena, ArenaLayout
+from repro_torch.runtime.device import resolve_device
 from repro_torch.trace.fx_liveness import FxTrace, trace_fx
 
 # tensor options an out= overload takes from its out tensor instead
@@ -133,7 +134,8 @@ class ArenaExecutor:
     of the same shapes, dtypes and strides (the caches as views with the
     same strides). ``plan`` is a precomputed :class:`MemoryPlan` of this
     graph's records, refused if it covers other records. The arena lies
-    on ``device`` (default: the device of the first example tensor)."""
+    on ``device`` (default: the device of the first example tensor, and
+    without one the card: ``resolve_device`` raises if there is none)."""
 
     def __init__(
         self,
@@ -164,8 +166,8 @@ class ArenaExecutor:
         if device is None:
             leaves = [x for x in pytree.tree_leaves(example_args)
                       if isinstance(x, torch.Tensor)]
-            device = leaves[0].device if leaves else "cpu"
-        self.device = torch.device(device)
+            device = leaves[0].device if leaves else None
+        self.device = resolve_device(device)
         self.arena = Arena(ArenaLayout.from_plan(self.plan), self.device)
         self.stats = ExecutionStats(
             arena_bytes=self.plan.total_size,

@@ -232,14 +232,15 @@ class ResidentState:
         self.sync_guard = False
 
     # ------------------------------------------------------------- bind
-    def start(self, executor, params, rope_freqs, sampler, *, n_slots: int,
+    def start(self, executor, params, tables, sampler, *, n_slots: int,
               block_size: int) -> None:
-        """Build the static inputs and, on the card, capture the steps."""
+        """Build the static inputs and, on the card, capture the steps.
+        ``tables`` are the model's constant inputs (``rope_tables``)."""
         n, dev = n_slots, self.device
         caches = self.caches
 
         def decode(tokens, pos, active):
-            logits, _ = executor(params, rope_freqs, tokens, caches, pos, active)
+            logits, _ = executor(params, tables, tokens, caches, pos, active)
             return logits
 
         self._s = s = _Static(

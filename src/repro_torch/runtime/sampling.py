@@ -33,6 +33,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.runtime.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
@@ -130,8 +132,10 @@ class TokenSampler:
     @staticmethod
     def init_keys(seed: int, n_slots: int, device=None) -> torch.Tensor:
         """Per-slot keys, (n_slots, 2) int64: the engine's sample seed
-        and the slot's emission count, which starts at 0."""
-        keys = torch.zeros((n_slots, 2), dtype=torch.int64, device=device)
+        and the slot's emission count, which starts at 0. ``device`` None
+        is the card (``resolve_device``: it raises without one)."""
+        keys = torch.zeros((n_slots, 2), dtype=torch.int64,
+                           device=resolve_device(device))
         keys[:, 0] = int(seed) & _M32
         return keys
 

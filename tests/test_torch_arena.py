@@ -66,3 +66,15 @@ def test_views_alias_the_buffer_and_are_bounds_checked():
     bad = ArenaLayout(total_size=r.size - 1, offsets={0: 0}, sizes={0: r.size})
     with pytest.raises(ValueError):
         Arena(bad, "cpu")
+
+
+def test_an_arena_with_no_device_is_on_the_card():
+    """No device means the card: without one, a RuntimeError, never a
+    silent move to the CPU; ``"cpu"`` asks for the CPU."""
+    plan, _ = _plans(sorted(graph_gen.GENERATORS)[0], 3)
+    assert Arena(plan, "cpu").buf.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert Arena(plan).buf.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Arena(plan)

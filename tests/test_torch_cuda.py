@@ -290,29 +290,33 @@ def test_served_engine_runs_the_kernel_on_every_layer(cuda):
     assert served["plain"][2] == 0
 
 
-# ssd_chunk: (B, L, H, P, N), decay, B/C as one group at head stride 0
+# ssd_chunk: (B, L, H, P, N), decay, and the SSM groups B/C come from (None:
+# one per head; one group reaches the heads at head stride 0, two through
+# repeat_interleave, as mamba_prefill hands them over)
 SSD_CASES = {
-    "kernels_0": ((2, 64, 2, 32, 16), "original", False),
-    "kernels_1": ((1, 128, 4, 64, 128), "original", False),
-    "kernels_2": ((2, 256, 1, 64, 64), "original", False),
-    "ragged_L33": ((2, 33, 3, 64, 128), "original", False),
-    "L1": ((3, 1, 2, 8, 4), "original", False),
-    "slow_L256": ((1, 256, 4, 64, 128), "slow", False),
-    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", False),
-    "one_group_L96": ((1, 96, 4, 32, 16), "slow", True),
+    "kernels_0": ((2, 64, 2, 32, 16), "original", None),
+    "kernels_1": ((1, 128, 4, 64, 128), "original", None),
+    "kernels_2": ((2, 256, 1, 64, 64), "original", None),
+    "ragged_L33": ((2, 33, 3, 64, 128), "original", None),
+    "L1": ((3, 1, 2, 8, 4), "original", None),
+    "slow_L256": ((1, 256, 4, 64, 128), "slow", None),
+    "slow_L200_P8": ((2, 200, 3, 8, 4), "slow", None),
+    "one_group_L96": ((1, 96, 4, 32, 16), "slow", 1),
+    # zamba2's layout: heads 0-7 read group 0, heads 8-15 group 1
+    "two_groups_L96": ((1, 96, 16, 32, 16), "slow", 2),
     # the tensor-core kernel's edges: one row in a 64-row tile at P = 64; a
     # ragged second row tile at P = 32 with N = 40 (padded to 48); N = 13,
     # which its 16-byte copies do not take (loaded element by element)
-    "L1_P64": ((2, 1, 3, 64, 128), "slow", False),
-    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", True),
-    "N13_L130": ((1, 130, 2, 64, 13), "slow", False),
+    "L1_P64": ((2, 1, 3, 64, 128), "slow", None),
+    "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", 1),
+    "N13_L130": ((1, 130, 2, 64, 13), "slow", None),
 }
 # (atol, rtol) of an output against the plain version in fp32 on the same
 # inputs: fp32 summation order; a bf16 output adds one rounding (2**-8)
 SSD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 1e-5 + 2.0**-8)}
 
 
-def _ssd_inputs(rng, device, B, L, H, P, N, decay, one_group, x_dtype, state_dtype):
+def _ssd_inputs(rng, device, B, L, H, P, N, decay, groups, x_dtype, state_dtype):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device)
 
@@ -322,10 +326,10 @@ def _ssd_inputs(rng, device, B, L, H, P, N, decay, one_group, x_dtype, state_dty
     else:
         dA = -torch.exp(randn(B, L, H) * 0.3) * dt
     xd, sd = getattr(torch, x_dtype), getattr(torch, state_dtype)
-    G = 1 if one_group else H
+    G = groups or H
     x = (randn(B, L, H, P) * 0.5).to(xd)
-    Bm = (randn(B, L, G, N) * 0.5).to(xd).expand(B, L, H, N)
-    Cm = (randn(B, L, G, N) * 0.5).to(xd).expand(B, L, H, N)
+    Bm = ssm._heads((randn(B, L, G, N) * 0.5).to(xd), H)
+    Cm = ssm._heads((randn(B, L, G, N) * 0.5).to(xd), H)
     state = (randn(B, H, P, N) * 0.5).to(sd)
     return x, dt, dA, Bm, Cm, state
 
@@ -335,9 +339,9 @@ def _ssd_inputs(rng, device, B, L, H, P, N, decay, one_group, x_dtype, state_dty
                           ("bfloat16", "bfloat16"), ("float32", "bfloat16")])
 @pytest.mark.parametrize("case", sorted(SSD_CASES))
 def test_ssd_chunk_kernel_matches_plain(cuda, case, x_dtype, state_dtype):
-    shape, decay, one_group = SSD_CASES[case]
+    shape, decay, groups = SSD_CASES[case]
     x, dt, dA, Bm, Cm, state = _ssd_inputs(np.random.default_rng(8), cuda, *shape,
-                                           decay, one_group, x_dtype, state_dtype)
+                                           decay, groups, x_dtype, state_dtype)
     before = sc.LAUNCHES
     got = sc.ssd_chunk(x, dt, dA, Bm, Cm, state)
     torch.cuda.synchronize()
@@ -354,7 +358,7 @@ def test_ssd_chunk_on_the_card_never_reaches_the_plain_version(cuda):
     """A shape the kernel does not build raises on the card (the plain
     version would take it)."""
     x, dt, dA, Bm, Cm, state = _ssd_inputs(np.random.default_rng(9), cuda, 1, 16, 2,
-                                           12, 4, "original", False, "float32",
+                                           12, 4, "original", None, "float32",
                                            "float32")
     ssd_chunk_ref(x, dt, dA, Bm, Cm, state)
     with pytest.raises(ValueError, match="head dim"):
@@ -463,6 +467,42 @@ def test_the_moe_decode_step_captured_equals_eager(cuda):
     assert eng.state.graphs["step"].launches["flash_decode"] == 2
     eager = eng.model.init_cache(n, T)
     rng = np.random.default_rng(9)
+    pos = np.zeros(n, np.int32)
+    for mask in ([1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1], [1, 1, 0, 1]):
+        tok = rng.integers(0, cfg.vocab, size=(n, 1)).astype(np.int32)
+        act = np.array(mask, bool)
+        got = eng.state.decode(tok, pos, act).clone()
+        want, _ = eng.model.decode_step(params, torch.from_numpy(tok).to(cuda), eager,
+                                        torch.from_numpy(pos).to(cuda),
+                                        torch.from_numpy(act).to(cuda))
+        assert torch.equal(got, want.float())
+        for g, w in zip(torch.utils._pytree.tree_leaves(eng.caches),
+                        torch.utils._pytree.tree_leaves(eager)):
+            assert torch.equal(g, w)
+        pos = pos + act.astype(np.int32)
+    assert eng.state.graphs["step"].replays == 5
+
+
+@pytest.mark.parametrize("arch,n_periods,per_step", [("zamba2-7b", 1, 1),
+                                                     ("internvl2-1b", 2, 2)])
+def test_the_hybrid_and_vlm_decode_steps_captured_equal_eager(cuda, arch, n_periods,
+                                                             per_step):
+    """zamba2-7b (one period: 5 Mamba2 layers and one after the shared
+    block, flash_decode at (224, 1), B/C from 2 groups) and internvl2-1b
+    (2 layers, (64, 7)) at full width, fp32, 4 slots: the captured,
+    arena-backed step against the eager decode step on its own caches,
+    with inactive rows, bit for bit; the graph holds one flash_decode
+    launch per shared-block insertion or global layer."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_periods=n_periods, remainder=(),
+                              dtype="float32")
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    n, T = 4, 64
+    eng = InferenceEngine(cfg, params, n_slots=n, max_len=T, device=cuda)
+    assert eng.state.graphs["step"].launches["flash_decode"] == per_step
+    eager = eng.model.init_cache(n, T)
+    rng = np.random.default_rng(10)
     pos = np.zeros(n, np.int32)
     for mask in ([1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1], [1, 1, 0, 1]):
         tok = rng.integers(0, cfg.vocab, size=(n, 1)).astype(np.int32)

@@ -262,3 +262,21 @@ def test_the_trace_keeps_the_graph_and_the_node_map():
         assert all(t in tr.graph.tensors for t in tids)
         assert tr.node_tid[node] in (tids[0], tids)
     assert plan_graph(tr.graph).total_size == ex.plan.total_size
+
+
+def test_an_executor_with_no_tensor_and_no_device_is_on_the_card():
+    """Example arguments that hold no tensor give the arena no device: it
+    is then the card, and without one a RuntimeError; ``device="cpu"``
+    asks for the CPU."""
+
+    def fn(n):
+        return torch.arange(n, dtype=torch.float32) * 2.0
+
+    ex = ArenaExecutor(fn, 4, device="cpu")
+    assert ex.device.type == "cpu"
+    assert torch.equal(ex(4), fn(4))
+    if torch.cuda.is_available():
+        assert ArenaExecutor(fn, 4).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ArenaExecutor(fn, 4)

@@ -108,7 +108,8 @@ def test_no_source_imports_ml_dtypes():
 
 @pytest.mark.parametrize("name", ["gemma3_4b.py", "gemma3_27b.py", "nemotron_4_340b.py",
                                   "granite_moe_3b_a800m.py",
-                                  "llama4_maverick_400b_a17b.py"])
+                                  "llama4_maverick_400b_a17b.py", "zamba2_7b.py",
+                                  "internvl2_1b.py"])
 def test_the_copied_configs_are_the_references_byte_for_byte(name):
     """Copied with only the import path changed."""
     want = (ROOT / "src" / "repro" / "configs" / name).read_text().replace(

@@ -58,7 +58,7 @@ def test_greedy_advance_equals_the_reference(seed, eos):
         jnp.asarray(inp["pos"]), jnp.asarray(inp["step_active"]),
         jnp.asarray(inp["done"]), jnp.asarray(inp["budget"]), jnp.int32(eos))
     t = _torch(inp)
-    keys = sampling.TokenSampler.init_keys(0, 6)
+    keys = sampling.TokenSampler.init_keys(0, 6, "cpu")
     got = sampling.TokenSampler(sampling.SamplingParams(), **params).advance(
         t["logits"], keys, t["tokens"], t["pos"], t["step_active"], t["done"],
         t["budget"], torch.tensor(eos, dtype=torch.int32))
@@ -74,7 +74,7 @@ def test_frozen_slots_keep_everything(greedy):
     inp = _inputs(3)
     t = _torch(inp)
     sp = sampling.SamplingParams(greedy=greedy, temperature=0.7, top_k=5)
-    keys = sampling.TokenSampler.init_keys(11, 6)
+    keys = sampling.TokenSampler.init_keys(11, 6, "cpu")
     keys[:, 1] = torch.arange(6) * 3  # slots at different emission counts
     got_keys, tok, pos, done, budget = sampling.TokenSampler(sp, max_len=64).advance(
         t["logits"], keys.clone(), t["tokens"], t["pos"], t["step_active"],
@@ -96,7 +96,7 @@ def test_frozen_slots_keep_everything(greedy):
 
 def test_draws_are_reproducible_and_depend_on_seed_slot_and_emission():
     logits = torch.zeros((4, 32))
-    keys = sampling.TokenSampler.init_keys(5, 4)
+    keys = sampling.TokenSampler.init_keys(5, 4, "cpu")
     u1 = sampling.uniforms(keys, 32)
     assert torch.equal(u1, sampling.uniforms(keys.clone(), 32))
     assert bool(((u1 > 0) & (u1 < 1)).all())
@@ -105,7 +105,7 @@ def test_draws_are_reproducible_and_depend_on_seed_slot_and_emission():
     other[:, 1] += 1
     assert not torch.equal(u1, sampling.uniforms(other, 32))  # emissions differ
     assert not torch.equal(u1, sampling.uniforms(
-        sampling.TokenSampler.init_keys(6, 4), 32))  # seeds differ
+        sampling.TokenSampler.init_keys(6, 4, "cpu"), 32))  # seeds differ
     sampler = sampling.TokenSampler(
         sampling.SamplingParams(greedy=False), max_len=64)
     a = sampler._draw(logits, keys)
@@ -157,9 +157,9 @@ def test_draw_frequencies_follow_host_probs(temperature, top_k):
         max_len=10**6)
     n = 4000
     logits = torch.from_numpy(row)[None].expand(n, vocab)
-    across = sampler._draw(logits, sampling.TokenSampler.init_keys(2024, n))
+    across = sampler._draw(logits, sampling.TokenSampler.init_keys(2024, n, "cpu"))
     _chi2_ok(across.numpy(), p)
-    keys = sampling.TokenSampler.init_keys(99, 1)
+    keys = sampling.TokenSampler.init_keys(99, 1, "cpu")
     tok, pos = torch.zeros((1, 1), dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
     on, off = torch.ones(1, dtype=torch.bool), torch.zeros(1, dtype=torch.bool)
     budget, eos = torch.full((1,), 10**6, dtype=torch.int32), torch.tensor(-1)
@@ -170,3 +170,15 @@ def test_draw_frequencies_follow_host_probs(temperature, top_k):
         along.append(int(tok[0, 0]))
     assert int(keys[0, 1]) == 1500
     _chi2_ok(np.array(along), p)
+
+
+def test_keys_with_no_device_are_on_the_card():
+    """``init_keys`` without a device builds the keys on the card, and
+    without one raises; ``"cpu"`` asks for the CPU."""
+    keys = sampling.TokenSampler.init_keys(3, 2, "cpu")
+    assert keys.device.type == "cpu" and keys.tolist() == [[3, 0], [3, 0]]
+    if torch.cuda.is_available():
+        assert sampling.TokenSampler.init_keys(3, 2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sampling.TokenSampler.init_keys(3, 2)

@@ -415,7 +415,8 @@ def test_step_count_reads_a_ring_up_to_its_window(gemma):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b", ARCH,
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "zamba2-7b",
+                                  "internvl2-1b"])
 def test_bf16_decode_stays_within_the_references_own_bf16_error(arch):
     """12 decode steps of 2 slots on the same tokens: the reference in bf16
     and in fp32 (the same bf16 weights, upcast), and the port in bf16 on
