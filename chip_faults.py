@@ -15,7 +15,10 @@ unplanted kernels are run the same way first, as the control.
 ``ssd_chunk.cu`` holds two kernels, the tensor-core one (bf16 x/B/C) and
 the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
 ``drop_lo`` is planted in both (``b_c_one_group`` in the host entry both
-share).
+share). ``flash_decode.cu`` builds ``flash_decode`` and
+``flash_decode_paged`` from one kernel: a ``flash_decode`` fault's run
+lists the cases of both, and ``paged_table_ignored`` is planted in the
+paged address only.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -39,6 +42,13 @@ SLOW_CASES = ("slow_L256", "slow_L200_P8", "one_group_slow_L96", "prefill_slow")
 # qwen3's serving shape, and granite-moe's (64, 3): 8 spans of 128 with
 # empty ones, and its serving shape
 FD_MUST_FAIL = ("serving_full", "D64_G3_empty_spans", "granite_serving_full")
+# flash_decode_paged's cases with a shuffled table (chip_smoke.py's
+# PAGED_CASES and the qwen3 serving layout)
+PAGED_SHUFFLED = ("paged_P16384_shuffled", "paged_P65536_shuffled",
+                  "paged_P1040_shuffled", "paged_D320_G2_P1040_shuffled",
+                  "paged_D320_G2_P16384_shuffled", "paged_D64_G3_P65536_shuffled",
+                  "paged_P16384_shuffled_hole", "qwen3_serving_full_shuffled",
+                  "qwen3_serve_mix_shuffled")
 FAULTS = {
     # y without the incoming state's contribution
     "drop_y_inter": ("ssd_chunk", [
@@ -84,11 +94,18 @@ FAULTS = {
         ("const float weight = expf(sm_w[s * G + g] - mx);",
          "const float weight = 1.f;"),
     ], FD_MUST_FAIL),
+    # the paged kernel takes a slot's pages as consecutive from its first
+    # table entry, as if the table were the identity past it: an ascending
+    # table still reads right, a shuffled one does not
+    "paged_table_ignored": ("flash_decode", [
+        ("return buf + static_cast<int64_t>(__ldg(row + page)) * pe + (e - page * pe);",
+         "return buf + (static_cast<int64_t>(__ldg(row)) + page) * pe + (e - page * pe);"),
+    ], PAGED_SHUFFLED),
 }
 
 
 def label(row: dict) -> str:
-    if row["kernel"] == "flash_decode":
+    if row["kernel"].startswith("flash_decode"):
         return f"{row['case']}/{row['dtype']}"
     return f"{row['case']}/{row['dtype']}/{row['state_dtype']}"
 
@@ -122,7 +139,8 @@ def run(name: str, fault: tuple | None) -> dict:
         row = json.loads(line)
         if row.get("phase") == "build":
             build = row
-        if "case" in row and row.get("kernel") in (kernel or row.get("kernel"),):
+        # a source's kernels: flash_decode.cu builds flash_decode_paged too
+        if "case" in row and row.get("kernel", "").startswith(kernel or ""):
             cases.append(row)
     if not cases:
         raise SystemExit(f"chip_faults: {name}: no case ran\n{out.stdout}\n{out.stderr}")

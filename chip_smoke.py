@@ -37,7 +37,16 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                prefill chunk (L=256, H=80, P=64, N=128, bf16, B/C one group
                at head stride 0) with the original and a slow decay, and
                zamba2-7b's (L=256, H=112, P=64, N=64, bf16, B/C from 2
-               groups);
+               groups). ``flash_decode_paged`` (the same kernel reading K/V
+               through a page table): pages of 16 KiB, 64 KiB and 1040 B,
+               ascending and shuffled tables with null pages past the
+               lengths, a length-1 row, an unmapped page inside a length,
+               gemma3's (320, 2) whose rows straddle 1040-byte pages, in
+               fp32 and bf16; bit-equal to ``flash_decode`` on the gathered
+               cache at qwen3-0.6b's serving layout (its own paged plan,
+               64 KiB pages, a shuffled table) and at granite's (64, 3);
+               timed there beside its plain version, ``flash_decode`` on
+               the gathered cache and the gather alone;
 4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
                seed, with the kernel attention and with the plain
                attention: greedy tokens identical, logits within 1e-4; and
@@ -140,7 +149,28 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 23. prefill_internvl2 — full-width internvl2-1b prefills 256 seeded image
                embeddings and 1,792 tokens through ``ArenaExecutor`` from
                its certified plan, equal to eager; no kernel;
-24. smem      — for each kernel instantiation on the paths, the shared
+24. parity_paged — a full-width 2-layer fp32 qwen3 engine served with 64
+               KiB pages and a symmetric one from one seed: tokens and slot
+               logs identical, logits bit-equal, every captured paged step
+               bit-equal to the model's eager step on a pool of its own read
+               through the engine's table, and the caches gathered through
+               the table byte-identical to the symmetric engine's;
+25. serve_paged — ``serve.run`` on full-width qwen3-0.6b at 8 slots x 2048
+               with the serve phase's requests from a pool of 896 pages of
+               64 KiB, just after a symmetric twin of the serve phase's
+               engine: tokens equal to the twin's (and the serve phase's
+               when it ran), one buffer of exactly
+               58,785,792 B (against 939,524,096 B symmetric) that never
+               moves, 896 pages live at the peak and none after the drain,
+               a valid page log, every decode step a replay holding 28
+               ``flash_decode_paged`` launches and no ``flash_decode``; the
+               same requests in blocks of 8 (one host sync per block, then
+               under the decode lint) and at a pool of 448 (at most 4 slots
+               busy, more waves), tokens equal; tokens/s, device ms per
+               steady wave, the device copies per wave by kind, the host time
+               of one graph launch and the allocator's peak over a replay,
+               beside the twin's, both timed at the same point of the run;
+26. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -149,7 +179,8 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
 captures or serves; the serve, serve_block and every serve_* phase print
-it as a ``plan`` row (records, the certifier's seconds, findings: 0), and
+it as a ``plan`` row (records, the certifier's seconds, findings: 0; the
+paged plan's page pool included), and
 the prefill phases certify the plan their executor runs from with
 ``certify_plan``. The profile, serve_block, serve_* (but serve_mamba) and
 prefill phases print a ``roofline`` row: the step's FLOPs and least bytes
@@ -161,8 +192,8 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23; 7 for its own check) and
-read just after it.
+5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25; 7 and 24 for their own
+checks) and read just after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -197,6 +228,13 @@ KERNELS = {
         "cuda",
         "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "src/repro/kernels/ssd_chunk.py:49",
+    ),
+    # flash_decode reading K/V through a page table (the template flag
+    # PAGED of the same source)
+    "flash_decode_paged": (
+        "cuda",
+        "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:69",
     ),
 }
 # queries at 8x the cache's spread: scores of std 2 at any D, so the softmax
@@ -297,8 +335,9 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build_all(list(KERNELS))
-    for name in KERNELS:
+    sources = sorted({Path(src).stem for _, src, _ in KERNELS.values()})
+    paths = build.build_all(sources)
+    for name in sources:
         build.load(name)
     seconds = time.perf_counter() - t0
     ptxas = {}
@@ -321,13 +360,15 @@ def flash_decode_ptxas(log_path) -> dict:
     log = log_path.read_text() if log_path.exists() else ""
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
-        m = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", chunk)
+        m = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E",
+                      chunk)
         regs = re.search(r"Used (\d+) registers", chunk)
         if m is None or regs is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         dtype = "float32" if m.group(1) == "f" else "bfloat16"
-        out[f"{dtype}/{m.group(2)}/{m.group(3)}"] = {
+        paged = "/paged" if m.group(4) == "1" else ""
+        out[f"{dtype}/{m.group(2)}/{m.group(3)}{paged}"] = {
             "registers": int(regs.group(1)),
             "spill_store_bytes": int(spill.group(1)) if spill else 0}
     return out
@@ -1026,10 +1067,9 @@ def read_launches() -> dict:
 def wrapper_launches() -> dict:
     """The launches the wrappers made themselves: while an engine is
     built and serves, only the warm-up run before each capture."""
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.runtime import graphs
 
-    return {"flash_decode": fd.LAUNCHES, "ssd_chunk": sc.LAUNCHES}
+    return graphs.wrapper_launches()
 
 
 def check_replayed(phase: str, stats: dict, kernel: str | None,
@@ -1090,18 +1130,21 @@ def graph_stats(stats: dict) -> dict:
 CERTIFIED: list[str] = []
 
 
-def plan_row(label: str, stats: dict) -> None:
+def plan_row(label: str, stats: dict, warnings: tuple[str, ...] = ()) -> None:
     """A serve run's engine was built with the startup lint on: its
     unified plan (activation and state) was certified before it captured
-    or served (a finding would have raised in the engine)."""
+    or served (an error would have raised in the engine). Its findings
+    are exactly the ``warnings`` expected (codes), none by default."""
     if stats["startup_lint_findings"] is None:
         fail(f"plan: the {label} engine ran without its startup lint")
-    if stats["startup_lint_findings"]:
-        fail(f"plan: {stats['startup_lint_findings']} findings on the {label} plan")
+    found = sorted(stats["startup_lint_warnings"])
+    if stats["startup_lint_findings"] != len(found) or found != sorted(warnings):
+        fail(f"plan: {stats['startup_lint_findings']} findings on the {label} plan "
+             f"(warnings {found}, expected {sorted(warnings)})")
     emit({"phase": "plan", "plan": label, "records": stats["plan_records"],
           "state_leaves": stats["state_leaves"],
           "certify_s": stats["startup_lint_s"],
-          "findings": stats["startup_lint_findings"], "ok": True})
+          "findings": stats["startup_lint_findings"], "warnings": found, "ok": True})
     CERTIFIED.append(label)
 
 
@@ -1226,6 +1269,7 @@ def phase_serve() -> tuple[dict, object]:
         "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
         "ok": True,
     })
+    SERVE_NUMBERS.update(tokens=toks, tokens_per_s=stats["tokens_per_s"])
     return {"launches": launches, "tokens": toks}, stats["engine"]
 
 
@@ -1299,24 +1343,10 @@ def phase_profile(engine, card_name: str) -> dict:
     """Where a steady wave's time goes, on the served engine: 8 requests
     more, then 8 waves timed by the host clock and 8 more under
     torch.profiler (every slot active in both)."""
-    import numpy as np
-
-    from repro_torch.launch import serve
-
-    waves, n_req = 8, 8
-    rng = np.random.default_rng(1)
-    for _ in range(n_req):
-        engine.submit(rng.integers(0, engine.cfg.vocab, size=4).astype(np.int32),
-                      max_new_tokens=2 * waves + 4)
-    done = engine.step()  # admits every request
-    prof, finished = serve.profile_waves(engine, waves)
-    done += finished + engine.run_until_done()
-    if len(done) != n_req:
-        fail(f"profile: {len(done)} of {n_req} requests finished")
-    if not prof["device_ms_per_wave"] > 0:
-        fail("profile: the profiler saw no device time")
+    prof = steady_profile("profile", engine)
     emit({"phase": "profile", "decode_step_ops": len(engine.decode_graph.ops),
           "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
+    SERVE_NUMBERS.update(device_ms_per_wave=prof["device_ms_per_wave"])
     return decode_roofline("qwen3-0.6b steady host-loop wave", engine, prof, card_name)
 
 
@@ -2026,7 +2056,6 @@ def run_serve(phase: str, arch: str, card_name: str, state_ok,
     exactly the planned size (``state_ok`` holds it to the leaves) that
     never moves; then 8 more requests for a steady window, 8 waves timed
     and 8 profiled, and the roofline. ``extra`` joins the phase's row."""
-    import numpy as np
     import torch
 
     from repro_torch.launch import serve
@@ -2074,19 +2103,7 @@ def run_serve(phase: str, arch: str, card_name: str, state_ok,
         "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
         **(extra or {}), "ok": True,
     })
-    # a steady window: 8 requests more, every slot active
-    waves = 8
-    rng = np.random.default_rng(1)
-    for _ in range(n_req):
-        engine.submit(rng.integers(0, cfg.vocab, size=4).astype(np.int32),
-                      max_new_tokens=2 * waves + 4)
-    done = engine.step()  # admits every request
-    prof, finished = serve.profile_waves(engine, waves)
-    done += finished + engine.run_until_done()
-    if len(done) != n_req:
-        fail(f"{phase}: {len(done)} of {n_req} profiled requests finished")
-    if not prof["device_ms_per_wave"] > 0:
-        fail(f"{phase}: the profiler saw no device time")
+    prof = steady_profile(phase, engine)
     emit({"phase": "profile", "arch": arch,
           "decode_step_ops": len(engine.decode_graph.ops),
           "replays": engine.state.graphs["step"].replays, **prof, "ok": True})
@@ -2154,12 +2171,544 @@ def phase_prefill_internvl2(card_name: str) -> tuple[dict, dict]:
     return run_prefill(card_name, cfg, model, params, None)
 
 
+# ------------------------------------------------------------------ paging
+# the paged serve: 64 KiB pages, a pool of 896 (8 requests x 112 pages of
+# 32 prompt + 64 new positions), one buffer of (896 + 1) x 65536 B
+PAGE_SIZE = 65536
+PAGE_POOL = 896
+PAGED_BUFFER_BYTES = (PAGE_POOL + 1) * PAGE_SIZE  # 58,785,792
+PAGED_ARGS = ["--page-size", str(PAGE_SIZE), "--page-pool", str(PAGE_POOL)]
+# the serve and profile phases' tokens, tokens/s and device ms per wave,
+# for serve_paged to check and report beside its own twin's
+SERVE_NUMBERS: dict = {}
+# flash_decode_paged's cases: (label, B, KV, G, D, T, page bytes, shuffled,
+# lengths); the shuffled ones are chip_faults.py's must-fail cases of
+# paged_table_ignored
+PAGED_CASES = (
+    ("paged_P16384_asc", 3, 2, 2, 64, 1024, 16384, False, (1, 385, 1024)),
+    ("paged_P16384_shuffled", 3, 2, 2, 64, 1024, 16384, True, (1, 385, 1024)),
+    ("paged_P65536_asc", 3, 4, 2, 64, 2048, 65536, False, (1, 700, 2048)),
+    ("paged_P65536_shuffled", 3, 4, 2, 64, 2048, 65536, True, (1, 700, 2048)),
+    ("paged_P1040_asc", 3, 2, 2, 64, 1024, 1040, False, (1, 385, 1024)),
+    ("paged_P1040_shuffled", 3, 2, 2, 64, 1024, 1040, True, (1, 385, 1024)),
+    # gemma3-4b's global layer: rows of 640 B (bf16) straddle 1040-byte pages
+    ("paged_D320_G2_P1040_shuffled", 3, 2, 2, 320, 512, 1040, True, (1, 200, 512)),
+    ("paged_D320_G2_P16384_shuffled", 3, 2, 2, 320, 512, 16384, True, (1, 200, 512)),
+    ("paged_D64_G3_P65536_shuffled", 2, 8, 3, 64, 2048, 65536, True, (1, 2048)),
+)
+PAGED_MUST_FAIL = tuple(c[0] for c in PAGED_CASES if c[7])
+
+
+def paged_pool(gen, B, KV, D, T, dt, page_bytes, lengths, shuffled, *,
+               holes=False):
+    """A page pool holding one layer's K and V for B slots: K at a 48-byte
+    offset in the slot region, V 16 bytes past K's end, so neither starts
+    on a page. Row b of the table maps the pages slot b's first
+    ``lengths[b]`` positions touch, in ascending or shuffled physical
+    order; the rest stay 0 (the null page). ``holes`` unmaps one page
+    inside the length of the last slot (as a retired slot's stolen page
+    reads: zeros through the null page). Returns the op's arguments
+    before ``lengths``: (buf as ``dt``, table, k offset, v offset,
+    position stride, head stride, T, page elements)."""
+    import torch
+
+    vec = 16 // dt.itemsize
+    pe = page_bytes // dt.itemsize
+    st, sh = KV * D, D
+    k_off = 3 * vec
+    v_off = k_off + T * st + vec
+    pps = -(-(v_off + T * st) // pe)
+    order = (torch.randperm(B * pps, generator=gen, device=DEVICE) if shuffled
+             else torch.arange(B * pps, device=DEVICE)) + 1
+    table = order.reshape(B, pps).to(torch.int32)
+    for b, n in enumerate(lengths):
+        need = torch.zeros(pps, dtype=torch.bool, device=DEVICE)
+        for off in (k_off, v_off):
+            need[off // pe:(off + n * st - 1) // pe + 1] = True
+        table[b] = torch.where(need, table[b], 0)
+    if holes:
+        row = table[B - 1]
+        mapped = row.nonzero().flatten()
+        row[mapped[len(mapped) // 2]] = 0
+    buf = (torch.randn(((B * pps + 1) * pe,), generator=gen, device=DEVICE) * 0.5).to(dt)
+    buf[:pe] = 0
+    return buf, table, k_off, v_off, st, sh, T, pe
+
+
+def phase_kernels_paged(card_name: str) -> dict:
+    """``flash_decode_paged`` against its plain version in fp32 on the same
+    pool and table, at the ``flash_decode`` bars: page sizes of 16 KiB, 64
+    KiB and 1040 B (a multiple of 16, not a power of two), fp32 and bf16,
+    ascending and shuffled tables with null pages past the lengths, a
+    length-1 row, a mapped hole inside a length, and gemma3's (320, 2)
+    whose 640-byte rows straddle 1040-byte pages. Then bit-equality with
+    ``flash_decode`` on the cache gathered out of the pool at qwen3-0.6b's
+    serving layout (its own paged plan: 64 KiB pages, the first layer's K
+    and V of 28) and at granite's (64, 3), and the timing at qwen3's
+    serving shape with a shuffled table: the kernel, its plain version,
+    the symmetric kernel on the gathered cache and the gather alone."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.unified import (detect_state_axes, plan_paged_state,
+                                          state_records_from_cache)
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import flash_decode_paged_ref, paged_index
+    from repro_torch.launch.roofline import kernel_bound
+    from repro_torch.models.api import DecoderModel
+    from repro_torch.runtime.paging import PagedStateResidency
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
+
+    def check(label, q, args, lengths):
+        buf = args[0]
+        got = fd.flash_decode_paged(q, buf, *args[1:], lengths)
+        want = flash_decode_paged_ref(q.float(), buf.float(), *args[1:], lengths)
+        control = flash_decode_paged_ref(q, buf, *args[1:], lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        atol, rtol = tol[q.dtype]
+        ok = bool((err <= atol + rtol * want.abs()).all())
+        emit({"phase": "kernels", "kernel": "flash_decode_paged", "case": label,
+              "dtype": str(q.dtype).removeprefix("torch."),
+              "page_elems": args[-1], "pages_per_slot": args[1].shape[1],
+              "max_abs_err": float(err.max()),
+              "control_max_abs_err": float((control.float() - want).abs().max()),
+              "max_abs_out": float(want.abs().max()),
+              "atol": atol, "rtol": rtol, "ok": ok})
+        if not ok:
+            fail_case(f"flash_decode_paged/{label}/{q.dtype}",
+                      f"flash_decode_paged {label}: max abs err {float(err.max())} "
+                      f"over {atol} + {rtol} * |want|")
+        return float(err.max())
+
+    def gathered(args, KV, D):
+        buf, table, k_off, v_off, st, sh, T, pe = args
+        k = buf[paged_index(table, k_off, (st, sh, 1), (T, KV, D), pe)]
+        v = buf[paged_index(table, v_off, (st, sh, 1), (T, KV, D), pe)]
+        return k, v
+
+    def bit_equal(label, q, args, lengths):
+        """flash_decode_paged and flash_decode on the gathered cache: equal
+        bit for bit (one kernel, other addresses)."""
+        KV, D = q.shape[1], q.shape[3]
+        k, v = gathered(args, KV, D)
+        paged = fd.flash_decode_paged(q, *args, lengths)
+        flat = fd.flash_decode(q, k, v, lengths)
+        same = bool(torch.equal(paged, flat))
+        emit({"phase": "kernels", "kernel": "flash_decode_paged",
+              "bit_equal_to_flash_decode": label, "shape": list(q.shape),
+              "equal": same, "max_abs_diff": float((paged.float() - flat.float()).abs().max())})
+        if not same:
+            fail_case(f"flash_decode_paged/bit_equal/{label}",
+                      f"flash_decode_paged {label}: not bit-equal to flash_decode "
+                      f"on the gathered cache")
+
+    for dt in (torch.float32, torch.bfloat16):
+        for label, B, KV, G, D, T, page, shuffled, lengths in PAGED_CASES:
+            args = paged_pool(gen, B, KV, D, T, dt, page, lengths, shuffled)
+            q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(dt)
+            check(label, q, args, torch.tensor(lengths, dtype=torch.int32,
+                                               device=DEVICE))
+        # a mapped hole inside a slot's length reads the null page's zeros
+        args = paged_pool(gen, 3, 2, 64, 1024, dt, 16384, (1, 385, 1024), True,
+                          holes=True)
+        q = (torch.randn((3, 2, 2, 64), generator=gen, device=DEVICE) * Q_STD).to(dt)
+        check("paged_P16384_shuffled_hole", q, args,
+              torch.tensor((1, 385, 1024), dtype=torch.int32, device=DEVICE))
+
+    # granite's (64, 3) at its serving shape, 64 KiB pages, shuffled
+    B, KV, G, D, T = 8, 8, 3, 64, 2048
+    lengths = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+    args = paged_pool(gen, B, KV, D, T, torch.bfloat16, PAGE_SIZE, [T] * B, True)
+    q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
+    bit_equal("granite_serving_full", q, args, lengths)
+    del args
+
+    # qwen3-0.6b's serving layout: its own paged plan at 8 x 2048, bf16, the
+    # default pool (every page mapped), the table a random permutation of it
+    cfg = get_config("qwen3-0.6b")
+    B, T = 8, 2048
+    model = DecoderModel(cfg, "meta")
+    template = model.init_cache(B, T, device="meta")
+    plan = plan_paged_state(
+        state_records_from_cache(template, n_slots=B), n_slots=B, max_len=T,
+        page_size=PAGE_SIZE,
+        axes=detect_state_axes(model.init_cache, n_slots=B, max_len=T))
+    res = PagedStateResidency(plan, template, n_slots=B)
+    pool = res.init_buffer(DEVICE)
+    pool.view(torch.bfloat16).normal_(0.0, 0.5, generator=gen)
+    pool[:PAGE_SIZE] = 0
+    table = (torch.randperm(plan.n_pages_pool, generator=gen, device=DEVICE) + 1
+             ).reshape(B, plan.pages_per_slot).to(torch.int32)
+    k_leaf, v_leaf = (leaf[0] for leaf in res.bind(pool, table)["period"][0]["attn"])
+    KV, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    st, sh, _ = k_leaf.strides
+    args = (k_leaf.buf, table, k_leaf.offset, v_leaf.offset, st, sh, T,
+            k_leaf.page_elems)
+    q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
+    record = {}
+    for label, lengths in (
+        ("serving_full", torch.full((B,), T, dtype=torch.int32, device=DEVICE)),
+        ("serve_mix", torch.linspace(33, 96, B, device=DEVICE).round().to(torch.int32)),
+    ):
+        err = check(f"qwen3_{label}_shuffled", q, args, lengths)
+        bit_equal(f"qwen3_{label}", q, args, lengths)
+        k, v = gathered(args, KV, D)
+        before = fd.PAGED_LAUNCHES, fd.LAUNCHES
+        ms = cuda_time_ms(lambda: fd.flash_decode_paged(q, *args, lengths))
+        plain_ms = cuda_time_ms(lambda: flash_decode_paged_ref(q, *args, lengths))
+        symmetric_ms = cuda_time_ms(lambda: fd.flash_decode(q, k, v, lengths))
+        gather_ms = cuda_time_ms(lambda: gathered(args, KV, D))
+        fd.PAGED_LAUNCHES, fd.LAUNCHES = before  # timing launches are not the path's
+        total_len = int(lengths.sum())
+        bound = kernel_bound("flash_decode", {
+            "B": B, "KV": KV, "G": G, "D": D, "T": T, "dtype": "bfloat16",
+            "sum_lengths": total_len}, card_name=card_name)
+        row = {"phase": "kernels", "kernel": "flash_decode_paged",
+               "timing": label, "arch": cfg.name, "shape": [B, KV, G, D, T],
+               "page_size": PAGE_SIZE, "table": "shuffled",
+               "sum_lengths": total_len, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None,
+               "library": "none: no PyTorch call reads through a page table",
+               "flash_decode_on_gathered_ms": symmetric_ms,
+               "gather_ms": gather_ms,
+               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+               "bytes": bound.min_bytes, "max_abs_err": err,
+               "n_split": fd.num_splits(B, KV, T)}
+        emit(row)
+        record[label] = row
+        del k, v
+    del pool, table, args, res
+    torch.cuda.empty_cache()
+    return record["serving_full"]
+
+
+def phase_parity_paged() -> None:
+    """A full-width 2-layer fp32 qwen3 served from one seed by a paged
+    engine (64 KiB pages) and a symmetric one, and beside the paged
+    engine the model's eager ``decode_step`` on a pool of its own read
+    through the engine's table: tokens and slot logs identical, logits
+    bit-equal (the paged kernel is the symmetric one with other
+    addresses), every captured paged step bit-equal to the eager paged
+    step, the twin's pool byte-identical to the engine's, and the caches
+    gathered through the table byte-identical to the symmetric engine's
+    after the run. The paged graph holds 2 ``flash_decode_paged``
+    launches per replay and no ``flash_decode``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.shared_objects import from_page_log
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.api import DecoderModel
+    from repro_torch.runtime.engine import InferenceEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_periods=2, dtype="float32")
+    n_slots, max_len = 4, 128
+    requests = list(zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = DecoderModel(cfg, DEVICE).init(gen)
+    reset_launches()
+    ep = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                         device=DEVICE, page_size=PAGE_SIZE)
+    es = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len, device=DEVICE)
+    twin_buf = torch.zeros_like(ep.state.buf)
+    twin = ep.residency.bind(twin_buf, ep.state.table)
+    checked = {"steps": 0, "bitwise": 0}
+    step_tokens, reset = ep._step_tokens, ep.state.reset
+
+    def dev(a):
+        return torch.from_numpy(np.array(a)).to(DEVICE)
+
+    def checked_step(tokens, pos, active):
+        got = step_tokens(tokens, pos, active)
+        before = fd.PAGED_LAUNCHES
+        with torch.no_grad():
+            want, _ = ep.model.decode_step(params, dev(tokens), twin, dev(pos),
+                                           dev(active))
+        fd.PAGED_LAUNCHES = before  # the twin's launches are the check's
+        checked["steps"] += 1
+        checked["bitwise"] += int(torch.equal(got, want.float()))
+        if not torch.equal(got, want.float()):
+            fail(f"parity_paged: captured paged step differs from the eager one "
+                 f"by {float((got - want).abs().max())}")
+        return got
+
+    def checked_reset(keep):
+        reset(keep)
+        ep.residency.wipe(twin_buf, ep.state.table,
+                          ep.state._table[~np.asarray(keep, dtype=bool)])
+
+    ep._step_tokens, ep.state.reset = checked_step, checked_reset
+    rng = np.random.default_rng(0)
+    for n, new in requests:
+        prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+        for e in (ep, es):
+            e.submit(prompt, max_new_tokens=new)
+    done = {"paged": {}, "symmetric": {}}
+    while ep.unfinished_requests() or es.unfinished_requests():
+        done["paged"].update({r.request_id: r.tokens for r in ep.step()})
+        done["symmetric"].update({r.request_id: r.tokens for r in es.step()})
+        if ep.last_logits is not None and not np.array_equal(ep.last_logits,
+                                                             es.last_logits):
+            fail(f"parity_paged: logits differ by "
+                 f"{float(np.abs(ep.last_logits - es.last_logits).max())} "
+                 f"at wave {ep.waves}")
+    if done["paged"] != done["symmetric"] or len(done["paged"]) != len(requests):
+        fail(f"parity_paged: tokens differ {done['paged']} vs {done['symmetric']}")
+    if ep.slot_log != es.slot_log:
+        fail(f"parity_paged: slot logs differ {ep.slot_log} vs {es.slot_log}")
+    if checked["steps"] != ep.decode_calls or \
+            ep.state.graphs["step"].replays != ep.decode_calls:
+        fail(f"parity_paged: {checked['steps']} checked steps, {ep.decode_calls} "
+             f"decode steps")
+    if not torch.equal(twin_buf, ep.state.buf):
+        fail("parity_paged: the eager twin's pool differs from the engine's")
+    for a, b in zip(torch.utils._pytree.tree_leaves(ep.caches),
+                    torch.utils._pytree.tree_leaves(es.caches)):
+        if not torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8)):
+            fail("parity_paged: the gathered caches differ from the symmetric ones")
+    held = ep.state.graphs["step"].launches
+    if held["flash_decode_paged"] != cfg.n_layers or held["flash_decode"]:
+        fail(f"parity_paged: the paged graph holds {held}, expected "
+             f"{cfg.n_layers} flash_decode_paged launches")
+    if ep.state.pages_live:
+        fail(f"parity_paged: {ep.state.pages_live} pages live after the drain")
+    from_page_log(ep.page_log, state_plan=ep.memory_report.state_plan)
+    emit({"phase": "parity_paged", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "page_size": PAGE_SIZE,
+          "pages_total": ep.state.pages_total,
+          "pages_live_peak": ep.state.pages_live_peak,
+          "allocated_bytes": ep.state.allocated_bytes,
+          "symmetric_state_bytes": es.memory_report.state_live_bytes,
+          "waves": ep.waves, "decode_steps": ep.decode_calls,
+          "launches": read_launches(), "captured_per_replay": held,
+          "captured_vs_eager": checked, "slot_log": ep.slot_log,
+          "page_log_entries": len(ep.page_log),
+          "first_tokens": {k: v[:6] for k, v in done["paged"].items()}, "ok": True})
+    del ep, es, twin, twin_buf, params
+    torch.cuda.empty_cache()
+
+
+def graph_launch_ms(engine, replays: int = 8) -> float:
+    """Host milliseconds one replay of the engine's step graph takes to
+    launch (the host clock around ``CUDAGraph.replay`` alone, the card
+    idle before it), every slot inactive, so the replays change nothing."""
+    import torch
+
+    engine.state._s.active.zero_()
+    graph = engine.state.graphs["step"].graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        graph.replay()
+    launch = (time.perf_counter() - t0) / replays * 1e3
+    torch.cuda.synchronize()
+    return launch
+
+
+def steady_profile(phase: str, engine) -> dict:
+    """8 requests more on a served engine, then 8 steady waves timed and 8
+    profiled (every slot active), as the profile phase does."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    waves, n_req = 8, 8
+    rng = np.random.default_rng(1)
+    for _ in range(n_req):
+        engine.submit(rng.integers(0, engine.cfg.vocab, size=4).astype(np.int32),
+                      max_new_tokens=2 * waves + 4)
+    done = engine.step()  # admits every request
+    prof, finished = serve.profile_waves(engine, waves)
+    done += finished + engine.run_until_done()
+    if len(done) != n_req:
+        fail(f"{phase}: {len(done)} of {n_req} profiled requests finished")
+    if not prof["device_ms_per_wave"] > 0:
+        fail(f"{phase}: the profiler saw no device time")
+    return prof
+
+
+def steady_pair(engines: dict, waves: int = 8) -> dict:
+    """A steady window on each engine of ``engines`` (name -> engine), every
+    slot active: 8 requests each, then ``waves`` waves of each timed by the
+    host clock, all before any of them is profiled (a profiler session
+    leaves costs on the host's later launches), then ``profile_waves`` on
+    each. Returns name -> the profile, its ``wall_ms_per_wave`` the
+    unprofiled timing and ``admission_peak_bytes`` the allocator's peak
+    above what was allocated across the wave that admits the 8 requests
+    (8 slot resets, 8 prefills through the captured step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    admission = {}
+    for name, engine in engines.items():
+        rng = np.random.default_rng(1)
+        for _ in range(8):
+            engine.submit(rng.integers(0, engine.cfg.vocab, size=4).astype(np.int32),
+                          max_new_tokens=3 * waves + 4)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.step()  # admits every request
+        torch.cuda.synchronize()
+        admission[name] = torch.cuda.max_memory_allocated() - base
+    wall = {}
+    for name, engine in engines.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(waves):
+            engine.step()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3 / waves
+    out = {}
+    for name, engine in engines.items():
+        prof, _ = serve.profile_waves(engine, waves)
+        engine.run_until_done()
+        if engine.unfinished_requests() or not prof["device_ms_per_wave"] > 0:
+            fail(f"serve_paged: the {name} engine's steady window did not finish "
+                 f"or the profiler saw no device time")
+        out[name] = {**prof, "wall_ms_per_wave": wall[name],
+                     "tokens_per_s": 8 * 1e3 / wall[name],
+                     "admission_peak_bytes": admission[name]}
+    return out
+
+
+def phase_serve_paged() -> dict:
+    """``serve.run`` on full-width qwen3-0.6b (28 layers, bf16) at 8 slots x
+    2048 with the serve phase's requests, from a pool of 896 pages of 64
+    KiB: tokens equal to the symmetric serve's, the buffer exactly
+    58,785,792 B that never moves, 896 pages live at the peak and none
+    after the drain, the page log a valid assignment, every decode step
+    a replay holding 28 ``flash_decode_paged`` launches and no
+    ``flash_decode``. Then the same requests in blocks of 8 (one host sync
+    per block, then again under the decode lint: no findings), and at a
+    pool of 448 (no more than 4 slots busy at once, more waves); tokens
+    equal throughout. The symmetric engine it is held beside is served
+    again here, just before the paged one, so both are timed under the
+    same conditions (the serve phase's own numbers, when it ran, are
+    reported too); then a steady window on each, timed, and profiled as
+    in ``profile``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import decode_lint
+    from repro_torch.core.shared_objects import from_page_log
+    from repro_torch.launch import serve
+
+    sym = serve.run(SERVE_ARGS)
+    if SERVE_NUMBERS.get("tokens") not in (None, sym["tokens_per_request"]):
+        fail("serve_paged: the symmetric twin served other tokens than the serve phase")
+    reset_launches()
+    stats = serve.run(SERVE_ARGS + PAGED_ARGS)
+    counts = read_launches()
+    engine = stats["engine"]
+    toks = stats["tokens_per_request"]
+    if toks != sym["tokens_per_request"]:
+        fail("serve_paged: the paged tokens differ from the symmetric serve's")
+    if stats["allocated_bytes"] != PAGED_BUFFER_BYTES:
+        fail(f"serve_paged: the pool is {stats['allocated_bytes']} B, expected "
+             f"{PAGED_BUFFER_BYTES}")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail("serve_paged: the pool moved")
+    if stats["pages_live_peak"] != PAGE_POOL or stats["state_pages_live"] != 0:
+        fail(f"serve_paged: {stats['pages_live_peak']} pages live at the peak, "
+             f"{stats['state_pages_live']} after the drain")
+    from_page_log(engine.page_log, state_plan=engine.memory_report.state_plan)
+    replayed = check_replayed("serve_paged", stats, "flash_decode_paged")
+    if stats["capture_calls"] != 1:
+        fail(f"serve_paged: {stats['capture_calls']} graphs captured, expected 1")
+    # the pool is smaller than one slot's 1,792 pages: the certifier warns
+    # that a max_len request would be refused, as the reference's does
+    plan_row("qwen3-0.6b serve_paged (8 slots x 2048, 896 pages of 64 KiB)", stats,
+             warnings=("paged-pool-short",))
+    twin = sym["engine"]
+    launch_ms = {"paged": graph_launch_ms(engine), "symmetric": graph_launch_ms(twin)}
+    steady = steady_pair({"paged": engine, "symmetric": twin})
+    # each admission's reset gathers only its slot's mapped pages (all 112
+    # of them still mapped from the run), never the logical state
+    if steady["paged"]["admission_peak_bytes"] > stats["allocated_bytes"]:
+        fail(f"serve_paged: admission took {steady['paged']['admission_peak_bytes']} B "
+             f"above the allocated, more than the {stats['allocated_bytes']} B pool")
+    del engine, twin, sym["engine"]
+    # blocks of 8: the same tokens, one host sync per block; then the same
+    # requests again under the decode lint
+    block = serve.run(SERVE_ARGS + PAGED_ARGS + ["--block-size", "8"])
+    if block["tokens_per_request"] != toks:
+        fail("serve_paged: the block tokens differ from the host loop's")
+    if block["host_syncs"] != block["blocks"]:
+        fail(f"serve_paged: {block['host_syncs']} host syncs for {block['blocks']} blocks")
+    engine = block["engine"]
+    blocks = block["blocks"]
+    rng = np.random.default_rng(0)  # serve.run's prompts
+    for _ in range(8):
+        engine.submit(rng.integers(0, engine.cfg.vocab, size=32).astype(np.int32),
+                      max_new_tokens=64)
+    again = {}
+
+    def run():
+        again.update({r.request_id - 8: r.tokens for r in engine.run_until_done()})
+
+    findings = decode_lint.lint_run(engine, run)
+    if findings:
+        fail(f"serve_paged: decode lint findings {[f.render() for f in findings]}")
+    if again != toks:
+        fail("serve_paged: the linted block run served other tokens")
+    del engine, block
+    # half the pool: at most 4 requests at once, more waves
+    half = serve.run(SERVE_ARGS + ["--page-size", str(PAGE_SIZE), "--page-pool",
+                                   str(PAGE_POOL // 2)])
+    if half["tokens_per_request"] != toks:
+        fail("serve_paged: the tokens at a pool of 448 differ")
+    busy = max(sum(1 for _, a, f, _ in half["slot_log"] if a <= w <= f)
+               for w in range(half["waves"]))
+    if busy > 4 or half["waves"] <= stats["waves"]:
+        fail(f"serve_paged: {busy} slots busy at once and {half['waves']} waves at "
+             f"a pool of 448 ({stats['waves']} at 896)")
+    row = {
+        "phase": "serve_paged", "arch": "qwen3-0.6b", "layers": stats["n_layers"],
+        "page_size": PAGE_SIZE, "page_pool": PAGE_POOL,
+        "allocated_bytes": stats["allocated_bytes"],
+        "symmetric_state_bytes": stats["state_planned_bytes"],
+        "pages_live_peak": stats["pages_live_peak"],
+        "requests": stats["requests"], "tokens": stats["tokens"],
+        "waves": stats["waves"], "decode_steps": stats["decode_calls"],
+        "host_syncs": stats["host_syncs"], "launches": counts, "graphs": replayed,
+        **graph_stats(stats), "cold_start_s": stats["cold_start_s"],
+        "tokens_per_s": stats["tokens_per_s"],
+        "symmetric_tokens_per_s": sym["tokens_per_s"],
+        "serve_phase_tokens_per_s": SERVE_NUMBERS.get("tokens_per_s"),
+        "serve_phase_device_ms_per_wave": SERVE_NUMBERS.get("device_ms_per_wave"),
+        "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+        "symmetric_allocator_step_peak_bytes": sym["allocator_step_peak_bytes"],
+        "graph_launch_ms": launch_ms, "blocks_of_8": blocks,
+        # per steady wave: device ms, wall ms, events; the admitting wave's
+        # allocator peak
+        **{f"{k}_{name}": steady[name][k] for name in steady for k in (
+            "device_ms_per_wave", "wall_ms_per_wave", "tokens_per_s",
+            "kernel_launches_per_wave", "admission_peak_bytes")},
+        "steady": steady,
+        "pool_448": {"waves": half["waves"], "max_slots_busy": busy,
+                     "pages_live_peak": half["pages_live_peak"]},
+        "tokens_equal_symmetric": True, "decode_lint_findings": 0, "ok": True,
+    }
+    emit(row)
+    del stats, half
+    torch.cuda.empty_cache()
+    return row
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
           "serve_granite", "prefill_granite", "parity_llama4", "parity_zamba2",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
-          "prefill_internvl2", "smem")
+          "prefill_internvl2", "parity_paged", "serve_paged", "smem")
 
 
 T0 = time.perf_counter()
@@ -2191,6 +2740,7 @@ def main() -> None:
     if "kernels" in phases:
         timing["flash_decode"] = phase_kernels(card_name)
         timing["ssd_chunk"] = phase_kernels_ssd(card_name)
+        timing["flash_decode_paged"] = phase_kernels_paged(card_name)
         emit({"phase": "kernels", "checked": list(KERNELS),
               "failed_cases": FAILED_CASES})
         if FAILED_CASES:
@@ -2258,13 +2808,18 @@ def main() -> None:
     if "prefill_internvl2" in phases:
         _, roof = phase_prefill_internvl2(card_name)
         roofs.append(roof)
+    if "parity_paged" in phases:
+        phase_parity_paged()
+    if "serve_paged" in phases:
+        launches["flash_decode_paged"]["qwen3-0.6b serve_paged"] = \
+            phase_serve_paged()["launches"]["flash_decode_paged"]
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 12 or len(roofs) != 11:
+    if len(CERTIFIED) != 13 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 12 and 11")
+             f"expected 13 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)
@@ -2284,6 +2839,10 @@ def main() -> None:
                "bound_ms": timing[name]["bound_ms"],
                "bound_by": timing[name]["bound_by"],
                "library_ms": timing[name]["library_ms"]}
+        if name == "flash_decode_paged":
+            row.update({k: timing[name][k] for k in (
+                "library", "flash_decode_on_gathered_ms", "gather_ms", "page_size",
+                "table")})
         if name == "flash_decode":
             for arch, timing_of in (("gemma3_4b", GEMMA3_TIMING),
                                     ("granite_moe_3b", GRANITE_TIMING),
@@ -2292,7 +2851,7 @@ def main() -> None:
                 row[arch] = {k: timing_of[k] for k in (
                     "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_backend", "max_abs_err")}
-        else:
+        elif name == "ssd_chunk":
             row["zamba2_7b"] = {k: ZAMBA2_SSD_TIMING[k] for k in (
                 "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}

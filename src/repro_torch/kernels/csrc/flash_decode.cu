@@ -41,6 +41,18 @@
 // into the serving engine's one state buffer: its batch stride is the slot
 // stride of the state plan, not T*KV*D.
 //
+// The paged variant (PAGED = true, flash_decode_paged_launch) reads the same
+// cache out of a pool of fixed pages: slot b's region is a run of logical
+// elements mapped page by page through row b of an int32 page table, so
+// element e of the region (e = offset + t * stride_t + h * stride_h + d) lies
+// at buf[table[b][e / Pe] * Pe + e % Pe], Pe the page size in elements.
+// Only the address of each 16-byte chunk changes (paged_at): a chunk never
+// straddles a page, since the wrapper takes only pages and offsets that are
+// whole 16-byte multiples, and everything else (spans, the ring, the merge)
+// is the symmetric kernel's, so the two give bit-equal outputs on the same
+// cache. The page arithmetic is int64: a page index times the page size
+// passes 2^31 elements in a pool over 4 GiB of bf16.
+//
 // Not done here (left for later work): TMA loads and wgmma.
 //
 // Plain C interface; the Python wrapper (kernels/flash_decode.py) loads the
@@ -131,6 +143,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
 
+// Logical element e of a slot region whose table row is `row`, in a pool of
+// pages of pe elements (a 16-byte chunk starting at e lies in one page).
+template <typename T>
+__device__ __forceinline__ const T* paged_at(const T* buf, const int* row, int64_t e,
+                                            int64_t pe) {
+  const int64_t page = e / pe;
+  return buf + static_cast<int64_t>(__ldg(row + page)) * pe + (e - page * pe);
+}
+
 // 16 bytes from global to shared memory, asynchronously; zero-filled when
 // `pred` is false (then nothing is read from `src`)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
@@ -206,8 +227,10 @@ __device__ __forceinline__ void merge_if_last(const float* part_acc,
 
 // One CTA per (b, h, span): the partial softmax state of span `split` of row b.
 // Partial p = blockIdx.x = (b * n_kv + h) * n_split + split; part_acc holds
-// [p][G][D] and part_ml [p][G][2] = (m, l).
-template <typename T, int D, int G>
+// [p][G][D] and part_ml [p][G][2] = (m, l). PAGED: k and v are the page pool,
+// k_sb and v_sb the K and V element offsets inside a slot region, and row b
+// of `table` (pps entries) maps the region's pages of page_elems elements.
+template <typename T, int D, int G, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ lengths,
@@ -215,7 +238,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           T* __restrict__ out, int* __restrict__ counters,
                           int n_kv, int t_len, int n_split, int span, int64_t k_sb,
                           int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
-                          int64_t v_sh, float scale) {
+                          int64_t v_sh, float scale, const int* __restrict__ table,
+                          int pps, int64_t page_elems) {
   using L = Layout<T, D, G>;
   constexpr int VEC = L::VEC;
   constexpr int CH = L::CH;
@@ -257,8 +281,11 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // chunk j of this lane is sub + j * LANES, when it lies inside the row
   auto has = [&](int j) { return L::FULL || sub + j * LANES < CH; };
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  // symmetric: (b, h)'s first K/V element; paged: its logical element in
+  // slot b's region, and the region's table row
+  const int64_t k_row0 = PAGED ? k_sb + h * k_sh : b * k_sb + h * k_sh;
+  const int64_t v_row0 = PAGED ? v_sb + h * v_sh : b * v_sb + h * v_sh;
+  const int* trow = PAGED ? table + static_cast<int64_t>(b) * pps : nullptr;
   const int n_tiles = (end - start + TILE - 1) / TILE;
 
   // tile `tile` of the span into ring slot `slot`: K rows then V rows, each
@@ -273,8 +300,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = t < end;
       const int64_t tc = ok ? t : start;
       const int off = (c % CH) * VEC;
-      cp_async16(ks + c * 16, kb + tc * k_st + off, ok);
-      cp_async16(vs + c * 16, vb + tc * v_st + off, ok);
+      const int64_t ek = k_row0 + tc * k_st + off;
+      const int64_t ev = v_row0 + tc * v_st + off;
+      if constexpr (PAGED) {
+        cp_async16(ks + c * 16, paged_at(k, trow, ek, page_elems), ok);
+        cp_async16(vs + c * 16, paged_at(v, trow, ev, page_elems), ok);
+      } else {
+        cp_async16(ks + c * 16, k + ek, ok);
+        cp_async16(vs + c * 16, v + ev, ok);
+      }
     }
   };
 #pragma unroll
@@ -474,7 +508,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          reinterpret_cast<float*>(smem));
 }
 
-// the arguments of one call
+// the arguments of one call (table, pps and page_elems: the paged kernel's)
 struct Args {
   int batch, n_kv, t_len, n_split;
   const void *q, *k, *v, *lengths;
@@ -484,12 +518,15 @@ struct Args {
   int64_t k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
   cudaStream_t stream;
+  const int* table;
+  int pps;
+  int64_t page_elems;
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool PAGED>
 cudaError_t launch(const Args& a) {
   constexpr int smem = Layout<T, D, G>::SMEM;
-  auto kernel = flash_decode_split_kernel<T, D, G>;
+  auto kernel = flash_decode_split_kernel<T, D, G, PAGED>;
   // the opt-in to `smem` bytes of dynamic shared memory, once per
   // instantiation before its first launch (a warm-up call precedes every
   // graph capture, so a capture never sets it). Every instantiation takes
@@ -506,7 +543,8 @@ cudaError_t launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.lengths), part_acc,
       part_ml, static_cast<T*>(a.out), a.counters, a.n_kv, a.t_len, a.n_split,
-      span, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.scale);
+      span, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.scale, a.table,
+      a.pps, a.page_elems);
   return cudaGetLastError();
 }
 
@@ -516,15 +554,15 @@ cudaError_t launch(const Args& a) {
 // llama4 (128, 5) and nemotron (192, 12). G sets only the loop counts: the
 // Layout follows from (dtype, D), so (64, 3) reads a position with CH lanes
 // as (64, 2) does. kernels/flash_decode.py (PAIRS) and kernels/smem_plan.py
-// (FD_PAIRS) list the same.
+// (FD_PAIRS) list the same. Each pair is built symmetric and paged.
 #define FD_PAIRS(X)                                                          \
   X(64, 1) X(64, 2) X(64, 3) X(64, 4) X(64, 7) X(64, 8) X(128, 1) X(128, 2) \
   X(128, 4) X(128, 5) X(128, 8) X(168, 2) X(192, 12) X(224, 1) X(320, 2)
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t dispatch(int d, int g, const Args& a) {
 #define FD_LAUNCH(DD, GG) \
-  if (d == DD && g == GG) return launch<T, DD, GG>(a);
+  if (d == DD && g == GG) return launch<T, DD, GG, PAGED>(a);
   FD_PAIRS(FD_LAUNCH)
 #undef FD_LAUNCH
   return cudaErrorInvalidValue;
@@ -559,12 +597,47 @@ extern "C" int flash_decode_launch(int dtype, int batch, int n_kv, int g,
   const Args a{batch, n_kv, t_len, n_split, q, k, v, lengths, out,
                static_cast<float*>(part), static_cast<int*>(counters), k_sb,
                k_st, k_sh, v_sb, v_st, v_sh, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), nullptr, 0, 0};
   switch (dtype) {
     case 0:
-      return dispatch<float>(d, g, a);
+      return dispatch<float, false>(d, g, a);
     case 1:
-      return dispatch<__nv_bfloat16>(d, g, a);
+      return dispatch<__nv_bfloat16, false>(d, g, a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The paged kernel: as flash_decode_launch, with K and V read out of the page
+// pool `buf` (elements of the dtype) through `table`, int32 (B, pps) on the
+// device, whose row b maps slot b's region page by page (pages of page_elems
+// elements; entry 0 is the pool's null page). k_off and v_off are the layer's
+// K and V element offsets inside a slot region, t_st and h_st its position and
+// head strides. page_elems, the offsets and the strides are whole 16-byte
+// multiples (the wrapper checks them).
+extern "C" int flash_decode_paged_launch(int dtype, int batch, int n_kv, int g,
+                                         int d, int t_len, int n_split,
+                                         const void* q, const void* buf,
+                                         const void* table, const void* lengths,
+                                         void* out, void* part, void* counters,
+                                         int pps, int64_t page_elems,
+                                         int64_t k_off, int64_t v_off,
+                                         int64_t t_st, int64_t h_st, float scale,
+                                         void* stream) {
+  if (batch * n_kv == 0) return cudaSuccess;
+  if (n_split < 1 || n_split > kMaxSplits || page_elems < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const Args a{batch, n_kv, t_len, n_split, q, buf, buf, lengths, out,
+               static_cast<float*>(part), static_cast<int*>(counters), k_off,
+               t_st, h_st, v_off, t_st, h_st, scale,
+               static_cast<cudaStream_t>(stream), static_cast<const int*>(table),
+               pps, page_elems};
+  switch (dtype) {
+    case 0:
+      return dispatch<float, true>(d, g, a);
+    case 1:
+      return dispatch<__nv_bfloat16, true>(d, g, a);
     default:
       return cudaErrorInvalidValue;
   }

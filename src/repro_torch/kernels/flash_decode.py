@@ -31,9 +31,22 @@ counts must exist before the capture begins (``_counters``): graphs
 captured on one stream share that stream's counts, so they are replayed
 one at a time.
 
-``LAUNCHES`` counts kernel launches (the CUDA path only), one per call.
-A call under CUDA graph capture launches nothing: ``runtime/graphs.py``
-takes it off the count and adds the graph's launches at each replay.
+``repro_torch::flash_decode_paged`` computes the same function on a
+cache held in a page pool (ROADMAP B1.4): ``buf`` is the pool viewed as
+the cache dtype, row b of ``table`` (int32, ``(B, pages_per_slot)``)
+maps slot b's logical region page by page (0: the pool's all-zero null
+page), and the layer's K and V are the region's elements ``offset +
+t·pos_stride + h·head_stride + d``. On the card it is the same kernel
+with its loads translated through the table (the template flag
+``PAGED`` of ``csrc/flash_decode.cu``), so it is bit-equal to
+``flash_decode`` on the cache gathered out of the pool. On the CPU it is
+``kernels/ref.flash_decode_paged_ref``, which gathers and calls
+``flash_decode_ref``.
+
+``LAUNCHES`` and ``PAGED_LAUNCHES`` count kernel launches (the CUDA path
+only), one per call of each op. A call under CUDA graph capture
+launches nothing: ``runtime/graphs.py`` takes it off the count and adds
+the graph's launches at each replay.
 """
 
 from __future__ import annotations
@@ -43,9 +56,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_decode_ref
+from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 
 LAUNCHES = 0
+PAGED_LAUNCHES = 0
 
 # the (head_dim, group size) pairs csrc/flash_decode.cu builds (FD_PAIRS),
 # each in fp32 and bf16: the powers of two at D = 64 and 128 (qwen3: 64, 2),
@@ -63,6 +77,7 @@ MIN_SPAN = 128
 MAX_SPLITS = 64  # kMaxSplits of csrc/flash_decode.cu
 
 _FN = None
+_PAGED_FN = None
 # (device, stream handle) -> int32 counts of finished spans
 _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 # counts replaced by larger ones: a graph captured with them still uses them
@@ -95,6 +110,22 @@ def _kernel():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _paged_kernel():
+    global _PAGED_FN
+    if _PAGED_FN is None:
+        fn = build.load("flash_decode").flash_decode_paged_launch
+        fn.argtypes = (
+            [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 7
+            + [ctypes.c_int]
+            + [ctypes.c_int64] * 5
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _PAGED_FN = fn
+    return _PAGED_FN
 
 
 def num_splits(batch: int, n_kv: int, t_len: int) -> int:
@@ -139,6 +170,42 @@ def check_inputs(q, k_cache, v_cache, lengths) -> None:
         raise ValueError(
             f"flash_decode: (head_dim, group size) ({D}, {G}) is not built; "
             f"the kernel is built for {sorted(PAIRS)}"
+        )
+
+
+def check_paged_inputs(q, buf, table, k_offset, v_offset, pos_stride,
+                       head_stride, t_len, page_elems, lengths) -> None:
+    """What the paged op takes; raises ``ValueError`` on anything else."""
+    if q.dim() != 4 or buf.dim() != 1 or table.dim() != 2:
+        raise ValueError(
+            f"flash_decode_paged: q {tuple(q.shape)} must be (B,KV,G,D), buf "
+            f"1-D and table (B, pages_per_slot); got {tuple(buf.shape)}, "
+            f"{tuple(table.shape)}"
+        )
+    B, KV, G, D = q.shape
+    if table.shape[0] != B or table.dtype != torch.int32:
+        raise ValueError(f"flash_decode_paged: table must be int32 with {B} rows")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError("flash_decode_paged: lengths must be int32 of shape (B,)")
+    if q.dtype != buf.dtype or q.dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"flash_decode_paged: dtypes {q.dtype}/{buf.dtype}; one of "
+            f"float32, bfloat16 expected for both"
+        )
+    if (D, G) not in PAIRS:
+        raise ValueError(
+            f"flash_decode_paged: (head_dim, group size) ({D}, {G}) is not "
+            f"built; the kernel is built for {sorted(PAIRS)}"
+        )
+    if min(k_offset, v_offset, t_len) < 0 or page_elems < 1:
+        raise ValueError("flash_decode_paged: negative offset, length or page")
+    # the last element either cache reads must lie in the table's region
+    last = max(k_offset, v_offset) + (t_len - 1) * pos_stride \
+        + (KV - 1) * head_stride + D
+    if t_len and last > table.shape[1] * page_elems:
+        raise ValueError(
+            f"flash_decode_paged: the caches reach element {last} of a slot "
+            f"region of {table.shape[1]} pages of {page_elems}"
         )
 
 
@@ -215,12 +282,60 @@ def _flash_decode_cuda(q, k_cache, v_cache, lengths):
     return out
 
 
+def _flash_decode_paged_cuda(q, buf, table, k_offset, v_offset, pos_stride,
+                             head_stride, t_len, page_elems, lengths):
+    global PAGED_LAUNCHES
+    args = (k_offset, v_offset, pos_stride, head_stride, t_len, page_elems)
+    check_paged_inputs(q, buf, table, *args, lengths)
+    vec = 16 // q.element_size()  # elements per 16-byte load
+    if any(n % vec for n in (k_offset, v_offset, pos_stride, head_stride, page_elems)):
+        raise ValueError(
+            f"flash_decode_paged: offsets ({k_offset}, {v_offset}), strides "
+            f"({pos_stride}, {head_stride}) and the page ({page_elems}) must be "
+            f"whole multiples of {vec} elements (16 bytes) on the card"
+        )
+    if not q.is_contiguous() or not table.is_contiguous():
+        raise ValueError("flash_decode_paged: q and table must be contiguous")
+    if q.data_ptr() % 16 or buf.data_ptr() % 16:
+        raise ValueError("flash_decode_paged: q and buf must be 16-byte aligned")
+    if any(t.device != q.device for t in (buf, table, lengths)):
+        raise ValueError("flash_decode_paged: all inputs must be on one device")
+    B, KV, G, D = q.shape
+    n_split = num_splits(B, KV, t_len)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    part = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _paged_kernel()(
+        _DTYPE_CODE[q.dtype], B, KV, G, D, t_len, n_split,
+        q.data_ptr(), buf.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), part.data_ptr(),
+        _counters(q.device, stream, B * KV).data_ptr(),
+        table.shape[1], page_elems, k_offset, v_offset, pos_stride, head_stride,
+        1.0 / D ** 0.5, stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode_paged: kernel launch failed (cudaError {err})")
+    PAGED_LAUNCHES += 1
+    return out
+
+
 def _flash_decode_cpu(q, k_cache, v_cache, lengths):
     check_inputs(q, k_cache, v_cache, lengths)
     return flash_decode_ref(q, k_cache, v_cache, lengths)
 
 
 def _flash_decode_fake(q, k_cache, v_cache, lengths):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _flash_decode_paged_cpu(q, buf, table, *args):
+    check_paged_inputs(q, buf, table, *args)
+    return flash_decode_paged_ref(q, buf, table, *args)
+
+
+def _flash_decode_paged_fake(q, buf, table, *args):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
@@ -232,8 +347,28 @@ _LIB.define(
 _LIB.impl("flash_decode", _flash_decode_cuda, "CUDA")
 _LIB.impl("flash_decode", _flash_decode_cpu, "CPU")
 torch.library.register_fake("repro_torch::flash_decode")(_flash_decode_fake)
+_LIB.define(
+    "flash_decode_paged(Tensor q, Tensor buf, Tensor table, int k_offset, "
+    "int v_offset, int pos_stride, int head_stride, int t_len, int page_elems, "
+    "Tensor lengths) -> Tensor"
+)
+_LIB.impl("flash_decode_paged", _flash_decode_paged_cuda, "CUDA")
+_LIB.impl("flash_decode_paged", _flash_decode_paged_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_decode_paged")(
+    _flash_decode_paged_fake)
 
 
 def flash_decode(q, k_cache, v_cache, lengths) -> torch.Tensor:
     """(B, KV, G, D) attention output in q's dtype."""
     return torch.ops.repro_torch.flash_decode(q, k_cache, v_cache, lengths)
+
+
+def flash_decode_paged(q, buf, table, k_offset: int, v_offset: int,
+                       pos_stride: int, head_stride: int, t_len: int,
+                       page_elems: int, lengths) -> torch.Tensor:
+    """(B, KV, G, D) attention output in q's dtype over the K/V cache of
+    ``t_len`` positions read out of the page pool ``buf`` through
+    ``table`` (offsets, strides and the page size in elements)."""
+    return torch.ops.repro_torch.flash_decode_paged(
+        q, buf, table, k_offset, v_offset, pos_stride, head_stride, t_len,
+        page_elems, lengths)

@@ -29,6 +29,53 @@ def flash_decode_ref(
     return o.to(q.dtype)
 
 
+def paged_index(table: torch.Tensor, offset, strides: tuple[int, ...],
+                shape: tuple[int, ...], page_elems: int) -> torch.Tensor:
+    """Physical element indices of a paged cache into the buffer viewed as
+    the cache dtype: element ``(i, j, ...)`` of slot ``b`` is the slot
+    region's logical element ``e = o + i·strides[0] + j·strides[1] + ...``,
+    which lies at ``table[b, e // page_elems] · page_elems + e %
+    page_elems``. ``offset`` is one int ``o`` for every slot, giving
+    ``(B, *shape)``, or an integer tensor ``(B, *lead)`` of per-slot
+    offsets, giving ``(B, *lead, *shape)``."""
+    dev = table.device
+    B = table.shape[0]
+    if not isinstance(offset, torch.Tensor):
+        offset = torch.full((1,), offset, dtype=torch.int64, device=dev)
+    e = offset.reshape(offset.shape + (1,) * len(shape))
+    for axis, (n, s) in enumerate(zip(shape, strides)):
+        view = [1] * len(shape)
+        view[axis] = n
+        step = torch.arange(n, device=dev)
+        e = e + (step if s == 1 else step * s).reshape(view)  # no kernel for a * 1
+    e = e.expand((B,) + e.shape[1:])
+    page = e // page_elems
+    phys = torch.gather(table, 1, page.reshape(B, -1)).reshape(e.shape)
+    return e + (phys - page) * page_elems
+
+
+def flash_decode_paged_ref(
+    q: torch.Tensor,  # (B, KV, G, D)
+    buf: torch.Tensor,  # the physical buffer viewed as the cache dtype, 1-D
+    table: torch.Tensor,  # (B, pages_per_slot) int32
+    k_offset: int,
+    v_offset: int,
+    pos_stride: int,
+    head_stride: int,
+    t_len: int,
+    page_elems: int,
+    lengths: torch.Tensor,  # (B,)
+) -> torch.Tensor:
+    """``flash_decode_ref`` on the (B, T, KV, D) K and V gathered through
+    the page table (offsets, strides and the page size in elements of
+    the cache dtype)."""
+    _, KV, _, D = q.shape
+    shape, strides = (t_len, KV, D), (pos_stride, head_stride, 1)
+    k = buf[paged_index(table, k_offset, strides, shape, page_elems)]
+    v = buf[paged_index(table, v_offset, strides, shape, page_elems)]
+    return flash_decode_ref(q, k, v, lengths)
+
+
 def ssd_chunk_ref(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) fp32 (already softplus'd)

@@ -17,6 +17,12 @@ report, tokens/s and the slot log.
     PYTHONPATH=src python -m repro_torch.launch.serve --full --block-size 8 \\
         --sample --temperature 0.8 --top-k 50
 
+``--page-size B`` serves the paged state backend (pages of B bytes,
+``--page-pool`` of them; the K/V caches are written and read through the
+page table), e.g. on the CPU::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --page-size 1024
+
 ``--block-size K`` runs K decode waves per host sync with on-device
 sampling; ``--sample`` draws with ``--temperature``/``--top-k`` instead
 of the greedy argmax (on the host in the host loop, on the device in
@@ -42,6 +48,7 @@ import torch
 
 from repro_torch.analysis import counters
 from repro_torch.configs.base import ARCH_IDS, get_config, get_reduced
+from repro_torch.core.shared_objects import from_page_log
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.engine import InferenceEngine
@@ -75,6 +82,13 @@ def run(argv: list[str] | None = None) -> dict:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=None,
                     help="retire a request when it emits this token")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="serve the PAGED state backend: per-slot page "
+                         "tables over a pool of fixed pages of this many "
+                         "bytes")
+    ap.add_argument("--page-pool", type=int, default=None,
+                    help="physical pool page count for --page-size "
+                         "(default: slots x pages-per-slot)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -88,7 +102,8 @@ def run(argv: list[str] | None = None) -> dict:
         cfg, params, n_slots=args.slots, max_len=args.max_len, device=device,
         greedy=not args.sample, sample_seed=args.seed,
         temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        block_size=args.block_size,
+        block_size=args.block_size, page_size=args.page_size,
+        page_pool=args.page_pool,
     )
     cold_start_s = time.perf_counter() - t0
     print(f"--- engine cold start: {cold_start_s:.3f}s (trace + plan + "
@@ -123,6 +138,25 @@ def run(argv: list[str] | None = None) -> dict:
         print(f"req {r.request_id}: waves [{r.admitted_wave},{r.finished_wave}] "
               f"tokens {r.tokens[:8]}...")
     print(f"slot log (slot, admitted, finished, rid): {engine.slot_log}")
+    final_report = engine.memory_report
+    pages_total = final_report.state_pages_total
+    pages_live = final_report.state_pages_live
+    pages_peak = None
+    if engine.paged:
+        sp = report.state_plan
+        pages_peak = engine.state.pages_live_peak
+        # page-reuse audit, one level below the slot log: pool pages are
+        # the shared objects; raises if the allocator ever double-assigned
+        # a live page
+        page_audit = from_page_log(engine.page_log, state_plan=sp)
+        print(f"paged state: pool {pages_total} x {sp.page_size} B pages "
+              f"(+1 null), peak live {pages_peak} "
+              f"({pages_peak * sp.page_size} B = "
+              f"{pages_peak / max(pages_total, 1):.0%} of the pool), "
+              f"live now {pages_live}")
+        print(f"page audit: {len(page_audit.assignment)} (request, page) "
+              f"residencies over {pages_total} pool pages, no interval "
+              f"overlap")
     n_ops = len(engine.decode_graph.ops)
     print(f"decode step: {n_ops} traced aten ops ({n_ops / cfg.n_layers:.1f} "
           f"per layer)")
@@ -161,9 +195,17 @@ def run(argv: list[str] | None = None) -> dict:
         "state_leaves": len(report.state_plan.leaves),
         "startup_lint_s": report.startup_lint_s,
         "startup_lint_findings": report.startup_lint_findings,
+        "startup_lint_warnings": list(report.startup_lint_warnings),
         "allocator_step_peak_bytes": report.allocator_step_peak_bytes,
         "state_planned_bytes": report.state_planned_bytes,
         "state_live_bytes": report.state_live_bytes,
+        # the state buffer's bytes (under paging the null page and the pool)
+        "allocated_bytes": engine.state.buf.numel(),
+        "page_size": final_report.state_page_size,
+        "state_pages_total": pages_total,
+        "state_pages_live": pages_live,
+        "pages_live_peak": pages_peak,
+        "page_log": engine.page_log,
         "state_ptr_before": state_ptr,
         "state_ptr_after": engine.state.buf.data_ptr(),
         "arena_ptr_before": arena_ptr,

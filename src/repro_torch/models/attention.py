@@ -33,6 +33,12 @@ not its out-of-bounds trick (an OOB ``index_put_`` is a device-side
 assert on CUDA): every row writes ``where(active, new, old)`` at its
 slot. Nothing here reads a value back to the host, and no shape depends
 on ``pos``.
+
+A global layer's cache may also be PAGED (``models/paged.PagedLeaf``:
+the engine's page pool, its page table and the leaf's address in a slot
+region). The write then goes through the table (``_write_kv_paged``),
+the kernel core is ``repro_torch::flash_decode_paged``, and the plain
+core attends over the rows gathered through the table.
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.models.layers import init_linear, init_rms, rms_norm, rope
+from repro_torch.models.paged import PagedLeaf, kv_rows
 
 NEG_INF = -1e30
 
@@ -86,6 +93,24 @@ def _write_kv(k_cache, v_cache, k, v, slot_b, active):
         v_new = torch.where(keep, v_new, v_cache[rows, slot_b])
     k_cache[rows, slot_b] = k_new
     v_cache[rows, slot_b] = v_new
+
+
+def _write_kv_paged(k_cache: PagedLeaf, v_cache: PagedLeaf, k, v, slot_b, active):
+    """``_write_kv`` through the page table: each row's physical elements
+    come from the table and the leaves' addresses (``kv_rows``), and every
+    row writes ``where(active, new, old)`` with ``old`` read through the
+    table. An inactive slot's row may resolve to the null page (an entry
+    of a retired slot whose page another slot took, or of a slot never
+    mapped); the null page is all zeros, so such a row reads zeros and
+    writes them back, and the duplicate indices ``index_put_`` gets there
+    all carry the same zeros. An active slot's rows lie in pages its
+    admission mapped, which no other slot maps."""
+    buf = k_cache.buf
+    idx = kv_rows(k_cache, v_cache, slot_b)  # (B, 2, KV·D)
+    new = torch.stack([k[:, 0], v[:, 0]], dim=1).reshape(idx.shape).to(buf.dtype)
+    if active is not None:
+        new = torch.where(active[:, None, None], new, buf[idx])
+    buf[idx] = new
 
 
 def _gqa_scores(q, k):
@@ -223,14 +248,21 @@ def attn_decode(
     with p % T == i, is read when ``pos - window < p``."""
     B = x.shape[0]
     k_cache, v_cache = cache
-    T = k_cache.shape[1]
+    paged = isinstance(k_cache, PagedLeaf)
+    T = k_cache.shape[0] if paged else k_cache.shape[1]
     pos_b = _positions(pos, B, x.device)
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos_b[:, None],
                            theta, eps, rope_freqs)
     slot_b = pos_b % T if window is not None else torch.clamp(pos_b, max=T - 1)
-    _write_kv(k_cache, v_cache, k, v, slot_b, active)
+    if paged:
+        # a paged cache is global (the engine pages no ring)
+        _write_kv_paged(k_cache, v_cache, k, v, slot_b, active)
+        k_read, v_read = k_cache.gather(), v_cache.gather()
+    else:
+        _write_kv(k_cache, v_cache, k, v, slot_b, active)
+        k_read, v_read = k_cache, v_cache
     scale = 1.0 / np.sqrt(head_dim)
-    s = _gqa_scores(q, k_cache).float() * scale  # (B,H,1,T)
+    s = _gqa_scores(q, k_read).float() * scale  # (B,H,1,T)
     idx = torch.arange(T, device=x.device)[None, None, None, :]
     pb = pos_b[:, None, None, None]
     if window is None:
@@ -241,7 +273,7 @@ def attn_decode(
         mask = (slot_pos >= 0) & (slot_pos <= pb) & (slot_pos > pb - window)
     s = torch.where(mask, s, NEG_INF)
     probs = torch.softmax(s, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, v_cache)  # (B,1,H*D)
+    out = _gqa_out(probs, v_read)  # (B,1,H*D)
     return out @ p["wo"], (k_cache, v_cache)
 
 
@@ -264,7 +296,8 @@ def attn_decode_kernel(
     core: the K/V write, then single-pass attention over the cache at
     ``lengths = min(pos+1, T)``. Window layers take the plain decode,
     as in the reference: the kernel reads positions [0, length), not a
-    ring."""
+    ring. A paged cache is written through the table and read by
+    ``repro_torch::flash_decode_paged``."""
     if window is not None:
         return attn_decode(
             p, x, cache, pos, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
@@ -273,14 +306,23 @@ def attn_decode_kernel(
         )
     B = x.shape[0]
     k_cache, v_cache = cache
-    T = k_cache.shape[1]
+    paged = isinstance(k_cache, PagedLeaf)
+    T = k_cache.shape[0] if paged else k_cache.shape[1]
     pos_b = _positions(pos, B, x.device)
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos_b[:, None],
                            theta, eps, rope_freqs)
-    _write_kv(k_cache, v_cache, k, v, torch.clamp(pos_b, max=T - 1), active)
+    slot_b = torch.clamp(pos_b, max=T - 1)
     G = n_heads // n_kv
     q_k = q.reshape(B, n_kv, G, head_dim)
     lengths = torch.clamp(pos_b + 1, max=T).to(torch.int32)
-    o = flash_decode(q_k, k_cache, v_cache, lengths)
+    if paged:
+        _write_kv_paged(k_cache, v_cache, k, v, slot_b, active)
+        st, sh, _ = k_cache.strides
+        o = flash_decode_paged(q_k, k_cache.buf, k_cache.table, k_cache.offset,
+                               v_cache.offset, st, sh, T, k_cache.page_elems,
+                               lengths)
+    else:
+        _write_kv(k_cache, v_cache, k, v, slot_b, active)
+        o = flash_decode(q_k, k_cache, v_cache, lengths)
     out = o.reshape(B, 1, n_heads * head_dim)
     return out @ p["wo"], (k_cache, v_cache)

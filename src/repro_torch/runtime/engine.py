@@ -27,13 +27,25 @@ token budget / max_len. ``block_size=1`` is the single-wave host loop
 ``block_size=K > 1`` runs up to K waves per host sync with on-device
 sampling and stop detection (the reference's scan-block decode).
 
-With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
-certifies its unified plan (activation and state) with
-``analysis/soundness.certify_unified`` before it captures or serves
-anything, and refuses a plan with findings (``LintGateError``).
+With ``page_size`` the state is PAGED (``runtime/paging.py``, the
+reference's ``page_size``/``page_pool``): the state plan is
+``plan_paged_state`` over the axes ``detect_state_axes`` finds, the
+buffer is a pool of ``page_pool`` pages (default: enough to map every
+slot fully) plus the null page, admission maps the pages a request's
+cache length touches before it takes a slot (head-of-line: a request
+that does not fit waits for a retirement, and with no slot active
+``PagedOutOfPagesError`` propagates), and retirement frees them. The
+decode step writes and reads the K/V caches through the page table.
+This slice pages global K/V caches only; a sliding-window ring or a
+Mamba2 state raises ``NotImplementedError`` (ROADMAP A10.2).
 
-Left for later slices, each raising ``NotImplementedError``: plan
-sessions and bundles (ROADMAP A12) and paged state (A10).
+With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
+certifies its unified plan (activation and state, the paged extras
+included) with ``analysis/soundness.certify_unified`` before it captures
+or serves anything, and refuses a plan with findings (``LintGateError``).
+
+Left for a later slice, raising ``NotImplementedError``: plan sessions
+and bundles (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -51,11 +63,14 @@ from repro_torch.analysis.findings import LintGateError, Report
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import unified
 from repro_torch.core.planner import MemoryPlan
-from repro_torch.core.unified import StatePlan, plan_state, state_records_from_cache
+from repro_torch.core.unified import (StatePlan, detect_state_axes, plan_paged_state,
+                                     plan_state, state_records_from_cache)
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.arena import ArenaLayout
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.executor import ArenaExecutor
+from repro_torch.runtime.paging import (PagedOutOfPagesError, PagedResidentState,
+                                       PagedStateResidency)
 from repro_torch.runtime.residency import BlockOut, ResidentState, StateResidency
 from repro_torch.runtime.sampling import SamplingParams, TokenSampler, host_probs
 
@@ -103,7 +118,9 @@ class _Inflight:
 @dataclasses.dataclass
 class MemoryReport:
     activation_plan: MemoryPlan
-    # exact per-slot state bytes — the StatePlan's slot region size
+    # exact per-slot state bytes — the StatePlan's slot region size; under
+    # paging the live-page bytes per active slot (``engine.memory_report``
+    # refreshes it)
     cache_bytes_per_slot: int
     n_slots: int
     state_plan: StatePlan
@@ -127,9 +144,17 @@ class MemoryReport:
     capture_calls: int = 0
     capture_s: float | None = None
     # the startup lint (soundness.certify_unified) over the unified plan:
-    # its seconds and findings (None when it did not run)
+    # its seconds and findings (None when it did not run), and the codes
+    # of its warnings (an error refuses the plan): a paged pool smaller
+    # than one slot's pages warns "paged-pool-short"
     startup_lint_s: float | None = None
     startup_lint_findings: int | None = None
+    startup_lint_warnings: tuple[str, ...] = ()
+    # paged state (None on the symmetric backend): the pool's pages, the
+    # pages held by active slots, and the page size
+    state_pages_total: int | None = None
+    state_pages_live: int | None = None
+    state_page_size: int | None = None
 
     @property
     def state_planned_bytes(self) -> int:
@@ -162,11 +187,25 @@ class MemoryReport:
             f"unified footprint (activation + state): "
             f"{self.unified_total_bytes / 2**20:.3f} MiB"
         )
-        lines.append(
-            f"state residency: ON — live device state "
-            f"{self.state_live_bytes / 2**20:.3f} MiB in one plan-backed "
-            f"allocation"
-        )
+        if self.state_pages_total is not None:
+            live = self.state_pages_live or 0
+            page = self.state_page_size or 0
+            lines.append(
+                f"paged state: {live}/{self.state_pages_total} pool pages "
+                f"live ({live * page / 2**20:.3f} MiB of "
+                f"{self.state_planned_bytes / 2**20:.3f} MiB logical)"
+            )
+            lines.append(
+                f"state residency: ON (paged) — live device state "
+                f"{self.state_live_bytes / 2**20:.3f} MiB across "
+                f"page-table-mapped pool pages"
+            )
+        else:
+            lines.append(
+                f"state residency: ON — live device state "
+                f"{self.state_live_bytes / 2**20:.3f} MiB in one plan-backed "
+                f"allocation"
+            )
         lines.append(
             f"KV/state cache: {self.cache_bytes_per_slot / 2**20:.3f} MiB/slot "
             f"x {self.n_slots} slots"
@@ -201,7 +240,11 @@ class InferenceEngine:
         # (parity checks only)
         cores: str = "kernel",
         session=None,
+        # paged state (None = symmetric max_len slot regions): the page
+        # size in bytes and the pool size in pages (None = enough to map
+        # every slot fully)
         page_size: int | None = None,
+        page_pool: int | None = None,
         # certify the unified plan at startup with the static analyzer
         # (analysis/soundness); None -> the REPRO_STARTUP_LINT env knob
         # (default: off), as in the reference
@@ -210,8 +253,18 @@ class InferenceEngine:
         if session is not None:
             raise _later("session= (plan sessions and bundles)",
                          "the compile/artifact slice (ROADMAP A12)")
-        if page_size:
-            raise _later("page_size (paged state)", "the paging slice (ROADMAP A10)")
+        self.page_size = None if not page_size else int(page_size)
+        self.page_pool = None if page_pool is None else int(page_pool)
+        if self.page_size is not None:
+            if self.page_size <= 0:
+                raise ValueError(f"page_size must be positive, got {page_size}")
+            unpaged = [s for s in (*cfg.period, *cfg.remainder)
+                       if s.mixer != "attn" or s.window or s.shared_attn]
+            if unpaged:
+                raise _later(
+                    f"page_size on {cfg.name}: paging a sliding-window ring, a "
+                    f"Mamba2 state or the shared block's cache ({unpaged[0]})",
+                    "the next paging slice (ROADMAP A10.2)")
         self.block_size = int(block_size)
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -222,6 +275,11 @@ class InferenceEngine:
         self.temperature = self.sampling.temperature
         self.top_k = self.sampling.top_k
         self.device = resolve_device(device)
+        if self.paged and self.device.type == "cuda" and cores == "kernel" \
+                and self.page_size % 16:
+            # flash_decode_paged loads 16-byte chunks, each inside one page
+            raise ValueError(f"page_size {self.page_size}: the card's paged kernel "
+                             f"takes whole 16-byte multiples")
         self.cfg = cfg
         self.model = DecoderModel(cfg, self.device, cores=cores)
         self.params = params
@@ -233,15 +291,24 @@ class InferenceEngine:
         self._sample_seed = sample_seed
 
         # --- cross-step state: plan the slot/KV layout from a shape-only
-        # template, then allocate the ONE buffer and bind the views
+        # template, then allocate the ONE buffer and bind it
         template = self.model.init_cache(n_slots, max_len, device="meta")
         state_records = state_records_from_cache(template, n_slots=n_slots)
-        state_plan = plan_state(state_records, n_slots=n_slots, max_len=max_len)
+        if self.paged:
+            state_plan = plan_paged_state(
+                state_records, n_slots=n_slots, max_len=max_len,
+                page_size=self.page_size, page_pool=self.page_pool,
+                axes=detect_state_axes(self.model.init_cache, n_slots=n_slots,
+                                       max_len=max_len),
+            )
+        else:
+            state_plan = plan_state(state_records, n_slots=n_slots, max_len=max_len)
         self.state_layout = ArenaLayout.from_state_plan(state_plan)
-        self.residency = StateResidency(
-            state_plan, template, n_slots=n_slots, layout=self.state_layout
-        )
-        self.state = ResidentState(self.model, self.residency, self.device)
+        residency, backend = ((PagedStateResidency, PagedResidentState) if self.paged
+                              else (StateResidency, ResidentState))
+        self.residency = residency(state_plan, template, n_slots=n_slots,
+                                   layout=self.state_layout)
+        self.state = backend(self.model, self.residency, self.device)
 
         # --- activation half: trace the decode step once (fake tensors:
         # nothing runs, nothing is allocated), plan it, and allocate its
@@ -251,11 +318,21 @@ class InferenceEngine:
         act0 = torch.ones((n_slots,), dtype=torch.bool, device=self.device)
         model = self.model
 
-        def _decode_fn(p, tables, t, c, pos, act):
-            return model.decode_step(p, t, c, pos, act, **tables)
+        if self.paged:
+            bind = self.residency.bind
+
+            def _decode_fn(p, tables, t, c, pos, act):
+                # the pool and the table are the step's state inputs; each
+                # layer gets its leaves' page addresses over them
+                logits, _ = model.decode_step(p, t, bind(c["buf"], c["table"]),
+                                              pos, act, **tables)
+                return logits, c
+        else:
+            def _decode_fn(p, tables, t, c, pos, act):
+                return model.decode_step(p, t, c, pos, act, **tables)
 
         self.executor = ArenaExecutor(
-            _decode_fn, params, model.rope_tables, tok0, self.state.caches,
+            _decode_fn, params, model.rope_tables, tok0, self.state.inputs,
             pos0, act0, device=self.device, name=f"{cfg.name}-decode",
         )
         self.decode_graph = self.executor.graph
@@ -270,6 +347,7 @@ class InferenceEngine:
                 plan.records, state_records),
         )
         lint_s = lint_findings = None
+        lint_warnings: tuple[str, ...] = ()
         if (
             startup_lint
             if startup_lint is not None
@@ -284,6 +362,7 @@ class InferenceEngine:
                 checked=f"{cfg.name}-startup",
             )
             lint_s, lint_findings = time.perf_counter() - t0, len(report.findings)
+            lint_warnings = tuple(f.code for f in report.warnings)
             if not report.ok():
                 raise LintGateError(
                     report, context="startup lint refused the unified plan"
@@ -300,7 +379,7 @@ class InferenceEngine:
         stats = self.executor.stats
         self._memory_report = MemoryReport(
             activation_plan=plan,
-            cache_bytes_per_slot=state_plan.bytes_per_slot,
+            cache_bytes_per_slot=0 if self.paged else state_plan.bytes_per_slot,
             n_slots=n_slots,
             state_plan=state_plan,
             state_live_bytes=self.state.live_bytes,
@@ -314,6 +393,10 @@ class InferenceEngine:
             capture_s=capture_s if captured else None,
             startup_lint_s=lint_s,
             startup_lint_findings=lint_findings,
+            startup_lint_warnings=lint_warnings,
+            state_pages_total=self.state.pages_total if self.paged else None,
+            state_pages_live=0 if self.paged else None,
+            state_page_size=self.page_size,
         )
 
         # serving state — per-slot positions (continuous batching: every
@@ -344,12 +427,36 @@ class InferenceEngine:
 
     @property
     def caches(self):
-        """The live cache structure: views into the one state buffer."""
+        """The live cache structure: views into the one state buffer, or
+        under paging the caches gathered through the page table."""
         return self.state.caches
 
     @property
+    def paged(self) -> bool:
+        return self.page_size is not None
+
+    @property
     def memory_report(self) -> MemoryReport:
-        return self._memory_report
+        """The planned-vs-live report. Under paging the live fields are
+        refreshed on access: ``cache_bytes_per_slot`` is the live-page
+        bytes per active slot, and ``state_pages_live`` and
+        ``state_live_bytes`` follow the pool."""
+        rep = self._memory_report
+        if not self.paged:
+            return rep
+        return dataclasses.replace(
+            rep,
+            cache_bytes_per_slot=self.state.live_bytes // max(len(self._active), 1),
+            state_pages_live=self.state.pages_live,
+            state_live_bytes=self.state.live_bytes,
+        )
+
+    @property
+    def page_log(self) -> list[tuple[int, int, int, int]]:
+        """Page occupancy intervals ``(page, admitted_wave, finished_wave,
+        request_id)``, the page-granular twin of ``slot_log`` (empty on
+        the symmetric backend), audited by ``shared_objects.from_page_log``."""
+        return list(getattr(self.state, "page_log", []))
 
     def _step_tokens(self, tokens: np.ndarray, pos: np.ndarray,
                      active: np.ndarray) -> torch.Tensor:
@@ -373,6 +480,23 @@ class InferenceEngine:
     def _admit(self) -> None:
         free = [s for s in range(self.n_slots) if s not in self._active]
         while free and self._queue:
+            if self.paged:
+                # allocate before admitting: map the pages the head request
+                # needs (its cache never grows past prompt + budget, capped
+                # by the bucket) before touching any slot state. A refused
+                # allocation changes nothing: with active slots, admission
+                # waits for a retirement (FIFO head of line, so the schedule
+                # stays deterministic); with none, the whole pool is free,
+                # the request can never fit, and the error propagates
+                req = self._queue[0]
+                needed = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+                try:
+                    self.state.allocate_slot(free[0], needed, rid=req.request_id,
+                                             wave=self._wave)
+                except PagedOutOfPagesError:
+                    if self._active:
+                        break
+                    raise
             slot = free.pop(0)
             req = self._queue.pop(0)
             req.admitted_wave = self._wave
@@ -439,6 +563,8 @@ class InferenceEngine:
                 )
                 finished.append(req)
                 del self._active[slot]
+                if self.paged:
+                    self.state.free_slot(slot, self._wave)
         self._wave += 1
         return finished
 
@@ -543,6 +669,8 @@ class InferenceEngine:
                     )
                     finished.append(req)
                     del self._active[slot]
+                    if self.paged:
+                        self.state.free_slot(slot, wave)
         self._wave = inflight.base_wave + inflight.length
         return finished
 

@@ -37,21 +37,33 @@ from repro_torch.kernels import flash_decode, ssd_chunk
 
 # CUDA graph captures this process (the reference's COMPILE_CALLS)
 CAPTURE_CALLS = 0
+# kernel -> (its wrapper's module, the module's count of its launches)
+_COUNTS = {"flash_decode": (flash_decode, "LAUNCHES"),
+           "flash_decode_paged": (flash_decode, "PAGED_LAUNCHES"),
+           "ssd_chunk": (ssd_chunk, "LAUNCHES")}
 # kernel -> its launches made by replays of captured graphs
-REPLAYED_LAUNCHES: dict[str, int] = {"flash_decode": 0, "ssd_chunk": 0}
+REPLAYED_LAUNCHES: dict[str, int] = {k: 0 for k in _COUNTS}
 
-_WRAPPERS = {"flash_decode": flash_decode, "ssd_chunk": ssd_chunk}
+
+def wrapper_launches() -> dict[str, int]:
+    """The launches each kernel's wrapper made itself (eager calls)."""
+    return {k: getattr(m, attr) for k, (m, attr) in _COUNTS.items()}
+
+
+def _set_wrapper_launches(counts: dict[str, int]) -> None:
+    for k, (m, attr) in _COUNTS.items():
+        setattr(m, attr, counts[k])
 
 
 def kernel_launches() -> dict[str, int]:
     """Every launch of each hand-written kernel: by its wrapper (eager)
     plus by replays of the graphs that captured it."""
-    return {k: m.LAUNCHES + REPLAYED_LAUNCHES[k] for k, m in _WRAPPERS.items()}
+    return {k: n + REPLAYED_LAUNCHES[k] for k, n in wrapper_launches().items()}
 
 
 def reset_kernel_launches() -> None:
-    for k, m in _WRAPPERS.items():
-        m.LAUNCHES = 0
+    _set_wrapper_launches({k: 0 for k in _COUNTS})
+    for k in REPLAYED_LAUNCHES:
         REPLAYED_LAUNCHES[k] = 0
 
 
@@ -92,7 +104,7 @@ class CapturedStep:
             fn()  # warm-up: real launches, counted by the wrappers
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        before = {k: m.LAUNCHES for k, m in _WRAPPERS.items()}
+        before = wrapper_launches()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -105,9 +117,8 @@ class CapturedStep:
         # was allocated before it: what the graph needs from its pool
         self.capture_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
         # what the graph holds per replay; the wrappers launched nothing
-        self.launches = {k: m.LAUNCHES - before[k] for k, m in _WRAPPERS.items()}
-        for k, m in _WRAPPERS.items():
-            m.LAUNCHES = before[k]
+        self.launches = {k: n - before[k] for k, n in wrapper_launches().items()}
+        _set_wrapper_launches(before)
         self.replays = 0
         CAPTURE_CALLS += 1
 

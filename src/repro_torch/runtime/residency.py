@@ -224,12 +224,21 @@ class ResidentState:
         self.model = model
         self.device = torch.device(device)
         self.buf = residency.init_buffer(self.device)
-        self.caches = residency.views(self.buf)
+        # the state argument of the step: what it reads and writes in place
+        self.inputs = self._inputs(residency)
         self.graphs: dict[str, Any] = {}
         self.pool = None
         # set by analysis/decode_lint: raise on any host sync while a
         # block's waves are replayed
         self.sync_guard = False
+
+    def _inputs(self, residency: StateResidency) -> Any:
+        return residency.views(self.buf)
+
+    @property
+    def caches(self) -> Any:
+        """The cache structure: the views into the state buffer."""
+        return self.inputs
 
     # ------------------------------------------------------------- bind
     def start(self, executor, params, tables, sampler, *, n_slots: int,
@@ -237,7 +246,7 @@ class ResidentState:
         """Build the static inputs and, on the card, capture the steps.
         ``tables`` are the model's constant inputs (``rope_tables``)."""
         n, dev = n_slots, self.device
-        caches = self.caches
+        caches = self.inputs
 
         def decode(tokens, pos, active):
             logits, _ = executor(params, tables, tokens, caches, pos, active)

@@ -703,3 +703,175 @@ def test_smem_plan_against_the_kernels_request(cuda, kernel, shape):
         gap = 8 * (4 if shape["dtype"] == "bfloat16" else 8)  # warps' float64 totals
     assert kp.fits and requested <= limit
     assert kp.plan.total_size == requested - gap
+
+
+# ------------------------------------------------------------ paged state
+
+
+def _paged_pool(rng, B, KV, D, T, dtype, page_bytes, lengths, shuffled, device):
+    """One layer's K and V for B slots in a pool of pages: K 48 bytes into
+    the slot region, V 16 bytes past K's end; row b of the table maps the
+    pages slot b's first ``lengths[b]`` positions touch (ascending, or in a
+    random physical order), 0 (the null page) elsewhere. Returns the op's
+    arguments before ``lengths``."""
+    dt = getattr(torch, dtype)
+    vec = 16 // dt.itemsize
+    pe = page_bytes // dt.itemsize
+    st, sh = KV * D, D
+    k_off = 3 * vec
+    v_off = k_off + T * st + vec
+    pps = -(-(v_off + T * st) // pe)
+    phys = np.arange(1, B * pps + 1)
+    if shuffled:
+        phys = rng.permutation(phys)
+    table = phys.reshape(B, pps).astype(np.int32)
+    for b, n in enumerate(lengths):
+        need = np.zeros(pps, bool)
+        for off in (k_off, v_off):
+            need[off // pe:(off + n * st - 1) // pe + 1] = True
+        table[b] = np.where(need, table[b], 0)
+    buf = _rand(rng, ((B * pps + 1) * pe,), dtype, device)
+    buf[:pe] = 0
+    return (buf, torch.from_numpy(table).to(device), k_off, v_off, st, sh, T, pe)
+
+
+def _paged_gather(args, KV, D):
+    from repro_torch.kernels.ref import paged_index
+
+    buf, table, k_off, v_off, st, sh, T, pe = args
+    return tuple(buf[paged_index(table, off, (st, sh, 1), (T, KV, D), pe)]
+                 for off in (k_off, v_off))
+
+
+@pytest.mark.parametrize("page_bytes", [16384, 1040])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_flash_decode_paged_kernel_matches_plain_and_flash_decode(
+        cuda, shuffled, dtype, page_bytes):
+    """The paged kernel against its plain version in fp32 on the same pool
+    and table (null pages past the lengths, a length-1 row), and bit for
+    bit against ``flash_decode`` on the cache gathered out of the pool."""
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+
+    rng = np.random.default_rng(16)
+    B, KV, G, D, T = 3, 2, 2, 64, 1024
+    lengths = (1, 385, 1024)
+    args = _paged_pool(rng, B, KV, D, T, dtype, page_bytes, lengths, shuffled, cuda)
+    q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = fd.PAGED_LAUNCHES
+    got = fd.flash_decode_paged(q, *args, lens)
+    assert fd.PAGED_LAUNCHES == before + 1
+    want = flash_decode_paged_ref(q.float(), args[0].float(), *args[1:], lens)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    k, v = _paged_gather(args, KV, D)
+    assert torch.equal(got, fd.flash_decode(q, k, v, lens))
+
+
+def test_flash_decode_paged_refuses_a_page_of_no_whole_chunks(cuda):
+    rng = np.random.default_rng(17)
+    args = _paged_pool(rng, 2, 2, 64, 128, "float32", 1000, (5, 128), False, cuda)
+    q = _rand(rng, (2, 2, 2, 64), "float32", cuda)
+    lens = torch.tensor((5, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fd.flash_decode_paged(q, *args, lens)
+    cfg, params = _qwen(cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        InferenceEngine(cfg, params, n_slots=2, max_len=32, device=cuda, page_size=1000)
+
+
+def test_a_table_update_between_two_replays_of_one_captured_step(cuda):
+    """One captured ``flash_decode_paged`` replayed, the table rewritten in
+    place (another shuffle of the same pages, the pool's pages moved with
+    it, and one slot's pages unmapped), replayed again: each replay reads
+    through the table it finds, equal to the plain version on it."""
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+    from repro_torch.runtime import graphs
+
+    rng = np.random.default_rng(18)
+    B, KV, G, D, T = 4, 2, 2, 64, 512
+    lengths = (512, 100, 1, 300)
+    args = _paged_pool(rng, B, KV, D, T, "bfloat16", 16384, lengths, True, cuda)
+    buf, table = args[0], args[1]
+    q = _rand(rng, (B, KV, G, D), "bfloat16", cuda, Q_STD)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    step = graphs.CapturedStep(lambda: fd.flash_decode_paged(q, *args, lens),
+                               graphs.GraphPool(cuda), name="paged")
+    atol, rtol = TOL["bfloat16"]
+
+    def replay_and_check():
+        out = step.replay().clone()
+        want = flash_decode_paged_ref(q.float(), buf.float(), *args[1:], lens)
+        np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+        return out
+
+    first = replay_and_check()
+    # move every mapped page to another physical page, and the table with it
+    old = table.cpu().numpy()
+    mapped = np.unique(old[old > 0])
+    moved = dict(zip(mapped, rng.permutation(mapped)))
+    pe = args[-1]
+    pages = buf.view(-1, pe)
+    pages[torch.from_numpy(np.array([moved[p] for p in mapped])).to(cuda)] = \
+        pages[torch.from_numpy(mapped).to(cuda)].clone()
+    new = np.vectorize(lambda p: moved.get(p, 0))(old).astype(np.int32)
+    new[3] = 0  # slot 3 unmapped: it reads the null page's zeros
+    ptr = table.data_ptr()
+    table.copy_(torch.from_numpy(new))
+    assert table.data_ptr() == ptr
+    second = replay_and_check()
+    assert torch.equal(first[:3], second[:3])
+    assert not second[3].any()
+    assert step.replays == 2 and step.launches["flash_decode_paged"] == 1
+
+
+def test_paged_reset_transient_stays_within_the_pool(cuda):
+    """Admission's slot reset reads the dropped slots' mapped pages from
+    the host table and gathers no others: across a reset of every slot
+    after a run (each slot still maps its last request's pages), the
+    allocator's peak stays within the pool's bytes, under an eighth of
+    the logical state, and every page the slots mapped reads zero."""
+    cfg, params = _qwen(cuda)
+    eng = InferenceEngine(cfg, params, n_slots=4, max_len=256, device=cuda,
+                          page_size=4096, page_pool=32)
+    _serve(eng, cfg)
+    rows = eng.state._table.copy()
+    assert rows.any()
+    assert 8 * eng.state.allocated_bytes < 4 * eng.memory_report.state_plan.slot_stride
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    eng.state.reset(np.zeros(4, bool))
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.max_memory_allocated(cuda) - base <= eng.state.allocated_bytes
+    pages = eng.state.buf.view(torch.float32).view(-1, 1024)
+    mapped = torch.from_numpy(np.unique(rows[rows > 0]).astype(np.int64)).to(cuda)
+    assert (pages[mapped] == 0).all()
+
+
+def test_paged_engine_on_the_card_equals_the_symmetric_one(cuda):
+    """Reduced qwen3 (fp32) served paged (1 KiB pages) and symmetric on the
+    card, host loop and blocks: tokens and slot logs equal, every decode
+    step a replay holding one flash_decode_paged launch per layer and no
+    flash_decode, the caches gathered through the table byte-identical,
+    and no page live after the drain."""
+    cfg, params = _qwen(cuda)
+    for block_size in (1, 4):
+        sym = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                              block_size=block_size)
+        paged = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                                block_size=block_size, page_size=1024)
+        assert _serve(paged, cfg) == _serve(sym, cfg)
+        assert paged.slot_log == sym.slot_log
+        for name, g in paged.state.graphs.items():
+            assert g.launches["flash_decode_paged"] == cfg.n_layers, name
+            assert g.launches["flash_decode"] == 0, name
+        assert sum(g.replays for g in paged.state.graphs.values()) == paged.decode_calls
+        for a, b in zip(torch.utils._pytree.tree_leaves(paged.caches),
+                        torch.utils._pytree.tree_leaves(sym.caches)):
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+        assert paged.state.pages_live == 0
