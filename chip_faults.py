@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Plant faults in copies of the CUDA kernels and show that
-``chip_smoke.py``'s kernel checks catch them. Needs one card.
+"""Plant faults in copies of the CUDA kernels and of the paged decode
+path, and show that ``chip_smoke.py``'s kernel checks catch them. Needs
+one card.
 
     python3 chip_faults.py        # from the repository root
     python3 chip_faults.py --faults b_c_one_group   # the control and one fault
 
 For each fault below, the port (``src/repro_torch``) and ``chip_smoke.py``
 are copied to ``build/faults/<fault>/`` (ignored by git), the fault is
-planted in the copy's kernel source by text substitutions, and the copy
-runs ``chip_smoke.py --phases kernels --keep-going``: every kernel case is
-checked, and the failed cases of the planted kernel are listed. The
-unplanted kernels are run the same way first, as the control.
+planted in the copy's source by text substitutions (a kernel source, or
+a module of the decode step), and the copy runs ``chip_smoke.py --phases
+kernels --keep-going``: every kernel case is checked, and the failed
+cases of the planted kernel (or of the checks that run the planted
+module) are listed. The unplanted tree is run the same way first, as the
+control.
 
 ``ssd_chunk.cu`` holds two kernels, the tensor-core one (bf16 x/B/C) and
 the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
@@ -18,7 +21,12 @@ the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
 share). ``flash_decode.cu`` builds ``flash_decode`` and
 ``flash_decode_paged`` from one kernel: a ``flash_decode`` fault's run
 lists the cases of both, and ``paged_table_ignored`` is planted in the
-paged address only.
+paged address only. ``ring_clamped`` (``models/attention.py``) writes a
+ring's new K/V row at ``min(pos, T - 1)`` in place of ``pos % T``: the
+wrapped-ring cases must fail, rings before their wrap read right.
+``state_put_ignores_table`` (``models/paged.py``) puts a Mamba2 layer's
+state into logical pages as if the page table were the identity: the
+shuffled paged Mamba2 cases must fail.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -36,7 +44,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("src/repro_torch/kernels/csrc")
 
-# fault -> (kernel, [(text in csrc/<kernel>.cu, its replacement), ...],
+# fault -> (the kernel rows it is judged on, the file planted (in
+#           src/repro_torch), [(text in the file, its replacement), ...],
 #           cases it must fail in every dtype)
 SLOW_CASES = ("slow_L256", "slow_L200_P8", "one_group_slow_L96", "prefill_slow")
 # qwen3's serving shape, and granite-moe's (64, 3): 8 spans of 128 with
@@ -48,24 +57,33 @@ PAGED_SHUFFLED = ("paged_P16384_shuffled", "paged_P65536_shuffled",
                   "paged_P1040_shuffled", "paged_D320_G2_P1040_shuffled",
                   "paged_D320_G2_P16384_shuffled", "paged_D64_G3_P65536_shuffled",
                   "paged_P16384_shuffled_hole", "qwen3_serving_full_shuffled",
-                  "qwen3_serve_mix_shuffled")
+                  "qwen3_serve_mix_shuffled", "gemma3_ring_P65536_shuffled",
+                  "zamba2_P65536_shuffled")
+# the ring cases past their wrap (chip_smoke.py's phase_kernels_ring)
+RING_WRAPPED = ("ring_wrapped_T8_W8", "ring_wrapped_T8_W13", "ring_wrapped_T64_W64",
+                "ring_wrapped_T64_W1024", "ring_wrapped_D320_G2_T1024",
+                "ring_decode_vs_prefill", "gemma3_ring_wrapped")
+# the paged Mamba2 steps (chip_smoke.py's STATE_PUT_CASES)
+STATE_PUT = tuple(f"state_put_{arch}_P{page}_shuffled"
+                  for arch in ("mamba2-2.7b", "zamba2-7b") for page in (16384, 65536))
+SSD, FD = "kernels/csrc/ssd_chunk.cu", "kernels/csrc/flash_decode.cu"
 FAULTS = {
     # y without the incoming state's contribution
-    "drop_y_inter": ("ssd_chunk", [
+    "drop_y_inter": ("ssd_chunk", SSD, [
         ("const float v = acc[k] + expf(static_cast<float>(cum[i])) * inter[k];",
          "const float v = acc[k];"),
         ("for (int e = 0; e < 4; ++e) acc[t][e] *= e < 2 ? e_top : e_bot;",
          "for (int e = 0; e < 4; ++e) acc[t][e] *= 0.f;"),
     ], SLOW_CASES),
     # the new state without state * exp(total)
-    "drop_state_decay": ("ssd_chunk", [
+    "drop_state_decay": ("ssd_chunk", SSD, [
         ("store(nsb + idx, s0 * decay + acc[a]);",
          "store(nsb + idx, acc[a] + 0.f * s0 * decay);"),
         ("store(nsb + idx, s0 * decay + acc[t][e]);",
          "store(nsb + idx, acc[t][e] + 0.f * s0 * decay);"),
     ], SLOW_CASES),
     # the causal mask lets position i see position i + 1
-    "mask_j_eq_i_plus_1": ("ssd_chunk", [
+    "mask_j_eq_i_plus_1": ("ssd_chunk", SSD, [
         ("const bool keep = j <= i && i < L;",
          "const bool keep = j <= i + 1 && j < L && i < L;"),
         ("const bool keep_w = j <= i && i < L;",
@@ -73,39 +91,50 @@ FAULTS = {
     ], SLOW_CASES),
     # every head reads head 0's B and C (their head strides taken as 0): one
     # group still reads right, two groups do not (zamba2's layout)
-    "b_c_one_group": ("ssd_chunk", [
+    "b_c_one_group": ("ssd_chunk", SSD, [
         ("for (int i = 0; i < kStrides; ++i) st.v[i] = strides[i];",
          "for (int i = 0; i < kStrides; ++i) st.v[i] = i == 12 || i == 16 ? 0 : strides[i];"),
     ], ("two_groups_L96", "zamba2_prefill")),
     # W, the decayed x and an fp32 state fed as hi + mid only (tensor cores)
-    "drop_lo": ("ssd_chunk", [
+    "drop_lo": ("ssd_chunk", SSD, [
         ("const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);",
          "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);"),
     ], ()),
     # the merge leaves out the partial of the last span of T
-    "drop_last_span": ("flash_decode", [
+    "drop_last_span": ("flash_decode", FD, [
         ("for (int s = 0; s < n_split; ++s) {",
          "for (int s = 0; s < n_split - 1; ++s) {"),
         ("for (int s = 0; s < n_split; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];",
          "for (int s = 0; s < n_split - 1; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];"),
     ], FD_MUST_FAIL),
     # the merge weighs every partial by 1, not by exp(m_s - m)
-    "merge_weight_one": ("flash_decode", [
+    "merge_weight_one": ("flash_decode", FD, [
         ("const float weight = expf(sm_w[s * G + g] - mx);",
          "const float weight = 1.f;"),
     ], FD_MUST_FAIL),
     # the paged kernel takes a slot's pages as consecutive from its first
     # table entry, as if the table were the identity past it: an ascending
     # table still reads right, a shuffled one does not
-    "paged_table_ignored": ("flash_decode", [
+    "paged_table_ignored": ("flash_decode", FD, [
         ("return buf + static_cast<int64_t>(__ldg(row + page)) * pe + (e - page * pe);",
          "return buf + (static_cast<int64_t>(__ldg(row)) + page) * pe + (e - page * pe);"),
     ], PAGED_SHUFFLED),
+    # a ring written at min(pos, T - 1), as a global cache is: past the
+    # wrap every new row lands on the last slot
+    "ring_clamped": ("flash_decode", "models/attention.py", [
+        ("return pos_b % T if window is not None else torch.clamp(pos_b, max=T - 1)",
+         "return torch.clamp(pos_b, max=T - 1)"),
+    ], RING_WRAPPED),
+    # a Mamba2 layer's state put into logical pages, the table ignored
+    "state_put_ignores_table": ("mamba_decode_paged", "models/paged.py", [
+        ("idx = self.table[:, p0:p1].long()",
+         "idx = torch.arange(p0, p1, device=self.table.device).expand(B, -1)"),
+    ], STATE_PUT),
 }
 
 
 def label(row: dict) -> str:
-    if row["kernel"].startswith("flash_decode"):
+    if "state_dtype" not in row:
         return f"{row['case']}/{row['dtype']}"
     return f"{row['case']}/{row['dtype']}/{row['state_dtype']}"
 
@@ -119,13 +148,13 @@ def run(name: str, fault: tuple | None) -> dict:
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
     kernel = None
     if fault is not None:
-        kernel, subs, _ = fault
-        path = dst / CSRC / f"{kernel}.cu"
+        kernel, planted, subs, _ = fault
+        path = dst / "src" / "repro_torch" / planted
         src = path.read_text()
         for old, new in subs:
             if src.count(old) != 1:
                 raise SystemExit(f"chip_faults: {name}: {old!r} is not in "
-                                 f"{kernel}.cu exactly once")
+                                 f"{planted} exactly once")
             src = src.replace(old, new)
         path.write_text(src)
     out = subprocess.run(
@@ -176,7 +205,7 @@ def main() -> None:
     for name, row in results.items():
         if not row["failed"]:
             problems.append(f"{name} failed no case")
-        must_fail = FAULTS[name][2]
+        must_fail = FAULTS[name][3]
         for case in row["passed_cases"]:
             if case.split("/")[0] in must_fail:
                 problems.append(f"{name} passed {case}")

@@ -46,7 +46,18 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                cache at qwen3-0.6b's serving layout (its own paged plan,
                64 KiB pages, a shuffled table) and at granite's (64, 3);
                timed there beside its plain version, ``flash_decode`` on
-               the gathered cache and the gather alone;
+               the gathered cache and the gather alone, and so at gemma3's
+               ring (8, 4, 2, 320, 1024) and zamba2's shared block (8, 32,
+               1, 224, 2048) from 64 KiB pages. Rings: ``flash_decode`` at
+               ``lengths = min(pos + 1, T)`` after the model's ring write
+               against the ring-masked plain core on a ring written
+               apart, at T of 1 to 1024 before and past the wrap, one
+               full-width gemma3 window layer decoded over 1,100 positions
+               against ``attn_prefill``, and the timing at gemma3-4b's ring
+               in its state buffer beside SDPA under the ring mask. Paged
+               Mamba2 state: ``mamba_decode`` through a shuffled table
+               equal to the symmetric step bit for bit (mamba2-2.7b and
+               zamba2-7b, pages of 16 and 64 KiB);
 4. parity    — a full-width 2-layer fp32 qwen3 engine served twice from one
                seed, with the kernel attention and with the plain
                attention: greedy tokens identical, logits within 1e-4; and
@@ -91,10 +102,10 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                with the serve phase's slots and requests: all finish, the
                state is one buffer of exactly 1,635,778,560 B (29 rings of
                1024 positions, 5 global caches of 2048) that never moves,
-               every decode step is a replay of one graph holding 5
-               flash_decode launches (the global layers; window layers run
-               the plain attention, as in the reference); then 8 steady
-               waves timed and 8 profiled;
+               every decode step is a replay of one graph holding 34
+               flash_decode launches (every layer: a ring is read at
+               ``lengths = min(pos + 1, T)``); then 8 steady waves timed
+               and 8 profiled;
 13. prefill_gemma3 — full-width gemma3-4b prefills 2048 tokens through
                ``ArenaExecutor`` from its certified plan, equal to eager:
                four 512-query chunks per global layer, 1,536-key slices on
@@ -149,12 +160,17 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 23. prefill_internvl2 — full-width internvl2-1b prefills 256 seeded image
                embeddings and 1,792 tokens through ``ArenaExecutor`` from
                its certified plan, equal to eager; no kernel;
-24. parity_paged — a full-width 2-layer fp32 qwen3 engine served with 64
-               KiB pages and a symmetric one from one seed: tokens and slot
-               logs identical, logits bit-equal, every captured paged step
-               bit-equal to the model's eager step on a pool of its own read
-               through the engine's table, and the caches gathered through
-               the table byte-identical to the symmetric engine's;
+24. parity_paged — engines served with 64 KiB pages and symmetric ones
+               from one seed, fp32: a full-width 2-layer qwen3, one
+               full-width period of gemma3-4b with the 1,090-token prompt
+               (every ring wraps), a 2-layer mamba2-2.7b and a 2-layer
+               zamba2-7b (one layer after the shared block): tokens and
+               slot logs identical, logits bit-equal, every captured paged
+               step bit-equal to the model's eager step on a pool of its
+               own read through the engine's table, the caches gathered
+               through the table byte-identical to the symmetric engine's;
+               the last three also served paged with the plain cores,
+               logits within 1e-4;
 25. serve_paged — ``serve.run`` on full-width qwen3-0.6b at 8 slots x 2048
                with the serve phase's requests from a pool of 896 pages of
                64 KiB, just after a symmetric twin of the serve phase's
@@ -170,7 +186,21 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                steady wave, the device copies per wave by kind, the host time
                of one graph launch and the allocator's peak over a replay,
                beside the twin's, both timed at the same point of the run;
-26. smem      — for each kernel instantiation on the paths, the shared
+26. serve_paged_gemma3 — ``serve.run`` on full-width gemma3-4b at 8 slots x
+               2048 from a pool of 18,880 pages of 64 KiB, in a fresh
+               process of this script (no profiler session before its
+               captures), just after a symmetric twin: tokens equal to the
+               twin's and to serve_gemma3's, one buffer of exactly
+               1,237,385,216 B that never moves, pages live at the peak and
+               none after the drain, 34 ``flash_decode_paged`` launches per
+               replay and no ``flash_decode``, the allocator's peak over a
+               replay 0 B, admission's transient below the pool, the plan's
+               carve and certify seconds, aten ops per step, and a steady
+               wave of each engine timed and profiled alike;
+27. serve_paged_zamba2 — the same for zamba2-7b from 13,888 pages
+               (910,229,504 B): 13 launches per replay, the 81 Mamba2
+               layers gathering and putting their state through the table;
+28. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -192,8 +222,8 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25; 7 and 24 for their own
-checks) and read just after it.
+5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, 26, 27; 7 and 24 for
+their own checks) and read just after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -414,9 +444,10 @@ def decode_kv(cfg, caches, period: int = 0):
 
 def flash_decode_per_step(cfg) -> int:
     """``flash_decode`` launches in one decode step of ``cfg``: one per
-    global attention layer and one per insertion of the shared block."""
-    return sum(1 for spec in (*cfg.period * cfg.n_periods, *cfg.remainder)
-               if (spec.mixer == "attn" and spec.window is None) or spec.shared_attn)
+    attention layer, global or ring, and one per insertion of the shared
+    block."""
+    return sum(int(spec.mixer == "attn") + int(spec.shared_attn)
+               for spec in (*cfg.period * cfg.n_periods, *cfg.remainder))
 
 
 def phase_kernels(card_name: str) -> dict:
@@ -920,8 +951,8 @@ def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int,
     ``decode_step``, and, with the plain core too, hold the two engines'
     logits, greedy tokens and slot logs together. Each engine's state is
     its plan, and each of its graphs holds one ``flash_decode`` launch
-    per global attention layer and shared-block insertion on the kernel
-    core, none on the plain one. The row's ``launches`` are the engines' own (the warm-up run of
+    per attention layer (ring or global) and shared-block insertion on
+    the kernel core, none on the plain one. The row's ``launches`` are the engines' own (the warm-up run of
     each capture and the replays): the eager twin's launches are a
     check, counted apart in ``captured_vs_eager``. Returns the row."""
     import numpy as np
@@ -1728,9 +1759,9 @@ GEMMA3_STATE_BYTES = (5 * 8 * 2048 + 29 * 8 * 1024) * 5120  # 1,635,778,560
 def phase_serve_gemma3(card_name: str) -> tuple[dict, dict]:
     """Full-width gemma3-4b (34 layers: 29 window layers of 1024, 5
     global layers) served by ``run_serve``: every decode step a replay of
-    one graph whose flash_decode launches are the 5 global layers', the
-    state exactly 1,635,778,560 B; its roofline reads the rings up to
-    their window."""
+    one graph holding 34 flash_decode launches (every layer: a ring is
+    read at ``lengths = min(pos + 1, T)``), the state exactly
+    1,635,778,560 B; its roofline reads the rings up to their window."""
     return run_serve("serve_gemma3", "gemma3-4b", card_name,
                      lambda b: b == GEMMA3_STATE_BYTES,
                      {"state_mib_if_every_layer_kept_2048": 34 * 8 * 2048 * 5120 / 2**20})
@@ -2047,6 +2078,10 @@ ZAMBA2_STATE_LEAF_BYTES = (13 * 2 * 2048 * 32 * 224
 INTERNVL2_STATE_BYTES = 24 * 2 * 8 * 2048 * 2 * 64 * 2  # 201,326,592
 
 
+# run_serve's tokens by arch, for the paged serves to hold theirs against
+SERVE_TOKENS: dict = {}
+
+
 def run_serve(phase: str, arch: str, card_name: str, state_ok,
               extra: dict | None = None) -> tuple[dict, dict]:
     """``serve.run`` on full-width ``arch`` (bf16, random weights from a
@@ -2069,6 +2104,7 @@ def run_serve(phase: str, arch: str, card_name: str, state_ok,
     engine = stats["engine"]
     cfg = engine.cfg
     toks = stats["tokens_per_request"]
+    SERVE_TOKENS[arch] = toks
     if stats["requests"] != n_req or any(len(t) != max_new for t in toks.values()):
         fail(f"{phase}: {stats['requests']} of {n_req} requests finished, "
              f"lengths {[len(t) for t in toks.values()]}")
@@ -2178,6 +2214,9 @@ PAGE_SIZE = 65536
 PAGE_POOL = 896
 PAGED_BUFFER_BYTES = (PAGE_POOL + 1) * PAGE_SIZE  # 58,785,792
 PAGED_ARGS = ["--page-size", str(PAGE_SIZE), "--page-pool", str(PAGE_POOL)]
+# flash_decode_paged's timing at gemma3-4b's ring and zamba2-7b's shared
+# block (the kernels phase)
+PAGED_TIMING: dict = {}
 # the serve and profile phases' tokens, tokens/s and device ms per wave,
 # for serve_paged to check and report beside its own twin's
 SERVE_NUMBERS: dict = {}
@@ -2381,39 +2420,365 @@ def phase_kernels_paged(card_name: str) -> dict:
         record[label] = row
         del k, v
     del pool, table, args, res
+    # gemma3-4b's ring (every length 1024, after the wrap) and zamba2-7b's
+    # shared block at full lengths: one layer's K and V in a pool of 64 KiB
+    # pages mapped by a shuffled table
+    for label, arch, (KV, G, D, T) in (("gemma3_ring", "gemma3-4b", (4, 2, 320, 1024)),
+                                       ("zamba2", ZAMBA2, (32, 1, 224, 2048))):
+        lengths = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+        args = paged_pool(gen, B, KV, D, T, torch.bfloat16, PAGE_SIZE, [T] * B, True)
+        q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD
+             ).to(torch.bfloat16)
+        err = check(f"{label}_P65536_shuffled", q, args, lengths)
+        bit_equal(label, q, args, lengths)
+        k, v = gathered(args, KV, D)
+        before = fd.PAGED_LAUNCHES, fd.LAUNCHES
+        ms = cuda_time_ms(lambda: fd.flash_decode_paged(q, *args, lengths))
+        plain_ms = cuda_time_ms(lambda: flash_decode_paged_ref(q, *args, lengths))
+        symmetric_ms = cuda_time_ms(lambda: fd.flash_decode(q, k, v, lengths))
+        gather_ms = cuda_time_ms(lambda: gathered(args, KV, D))
+        fd.PAGED_LAUNCHES, fd.LAUNCHES = before
+        bound = kernel_bound("flash_decode", {
+            "B": B, "KV": KV, "G": G, "D": D, "T": T, "dtype": "bfloat16",
+            "sum_lengths": B * T}, card_name=card_name)
+        row = {"phase": "kernels", "kernel": "flash_decode_paged", "timing": label,
+               "arch": arch, "shape": [B, KV, G, D, T], "page_size": PAGE_SIZE,
+               "table": "shuffled", "sum_lengths": B * T, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "library": "none: no PyTorch call reads through a page table",
+               "flash_decode_on_gathered_ms": symmetric_ms, "gather_ms": gather_ms,
+               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+               "bytes": bound.min_bytes, "max_abs_err": err,
+               "n_split": fd.num_splits(B, KV, T)}
+        emit(row)
+        PAGED_TIMING[label] = row
+        del args, k, v
     torch.cuda.empty_cache()
     return record["serving_full"]
 
 
+# flash_decode on gemma3-4b's rings (the kernels phase): a ring of T <= window
+# slots is read at lengths = min(pos + 1, T), which is the ring mask
+RING_TIMING: dict = {}
+GEMMA3_WINDOW = 1024
+
+
+def ring_positions(B: int, T: int, wrapped: bool, gen) -> "torch.Tensor":
+    """Per-slot positions: past the first wrap (every length T, the new
+    row overwriting an old one), or before it (a ring written as a
+    global cache)."""
+    import torch
+
+    lo, hi = (T, 4 * T) if wrapped else (0, T)
+    return torch.randint(lo, hi, (B,), generator=gen, device=DEVICE, dtype=torch.int32)
+
+
+def ring_case(label, q, k, v, pos, window, k_new, v_new, tol) -> tuple[float, bool]:
+    """One decode read of a ring: the new K/V rows written through the
+    model's ring write (``attention._slot``, ``_write_kv``) and the ring read
+    by ``flash_decode`` at ``lengths = min(pos + 1, T)``, against the plain
+    version: a copy of the ring written at ``pos % T`` by plain indexing and
+    read by the reference's ring-masked core (``attention.decode_attention``)
+    in fp32. Returns (max abs err, ok); the caches are written in place."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import attention
+
+    B, T, KV, D = k.shape
+    G = q.shape[2]
+    rows = torch.arange(B, device=DEVICE)
+    k_ref, v_ref = k.float().clone(), v.float().clone()
+    k_ref[rows, pos.long() % T] = k_new[:, 0].float()
+    v_ref[rows, pos.long() % T] = v_new[:, 0].float()
+    want = attention.decode_attention(q.float().reshape(B, 1, KV * G, D), k_ref, v_ref,
+                                      pos, window)
+    attention._write_kv(k, v, k_new, v_new, attention._slot(pos, T, window), None)
+    lengths = torch.clamp(pos + 1, max=T).to(torch.int32)
+    got = fd.flash_decode(q, k, v, lengths).reshape(B, 1, KV * G * D)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    atol, rtol = tol[q.dtype]
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    emit({"phase": "kernels", "kernel": "flash_decode", "case": label,
+          "dtype": str(q.dtype).removeprefix("torch."), "T": T, "window": window,
+          "positions": pos.tolist(), "max_abs_err": float(err.max()),
+          "max_abs_out": float(want.abs().max()), "atol": atol, "rtol": rtol,
+          "ok": ok})
+    if not ok:
+        fail_case(f"flash_decode/{label}/{q.dtype}",
+                  f"flash_decode {label}: max abs err {float(err.max())} over "
+                  f"{atol} + {rtol} * |want|")
+    return float(err.max()), ok
+
+
+def phase_kernels_ring(card_name: str) -> dict:
+    """``flash_decode`` on sliding-window rings against the ring-masked
+    plain core (``ring_case``): small rings (T of 1, 8, 64 under windows
+    of T and more) at positions before and past their wraps, gemma3-4b's
+    ring (8, 4, 2, 320, 1024) in every length wrapped; then one
+    full-width gemma3 window layer decoded token by token through
+    ``attn_decode_kernel`` over 1,100 positions against ``attn_prefill``
+    of the same sequence (an implementation that keeps no ring); then the
+    timing at gemma3-4b's serving layout (a ring of the 8 x 2048 state
+    buffer, every length 1024 after the wrap) beside its bound, the plain
+    core and SDPA under the ring mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.roofline import kernel_bound
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
+
+    def rand(shape, dt, std=0.5):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * std).to(dt)
+
+    def case(label, B, KV, G, D, T, window, wrapped, dt):
+        k, v = rand((B, T, KV, D), dt), rand((B, T, KV, D), dt)
+        q = rand((B, KV, G, D), dt, Q_STD)
+        kn, vn = rand((B, 1, KV, D), dt), rand((B, 1, KV, D), dt)
+        return ring_case(label, q, k, v, ring_positions(B, T, wrapped, gen), window,
+                         kn, vn, tol)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for T, window in ((1, 1), (8, 8), (8, 13), (64, 64), (64, 1024)):
+            for wrapped in (False, True):
+                case(f"ring_{'wrapped' if wrapped else 'unwrapped'}_T{T}_W{window}",
+                     3, 2, 2, 64, T, window, wrapped, dt)
+        case("ring_wrapped_D320_G2_T1024", 8, 4, 2, 320, GEMMA3_WINDOW, GEMMA3_WINDOW,
+             True, dt)
+
+    # one full-width gemma3 window layer, fp32: decode through the ring vs
+    # attn_prefill over the whole sequence
+    cfg = get_config("gemma3-4b")
+    H, KV, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 1100
+    p = attention.attn_init(gen, (), cfg.d_model, H, KV, D, cfg.qk_norm, torch.float32,
+                            DEVICE)
+    kw = dict(n_heads=H, n_kv=KV, head_dim=D, theta=cfg.rope_theta, window=GEMMA3_WINDOW,
+              eps=cfg.rms_eps)
+    x = rand((1, S, cfg.d_model), torch.float32, 1.0)
+    want, _ = attention.attn_prefill(p, x, **kw)
+    ring = tuple(torch.zeros((1, GEMMA3_WINDOW, KV, D), device=DEVICE) for _ in range(2))
+    got = torch.cat([attention.attn_decode_kernel(p, x[:, t:t + 1], ring, t, **kw)[0]
+                     for t in range(S)], dim=1)
+    err = (got - want).abs()
+    ok = bool((err <= 1e-4 + 1e-4 * want.abs()).all())
+    emit({"phase": "kernels", "kernel": "flash_decode", "case": "ring_decode_vs_prefill",
+          "dtype": "float32", "positions": S, "window": GEMMA3_WINDOW,
+          "max_abs_err": float(err.max()),
+          "max_abs_err_after_wrap": float(err[:, GEMMA3_WINDOW:].max()),
+          "atol": 1e-4, "rtol": 1e-4, "ok": ok})
+    if not ok:
+        fail_case("flash_decode/ring_decode_vs_prefill/torch.float32",
+                  f"ring decode vs prefill: max abs err {float(err.max())}")
+    del p, x, want, got, ring
+
+    # the serving layout: gemma3-4b's first ring in the 8 x 2048 state
+    # buffer (bf16), every slot past its wrap
+    B, G = 8, H // KV
+    buf, caches = _residency_cache(cfg, B, 2048, gen)
+    k, v = (leaf[0] for leaf in caches["period"][0]["attn"])
+    T = k.shape[1]
+    q = rand((B, KV, G, D), torch.bfloat16, Q_STD)
+    pos = ring_positions(B, T, True, gen)
+    kn, vn = rand((B, 1, KV, D), torch.bfloat16), rand((B, 1, KV, D), torch.bfloat16)
+    err, _ = ring_case("gemma3_ring_wrapped", q, k, v, pos, GEMMA3_WINDOW, kn, vn, tol)
+    lengths = torch.clamp(pos + 1, max=T).to(torch.int32)
+    q4 = q.reshape(B, 1, H, D)
+    slot_pos = pos[:, None] - ((pos[:, None] - torch.arange(T, device=DEVICE)) % T)
+    mask = ((slot_pos >= 0) & (slot_pos > pos[:, None] - GEMMA3_WINDOW))[:, None, None, :]
+    qs, kt, vt = q4.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).reshape(B, 1, H * D).float()
+                     - attention.decode_attention(q4.float(), k.float(), v.float(), pos,
+                                                  GEMMA3_WINDOW)).abs().max())
+    before = fd.LAUNCHES
+    ms = cuda_time_ms(lambda: fd.flash_decode(q, k, v, lengths))
+    plain_ms = cuda_time_ms(lambda: attention.decode_attention(q4, k, v, pos,
+                                                               GEMMA3_WINDOW))
+    backend, by_backend = sdpa_backends(library)
+    library_ms = cuda_time_ms(library)
+    fd.LAUNCHES = before  # timing launches are not the main path's
+    bound = kernel_bound("flash_decode", {
+        "B": B, "KV": KV, "G": G, "D": D, "T": T, "dtype": "bfloat16",
+        "sum_lengths": int(lengths.sum())}, card_name=card_name)
+    row = {"phase": "kernels", "kernel": "flash_decode", "timing": "gemma3_ring",
+           "arch": cfg.name, "shape": [B, KV, G, D, T], "window": GEMMA3_WINDOW,
+           "sum_lengths": int(lengths.sum()), "ms": ms, "plain_ms": plain_ms,
+           "plain": "attention.decode_attention (the ring-masked plain core)",
+           "library_ms": library_ms, "library_backend": backend,
+           "library_ms_by_backend": by_backend,
+           "library": "F.scaled_dot_product_attention(attn_mask=ring mask, "
+                      "enable_gqa=True)",
+           "library_max_abs_err": lib_err,
+           "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+           "bytes": bound.min_bytes, "max_abs_err": err,
+           "n_split": fd.num_splits(B, KV, T)}
+    emit(row)
+    RING_TIMING.update(row)
+    del buf, caches, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+# Mamba2 states read and written through a shuffled page table (the
+# kernels phase): (arch, page bytes); chip_faults.py's must-fail cases of
+# state_put_ignores_table
+STATE_PUT_CASES = (("mamba2-2.7b", 16384), ("mamba2-2.7b", PAGE_SIZE),
+                   ("zamba2-7b", 16384), ("zamba2-7b", PAGE_SIZE))
+
+
+def phase_kernels_state() -> None:
+    """``mamba_decode`` on paged state against the symmetric step, bit for
+    bit: one full-width period's state (mamba2-2.7b: one Mamba2 layer;
+    zamba2-7b: six and the shared block's K/V) at 8 slots x 96, bf16, laid
+    out by the engine's paged plan, its pool seeded and mapped by a
+    shuffled table, and the same values in the symmetric plan's buffer.
+    One decode of the last Mamba2 layer with two slots inactive: outputs
+    equal, every leaf of the pool (the layer's conv window and state, and
+    their neighbours on shared pages) gathered equal to the symmetric
+    views, and the null page zero."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.unified import (detect_state_axes, iter_leaves,
+                                          plan_paged_state, plan_state,
+                                          state_records_from_cache)
+    from repro_torch.kernels.ref import paged_index
+    from repro_torch.models import ssm
+    from repro_torch.models.api import DecoderModel
+    from repro_torch.runtime.paging import PagedStateResidency
+    from repro_torch.runtime.residency import StateResidency
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    B, T = 8, 96
+    active = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], dtype=torch.bool, device=DEVICE)
+    for arch, page in STATE_PUT_CASES:
+        cfg = dataclasses.replace(get_config(arch), n_periods=1, remainder=())
+        model = DecoderModel(cfg, "meta")
+        template = model.init_cache(B, T, device="meta")
+        records = state_records_from_cache(template, n_slots=B)
+        plan = plan_paged_state(records, n_slots=B, max_len=T, page_size=page,
+                                axes=detect_state_axes(model.init_cache, n_slots=B,
+                                                       max_len=T))
+        res = PagedStateResidency(plan, template, n_slots=B)
+        pool = res.init_buffer(DEVICE)
+        table = (torch.randperm(plan.n_pages_pool, generator=gen, device=DEVICE) + 1
+                 ).reshape(B, plan.pages_per_slot).to(torch.int32)
+        sres = StateResidency(plan_state(records, n_slots=B, max_len=T), template,
+                              n_slots=B)
+        sbuf = sres.init_buffer(DEVICE)
+        sbuf.view(torch.bfloat16).normal_(0.0, 0.5, generator=gen)
+        views = sres.views(sbuf)
+        # the symmetric values into the pool, by plain indexing through the table
+        flat = pool.view(torch.bfloat16)
+        values = dict(iter_leaves(views))
+        for path, leaf in res.leaves(pool, table).items():
+            idx = paged_index(table, leaf.offset, leaf.strides, leaf.shape,
+                              leaf.page_elems)
+            flat[idx] = values[path].movedim(1 if path.startswith("['period']") else 0, 0)
+        j = max(i for i, spec in enumerate(cfg.period) if spec.mixer == "mamba")
+        paged_layer = tuple(leaf[0] for leaf in res.bind(pool, table)["period"][j]["mamba"])
+        sym_layer = tuple(leaf[0] for leaf in views["period"][j]["mamba"])
+        p = ssm.mamba_init(gen, (), cfg.d_model, expand=cfg.ssm_expand,
+                           head_dim=cfg.ssm_head_dim, ngroups=cfg.ssm_groups,
+                           dstate=cfg.ssm_state, conv=cfg.ssm_conv,
+                           dtype=torch.bfloat16, device=DEVICE)
+        x = (torch.randn((B, 1, cfg.d_model), generator=gen, device=DEVICE)
+             ).to(torch.bfloat16)
+        kw = dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                  ngroups=cfg.ssm_groups, dstate=cfg.ssm_state, conv=cfg.ssm_conv,
+                  eps=cfg.rms_eps, active=active)
+        with torch.no_grad():
+            got, _ = ssm.mamba_decode(p, x, paged_layer, **kw)
+            want, _ = ssm.mamba_decode(p, x, sym_layer, **kw)
+        torch.cuda.synchronize()
+        leaves_equal = all(
+            torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+            for a, b in zip(pytree.tree_leaves(res.gather(pool, table)),
+                            pytree.tree_leaves(views), strict=True))
+        null_zero = not bool(pool[:page].any())
+        ok = bool(torch.equal(got, want)) and leaves_equal and null_zero
+        label = f"state_put_{arch}_P{page}_shuffled"
+        emit({"phase": "kernels", "kernel": "mamba_decode_paged", "case": label,
+              "dtype": "bfloat16", "page_size": page, "pages_per_slot": plan.pages_per_slot,
+              "layer": j, "outputs_equal": bool(torch.equal(got, want)),
+              "leaves_byte_identical": leaves_equal, "null_page_zero": null_zero,
+              "max_abs_err": float((got.float() - want.float()).abs().max()), "ok": ok})
+        if not ok:
+            fail_case(f"mamba_decode_paged/{label}",
+                      f"{label}: the paged Mamba2 step differs from the symmetric one")
+        del pool, table, sbuf, views, p
+    torch.cuda.empty_cache()
+
+
 def phase_parity_paged() -> None:
-    """A full-width 2-layer fp32 qwen3 served from one seed by a paged
-    engine (64 KiB pages) and a symmetric one, and beside the paged
+    """Paged engines (64 KiB pages) against symmetric ones from one seed
+    (``run_parity_paged``): a full-width 2-layer fp32 qwen3; gemma3-4b at
+    full width cut to one period (5 rings of 1024 and a global cache),
+    with the 1,090-token prompt of ``parity_gemma3`` so every ring wraps;
+    a 2-layer mamba2-2.7b; zamba2-7b cut to a Mamba2 layer and one after
+    the shared block. The last three are also served with the plain
+    cores (paged), whose logits are held within 1e-4 of the kernel's."""
+    from repro_torch.configs.base import LayerSpec, get_config
+
+    mix = list(zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)))
+    qwen3 = dataclasses.replace(get_config("qwen3-0.6b"), n_periods=2, dtype="float32")
+    run_parity_paged(qwen3, mix, n_slots=4, max_len=128, plain=False)
+    gemma3 = dataclasses.replace(get_config("gemma3-4b"), n_periods=1, remainder=(),
+                                 dtype="float32")
+    run_parity_paged(gemma3, [(1090, 16), (37, 20), (5, 12)], n_slots=2, max_len=1280)
+    mamba2 = dataclasses.replace(get_config("mamba2-2.7b"), n_periods=2, dtype="float32")
+    run_parity_paged(mamba2, mix, n_slots=4, max_len=128)
+    zamba2 = dataclasses.replace(
+        get_config(ZAMBA2), n_periods=1, remainder=(), dtype="float32",
+        period=(LayerSpec(mixer="mamba", ffn="none"),
+                LayerSpec(mixer="mamba", ffn="none", shared_attn=True)))
+    run_parity_paged(zamba2, mix, n_slots=4, max_len=128)
+
+
+def run_parity_paged(cfg, requests, *, n_slots: int, max_len: int,
+                     plain: bool = True) -> None:
+    """``cfg`` served from one seed by a paged engine (64 KiB pages) and a
+    symmetric one, both with the kernel cores, and beside the paged
     engine the model's eager ``decode_step`` on a pool of its own read
     through the engine's table: tokens and slot logs identical, logits
     bit-equal (the paged kernel is the symmetric one with other
-    addresses), every captured paged step bit-equal to the eager paged
-    step, the twin's pool byte-identical to the engine's, and the caches
+    addresses, a paged Mamba2 layer the symmetric arithmetic on gathered
+    rows), every captured paged step bit-equal to the eager paged step,
+    the twin's pool byte-identical to the engine's, and the caches
     gathered through the table byte-identical to the symmetric engine's
-    after the run. The paged graph holds 2 ``flash_decode_paged``
-    launches per replay and no ``flash_decode``."""
+    after the run. The paged graph holds one ``flash_decode_paged``
+    launch per attention layer and shared-block insertion and no
+    ``flash_decode``. With ``plain``, a third engine serves the same
+    requests paged with the plain cores: the same tokens, logits within
+    1e-4 + 1e-4·|plain|."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core.shared_objects import from_page_log
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.api import DecoderModel
     from repro_torch.runtime.engine import InferenceEngine
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_periods=2, dtype="float32")
-    n_slots, max_len = 4, 128
-    requests = list(zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = DecoderModel(cfg, DEVICE).init(gen)
     reset_launches()
-    ep = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
-                         device=DEVICE, page_size=PAGE_SIZE)
-    es = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len, device=DEVICE)
+    kw = dict(n_slots=n_slots, max_len=max_len, device=DEVICE)
+    engines = {"paged": InferenceEngine(cfg, params, page_size=PAGE_SIZE, **kw),
+               "symmetric": InferenceEngine(cfg, params, **kw)}
+    if plain:
+        engines["plain"] = InferenceEngine(cfg, params, page_size=PAGE_SIZE,
+                                           cores="plain", **kw)
+    ep, es = engines["paged"], engines["symmetric"]
     twin_buf = torch.zeros_like(ep.state.buf)
     twin = ep.residency.bind(twin_buf, ep.state.table)
     checked = {"steps": 0, "bitwise": 0}
@@ -2432,8 +2797,8 @@ def phase_parity_paged() -> None:
         checked["steps"] += 1
         checked["bitwise"] += int(torch.equal(got, want.float()))
         if not torch.equal(got, want.float()):
-            fail(f"parity_paged: captured paged step differs from the eager one "
-                 f"by {float((got - want).abs().max())}")
+            fail(f"parity_paged {cfg.name}: captured paged step differs from the "
+                 f"eager one by {float((got - want).abs().max())}")
         return got
 
     def checked_reset(keep):
@@ -2445,51 +2810,75 @@ def phase_parity_paged() -> None:
     rng = np.random.default_rng(0)
     for n, new in requests:
         prompt = rng.integers(0, cfg.vocab, size=n).astype(np.int32)
-        for e in (ep, es):
+        for e in engines.values():
             e.submit(prompt, max_new_tokens=new)
-    done = {"paged": {}, "symmetric": {}}
-    while ep.unfinished_requests() or es.unfinished_requests():
-        done["paged"].update({r.request_id: r.tokens for r in ep.step()})
-        done["symmetric"].update({r.request_id: r.tokens for r in es.step()})
-        if ep.last_logits is not None and not np.array_equal(ep.last_logits,
-                                                             es.last_logits):
-            fail(f"parity_paged: logits differ by "
+    done = {name: {} for name in engines}
+    worst = 0.0
+    while any(e.unfinished_requests() for e in engines.values()):
+        for name, e in engines.items():
+            done[name].update({r.request_id: r.tokens for r in e.step()})
+        if ep.last_logits is None:
+            continue
+        if not np.array_equal(ep.last_logits, es.last_logits):
+            fail(f"parity_paged {cfg.name}: logits differ by "
                  f"{float(np.abs(ep.last_logits - es.last_logits).max())} "
                  f"at wave {ep.waves}")
-    if done["paged"] != done["symmetric"] or len(done["paged"]) != len(requests):
-        fail(f"parity_paged: tokens differ {done['paged']} vs {done['symmetric']}")
-    if ep.slot_log != es.slot_log:
-        fail(f"parity_paged: slot logs differ {ep.slot_log} vs {es.slot_log}")
+        if plain:
+            want = engines["plain"].last_logits
+            diff = np.abs(ep.last_logits - want)
+            worst = max(worst, float(diff.max()))
+            if not np.all(diff <= 1e-4 + 1e-4 * np.abs(want)):
+                fail(f"parity_paged {cfg.name}: kernel and plain logits differ by "
+                     f"{float(diff.max())} at wave {ep.waves}")
+    if len(done["paged"]) != len(requests) or any(d != done["paged"] for d in done.values()):
+        fail(f"parity_paged {cfg.name}: tokens differ {done}")
+    if any(e.slot_log != ep.slot_log for e in engines.values()):
+        fail(f"parity_paged {cfg.name}: slot logs differ")
     if checked["steps"] != ep.decode_calls or \
             ep.state.graphs["step"].replays != ep.decode_calls:
-        fail(f"parity_paged: {checked['steps']} checked steps, {ep.decode_calls} "
-             f"decode steps")
+        fail(f"parity_paged {cfg.name}: {checked['steps']} checked steps, "
+             f"{ep.decode_calls} decode steps")
     if not torch.equal(twin_buf, ep.state.buf):
-        fail("parity_paged: the eager twin's pool differs from the engine's")
+        fail(f"parity_paged {cfg.name}: the eager twin's pool differs from the engine's")
     for a, b in zip(torch.utils._pytree.tree_leaves(ep.caches),
-                    torch.utils._pytree.tree_leaves(es.caches)):
+                    torch.utils._pytree.tree_leaves(es.caches), strict=True):
         if not torch.equal(a.contiguous().view(torch.uint8),
                            b.contiguous().view(torch.uint8)):
-            fail("parity_paged: the gathered caches differ from the symmetric ones")
-    held = ep.state.graphs["step"].launches
-    if held["flash_decode_paged"] != cfg.n_layers or held["flash_decode"]:
-        fail(f"parity_paged: the paged graph holds {held}, expected "
-             f"{cfg.n_layers} flash_decode_paged launches")
-    if ep.state.pages_live:
-        fail(f"parity_paged: {ep.state.pages_live} pages live after the drain")
+            fail(f"parity_paged {cfg.name}: the gathered caches differ from the "
+                 f"symmetric ones")
+    per_step = flash_decode_per_step(cfg)
+    held = {name: dict(e.state.graphs["step"].launches) for name, e in engines.items()}
+    if held["paged"].get("flash_decode_paged", 0) != per_step or \
+            held["paged"].get("flash_decode", 0) or \
+            (plain and any(held["plain"].values())):
+        fail(f"parity_paged {cfg.name}: the graphs hold {held}, expected {per_step} "
+             f"flash_decode_paged launches in the paged kernel one and none else")
+    for name, e in engines.items():
+        if e.paged and e.state.pages_live:
+            fail(f"parity_paged {cfg.name}: {e.state.pages_live} pages live after "
+                 f"the drain ({name})")
     from_page_log(ep.page_log, state_plan=ep.memory_report.state_plan)
-    emit({"phase": "parity_paged", "arch": cfg.name, "dtype": cfg.dtype,
-          "layers": cfg.n_layers, "page_size": PAGE_SIZE,
-          "pages_total": ep.state.pages_total,
-          "pages_live_peak": ep.state.pages_live_peak,
-          "allocated_bytes": ep.state.allocated_bytes,
-          "symmetric_state_bytes": es.memory_report.state_live_bytes,
-          "waves": ep.waves, "decode_steps": ep.decode_calls,
-          "launches": read_launches(), "captured_per_replay": held,
-          "captured_vs_eager": checked, "slot_log": ep.slot_log,
-          "page_log_entries": len(ep.page_log),
-          "first_tokens": {k: v[:6] for k, v in done["paged"].items()}, "ok": True})
-    del ep, es, twin, twin_buf, params
+    row = {"phase": "parity_paged", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "page_size": PAGE_SIZE,
+           "pages_total": ep.state.pages_total,
+           "pages_live_peak": ep.state.pages_live_peak,
+           "allocated_bytes": ep.state.allocated_bytes,
+           "symmetric_state_bytes": es.memory_report.state_live_bytes,
+           "waves": ep.waves, "decode_steps": ep.decode_calls,
+           "launches": read_launches(), "captured_per_replay": held,
+           "captured_vs_eager": checked, "slot_log": ep.slot_log,
+           "page_log_entries": len(ep.page_log),
+           "first_tokens": {k: v[:6] for k, v in done["paged"].items()}}
+    if plain:
+        row["kernel_vs_plain_logits_max_abs_diff"] = worst
+    windows = {spec.window for spec in cfg.period if spec.window}
+    if windows:
+        reached = [n + len(done["paged"][i]) for i, (n, _) in enumerate(requests)]
+        if max(reached) <= max(windows):
+            fail(f"parity_paged {cfg.name}: no ring wrapped (positions {reached})")
+        row.update({"positions_reached": reached, "windows": sorted(windows)})
+    emit({**row, "ok": True})
+    del engines, ep, es, twin, twin_buf, params
     torch.cuda.empty_cache()
 
 
@@ -2703,12 +3092,127 @@ def phase_serve_paged() -> dict:
     return row
 
 
+# the paged serves of every decoder family beyond qwen3: phase -> (arch,
+# pool in 64 KiB pages, the buffer it makes, flash_decode_paged launches
+# per step). The pools hold the serve mix: 8 requests of 96 positions map
+# 2,360 pages each on gemma3 (its 29 rings fully live) and 1,736 on zamba2
+PAGED_FAMILIES = {
+    "serve_paged_gemma3": ("gemma3-4b", 18_880, 1_237_385_216, 34),
+    "serve_paged_zamba2": (ZAMBA2, 13_888, 910_229_504, 13),
+}
+
+
+def in_fresh_process(phase: str) -> dict:
+    """Run ``phase`` in a child process of this script, so that no
+    torch.profiler session of this process precedes its captures (a graph
+    captured after one runs its copy nodes on the copy engine), and return
+    its row. Its ``plan`` rows count as this run's."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--phases", phase, "--child"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    row = None
+    for line in out.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        r = json.loads(line)
+        if r.get("phase") == "plan":
+            emit(r)
+            CERTIFIED.append(r["plan"])
+        elif r.get("phase") == phase:
+            row = r
+    if out.returncode != 0 or row is None:
+        fail(f"{phase}: its process exited {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    emit(row)
+    return row
+
+
+def phase_serve_paged_family(phase: str) -> dict:
+    """``serve.run`` on full-width ``arch`` (bf16) at 8 slots x 2048 with
+    the serve mix from a pool of 64 KiB pages (``PAGED_FAMILIES``), just
+    after a symmetric twin: tokens equal to the twin's, one buffer of
+    exactly the pool's bytes that never moves, pages live at the peak and
+    none after the drain, a valid page log, every decode step a replay
+    holding one ``flash_decode_paged`` launch per attention layer or
+    shared-block insertion and no ``flash_decode``, the allocator's peak
+    over a replay 0 B; then a steady window on each engine, timed and
+    profiled alike (``steady_pair``), with the admission's transient below
+    the pool's bytes. Reports the plan's carve and certify seconds and the
+    aten ops per step."""
+    import torch
+
+    from repro_torch.core.shared_objects import from_page_log
+    from repro_torch.launch import serve
+
+    arch, pool, buffer_bytes, per_step = PAGED_FAMILIES[phase]
+    args = ["--full", "--arch", arch, "--slots", "8", "--max-len", "2048",
+            "--requests", "8", "--prompt-len", "32", "--max-new", "64", "--seed", "0"]
+    sym = serve.run(args)
+    reset_launches()
+    stats = serve.run(args + ["--page-size", str(PAGE_SIZE), "--page-pool", str(pool)])
+    counts = read_launches()
+    engine = stats["engine"]
+    toks = stats["tokens_per_request"]
+    if toks != sym["tokens_per_request"] or len(toks) != 8:
+        fail(f"{phase}: the paged tokens differ from the symmetric twin's")
+    if stats["allocated_bytes"] != buffer_bytes:
+        fail(f"{phase}: the pool is {stats['allocated_bytes']} B, expected {buffer_bytes}")
+    if stats["state_ptr_before"] != stats["state_ptr_after"]:
+        fail(f"{phase}: the pool moved")
+    if not 0 < stats["pages_live_peak"] <= pool or stats["state_pages_live"] != 0:
+        fail(f"{phase}: {stats['pages_live_peak']} pages live at the peak, "
+             f"{stats['state_pages_live']} after the drain")
+    if stats["allocator_step_peak_bytes"] != 0:
+        fail(f"{phase}: the allocator's peak over a replay is "
+             f"{stats['allocator_step_peak_bytes']} B")
+    from_page_log(engine.page_log, state_plan=engine.memory_report.state_plan)
+    replayed = check_replayed(phase, stats, "flash_decode_paged", per_step=per_step)
+    if stats["capture_calls"] != 1:
+        fail(f"{phase}: {stats['capture_calls']} graphs captured, expected 1")
+    plan_row(f"{arch} {phase} (8 slots x 2048, {pool} pages of 64 KiB)", stats)
+    twin = sym["engine"]
+    steady = steady_pair({"paged": engine, "symmetric": twin})
+    if not steady["paged"]["admission_peak_bytes"] < buffer_bytes:
+        fail(f"{phase}: admission took {steady['paged']['admission_peak_bytes']} B "
+             f"above the allocated, not below the {buffer_bytes} B pool")
+    row = {
+        "phase": phase, "arch": arch, "layers": stats["n_layers"],
+        "page_size": PAGE_SIZE, "page_pool": pool,
+        "allocated_bytes": stats["allocated_bytes"],
+        "symmetric_state_bytes": sym["state_planned_bytes"],
+        "pages_live_peak": stats["pages_live_peak"],
+        "state_pages_live_after": stats["state_pages_live"],
+        "flash_decode_paged_per_step": per_step,
+        "requests": stats["requests"], "tokens": toks,
+        "waves": stats["waves"], "decode_steps": stats["decode_calls"],
+        "launches": counts, "graphs": replayed, **graph_stats(stats),
+        "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+        "symmetric_allocator_step_peak_bytes": sym["allocator_step_peak_bytes"],
+        "decode_step_ops": stats["decode_step_ops"],
+        "symmetric_decode_step_ops": sym["decode_step_ops"],
+        "state_plan_s": stats["state_plan_s"],
+        "symmetric_state_plan_s": sym["state_plan_s"],
+        "certify_s": stats["startup_lint_s"], "cold_start_s": stats["cold_start_s"],
+        "tokens_per_s": stats["tokens_per_s"],
+        "symmetric_tokens_per_s": sym["tokens_per_s"],
+        **{f"{k}_{name}": steady[name][k] for name in steady for k in (
+            "device_ms_per_wave", "wall_ms_per_wave", "tokens_per_s",
+            "kernel_launches_per_wave", "admission_peak_bytes")},
+        "steady": steady, "tokens_equal_symmetric": True, "ok": True,
+    }
+    emit(row)
+    del engine, twin, stats, sym
+    torch.cuda.empty_cache()
+    return row
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
           "serve_granite", "prefill_granite", "parity_llama4", "parity_zamba2",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
-          "prefill_internvl2", "parity_paged", "serve_paged", "smem")
+          "prefill_internvl2", "parity_paged", "serve_paged", "serve_paged_gemma3",
+          "serve_paged_zamba2", "smem")
 
 
 T0 = time.perf_counter()
@@ -2724,6 +3228,9 @@ def main() -> None:
                          "build always run)")
     ap.add_argument("--keep-going", action="store_true",
                     help="check every kernel case before failing")
+    ap.add_argument("--child", action="store_true",
+                    help="run a serve_paged_<family> phase in this process (the "
+                         "whole run starts each in a child process)")
     args = ap.parse_args()
     phases = set(args.phases.split(",")) | {"device", "build"}
     if phases - set(PHASES):
@@ -2741,6 +3248,8 @@ def main() -> None:
         timing["flash_decode"] = phase_kernels(card_name)
         timing["ssd_chunk"] = phase_kernels_ssd(card_name)
         timing["flash_decode_paged"] = phase_kernels_paged(card_name)
+        phase_kernels_ring(card_name)
+        phase_kernels_state()
         emit({"phase": "kernels", "checked": list(KERNELS),
               "failed_cases": FAILED_CASES})
         if FAILED_CASES:
@@ -2813,13 +3322,25 @@ def main() -> None:
     if "serve_paged" in phases:
         launches["flash_decode_paged"]["qwen3-0.6b serve_paged"] = \
             phase_serve_paged()["launches"]["flash_decode_paged"]
+    for phase, (arch, *_) in PAGED_FAMILIES.items():
+        if phase not in phases:
+            continue
+        if args.child:
+            phase_serve_paged_family(phase)
+            continue
+        row = in_fresh_process(phase)
+        want = SERVE_TOKENS.get(arch)
+        if want is not None and row["tokens"] != {str(k): v for k, v in want.items()}:
+            fail(f"{phase}: the paged tokens differ from the symmetric serve phase's")
+        launches["flash_decode_paged"][f"{arch} {phase}"] = \
+            row["launches"]["flash_decode_paged"]
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 13 or len(roofs) != 11:
+    if len(CERTIFIED) != 15 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 13 and 11")
+             f"expected 15 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)
@@ -2843,7 +3364,14 @@ def main() -> None:
             row.update({k: timing[name][k] for k in (
                 "library", "flash_decode_on_gathered_ms", "gather_ms", "page_size",
                 "table")})
+            for arch, label in (("gemma3_4b_ring", "gemma3_ring"), ("zamba2_7b", "zamba2")):
+                row[arch] = {k: PAGED_TIMING[label][k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "flash_decode_on_gathered_ms", "gather_ms", "max_abs_err")}
         if name == "flash_decode":
+            row["gemma3_4b_ring"] = {k: RING_TIMING[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_backend", "max_abs_err")}
             for arch, timing_of in (("gemma3_4b", GEMMA3_TIMING),
                                     ("granite_moe_3b", GRANITE_TIMING),
                                     ("zamba2_7b", ZAMBA2_TIMING),

@@ -18,10 +18,13 @@ report, tokens/s and the slot log.
         --sample --temperature 0.8 --top-k 50
 
 ``--page-size B`` serves the paged state backend (pages of B bytes,
-``--page-pool`` of them; the K/V caches are written and read through the
-page table), e.g. on the CPU::
+``--page-pool`` of them) for every arch: K/V caches, global, ring or the
+shared block's, and Mamba2 states are written and read through the page
+table. On the CPU, e.g.::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --page-size 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch zamba2-7b --page-size 1024
 
 ``--block-size K`` runs K decode waves per host sync with on-device
 sampling; ``--sample`` draws with ``--temperature``/``--top-k`` instead
@@ -194,6 +197,7 @@ def run(argv: list[str] | None = None) -> dict:
         "plan_records": len(report.activation_plan.records),
         "state_leaves": len(report.state_plan.leaves),
         "startup_lint_s": report.startup_lint_s,
+        "state_plan_s": report.state_plan_s,
         "startup_lint_findings": report.startup_lint_findings,
         "startup_lint_warnings": list(report.startup_lint_warnings),
         "allocator_step_peak_bytes": report.allocator_step_peak_bytes,

@@ -9,14 +9,19 @@ Port of the reference's ``models/attention.py``:
   its ``lax.map`` over the chunks is a Python loop here. A sliding-window
   layer returns a RING-BUFFER cache of ``window`` positions, rolled so
   that slot = position % window;
-* ``attn_decode`` — the plain attention, kept for parity tests and taken
-  by window layers (``attention.py:192-242``). A window layer writes its
-  ring at ``pos % T`` and masks each slot by the position it holds;
+* ``attn_decode`` — the plain attention, kept for parity tests
+  (``attention.py:192-242``). A window layer writes its ring at
+  ``pos % T`` and masks each slot by the position it holds;
 * ``attn_decode_kernel`` — the counterpart of the reference's
   ``attn_decode_kernel`` (``attention.py:245-289``): the same K/V write,
   then the ``repro_torch::flash_decode`` op as the attention core. This
-  is the attention of the served decode step on global layers; window
-  layers take ``attn_decode``, as in the reference.
+  is the attention of the served decode step on every layer, global or
+  window. The reference sends window layers to the plain decode; here a
+  ring of ``T <= window`` slots is read by the kernel at ``lengths =
+  min(pos + 1, T)``, which is the ring mask: slot i holds position
+  ``pos - ((pos - i) mod T)``, which lies in ``(pos - T, pos]``, so it is
+  within the window whenever it is ``>= 0``, and it is ``>= 0`` exactly
+  when ``i < min(pos + 1, T)``.
 
 Cast points are the reference's: scores come out of the einsum in the
 working dtype and are scaled in fp32 (the reference's scale is a numpy
@@ -34,11 +39,12 @@ assert on CUDA): every row writes ``where(active, new, old)`` at its
 slot. Nothing here reads a value back to the host, and no shape depends
 on ``pos``.
 
-A global layer's cache may also be PAGED (``models/paged.PagedLeaf``:
-the engine's page pool, its page table and the leaf's address in a slot
-region). The write then goes through the table (``_write_kv_paged``),
-the kernel core is ``repro_torch::flash_decode_paged``, and the plain
-core attends over the rows gathered through the table.
+A layer's cache, global or ring, may also be PAGED
+(``models/paged.PagedLeaf``: the engine's page pool, its page table and
+the leaf's address in a slot region). The write then goes through the
+table (``_write_kv_paged``), the kernel core is
+``repro_torch::flash_decode_paged``, and the plain core attends over the
+rows gathered through the table.
 """
 
 from __future__ import annotations
@@ -227,6 +233,12 @@ def _positions(pos, B, device):
     return torch.as_tensor(pos, dtype=torch.int32, device=device).expand(B)
 
 
+def _slot(pos_b, T: int, window: int | None) -> torch.Tensor:
+    """Where each row's new K/V goes: ``pos % T`` on a ring, else
+    ``min(pos, T - 1)``."""
+    return pos_b % T if window is not None else torch.clamp(pos_b, max=T - 1)
+
+
 def attn_decode(
     p: dict,
     x: torch.Tensor,  # (B, 1, D)
@@ -253,17 +265,26 @@ def attn_decode(
     pos_b = _positions(pos, B, x.device)
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos_b[:, None],
                            theta, eps, rope_freqs)
-    slot_b = pos_b % T if window is not None else torch.clamp(pos_b, max=T - 1)
+    slot_b = _slot(pos_b, T, window)
     if paged:
-        # a paged cache is global (the engine pages no ring)
         _write_kv_paged(k_cache, v_cache, k, v, slot_b, active)
         k_read, v_read = k_cache.gather(), v_cache.gather()
     else:
         _write_kv(k_cache, v_cache, k, v, slot_b, active)
         k_read, v_read = k_cache, v_cache
-    scale = 1.0 / np.sqrt(head_dim)
-    s = _gqa_scores(q, k_read).float() * scale  # (B,H,1,T)
-    idx = torch.arange(T, device=x.device)[None, None, None, :]
+    out = decode_attention(q, k_read, v_read, pos_b, window)  # (B,1,H*D)
+    return out @ p["wo"], (k_cache, v_cache)
+
+
+def decode_attention(q, k, v, pos_b, window: int | None) -> torch.Tensor:
+    """The plain attention core of one decode token: q (B,1,H,D) over the
+    cache k/v (B,T,KV,D) at positions ``pos_b`` (B,), the reference's
+    masks: slots ``<= pos`` on a global cache, and on a ring slot i, which
+    holds position ``pos - ((pos - i) mod T)``, when that position is
+    ``>= 0`` and inside the window. Returns (B,1,H·D)."""
+    T = k.shape[1]
+    s = _gqa_scores(q, k).float() * (1.0 / np.sqrt(q.shape[-1]))  # (B,H,1,T)
+    idx = torch.arange(T, device=q.device)[None, None, None, :]
     pb = pos_b[:, None, None, None]
     if window is None:
         mask = idx <= pb
@@ -272,9 +293,8 @@ def attn_decode(
         slot_pos = pb - ((pb - idx) % T)
         mask = (slot_pos >= 0) & (slot_pos <= pb) & (slot_pos > pb - window)
     s = torch.where(mask, s, NEG_INF)
-    probs = torch.softmax(s, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, v_read)  # (B,1,H*D)
-    return out @ p["wo"], (k_cache, v_cache)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    return _gqa_out(probs, v)
 
 
 def attn_decode_kernel(
@@ -294,24 +314,21 @@ def attn_decode_kernel(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """``attn_decode`` with ``repro_torch::flash_decode`` as the attention
     core: the K/V write, then single-pass attention over the cache at
-    ``lengths = min(pos+1, T)``. Window layers take the plain decode,
-    as in the reference: the kernel reads positions [0, length), not a
-    ring. A paged cache is written through the table and read by
-    ``repro_torch::flash_decode_paged``."""
-    if window is not None:
-        return attn_decode(
-            p, x, cache, pos, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
-            theta=theta, window=window, eps=eps, active=active,
-            rope_freqs=rope_freqs,
-        )
+    ``lengths = min(pos+1, T)``, on a global layer and on a ring alike
+    (a ring of ``T <= window`` slots: the module docstring shows that
+    these lengths are the ring mask). A paged cache is written through
+    the table and read by ``repro_torch::flash_decode_paged``."""
     B = x.shape[0]
     k_cache, v_cache = cache
     paged = isinstance(k_cache, PagedLeaf)
     T = k_cache.shape[0] if paged else k_cache.shape[1]
+    if window is not None and T > window:
+        raise ValueError(f"a ring of {T} slots is longer than its window {window}: "
+                         f"the kernel's lengths would read positions out of it")
     pos_b = _positions(pos, B, x.device)
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, pos_b[:, None],
                            theta, eps, rope_freqs)
-    slot_b = torch.clamp(pos_b, max=T - 1)
+    slot_b = _slot(pos_b, T, window)
     G = n_heads // n_kv
     q_k = q.reshape(B, n_kv, G, head_dim)
     lengths = torch.clamp(pos_b + 1, max=T).to(torch.int32)

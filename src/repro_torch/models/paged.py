@@ -3,11 +3,14 @@
 A leaf of a paged cache is an address, not a tensor: the engine's pool
 of pages viewed as the leaf dtype, the page table (n_slots,
 pages_per_slot) int32 (0 = the all-zero null page), and where the leaf
-lies in a slot region. The decode step writes its new K/V rows through
-the table (:func:`kv_rows`) and reads the cache with
+lies in a slot region. The decode step writes its new K/V rows, global
+or ring, through the table (:func:`kv_rows`) and reads the cache with
 ``repro_torch::flash_decode_paged``, or, in the plain cores, through
-:meth:`PagedLeaf.gather`. The pool, the table and the page bookkeeping
-belong to the serving backend (``runtime/paging.py``).
+:meth:`PagedLeaf.gather`. A Mamba2 layer reads its conv window and SSM
+state with :meth:`PagedLeaf.gather` and writes them back whole with
+:meth:`PagedLeaf.put`, one layer's runs at a time. The pool, the table
+and the page bookkeeping belong to the serving backend
+(``runtime/paging.py``).
 """
 
 from __future__ import annotations
@@ -49,23 +52,57 @@ class PagedLeaf:
         return dataclasses.replace(self, offset=self.offset + i * self.strides[0],
                                    shape=self.shape[1:], strides=self.strides[1:])
 
-    def _pages(self) -> tuple[int, int, int, int]:
-        """The leaf's run ``[a, b)`` of a slot region's elements and the
-        first and last logical pages it touches."""
+    def _runs(self) -> list[tuple[int, int, int, int]]:
+        """The leaf's page runs in a slot region: ``(p0, p1, c0, c1)``,
+        logical pages ``[p0, p1)`` each holding the leaf's elements at
+        ``[c0, c1)`` of the page. The first and last pages hold the leaf
+        in part (a neighbouring leaf, or the next layer of a stacked one,
+        may hold the rest), the pages between them whole."""
         pe = self.page_elems
         a = self.offset
         b = a + math.prod(self.shape)
-        return a, b, a // pe, (b - 1) // pe
+        first, last = a // pe, (b - 1) // pe
+        runs = [(first, first + 1, a - first * pe, min(b - first * pe, pe))]
+        if last > first + 1:
+            runs.append((first + 1, last, 0, pe))
+        if last > first:
+            runs.append((last, last + 1, 0, b - last * pe))
+        return runs
 
     def gather(self) -> torch.Tensor:
         """The leaf gathered through the table, ``(B, *shape)``: every
-        slot's pages of the leaf's run, then the run out of them.
-        Unmapped pages read as zeros."""
+        slot's pages of the leaf's runs in one index, then the leaf's
+        elements out of them. Unmapped pages read as zeros."""
         pe, B = self.page_elems, self.table.shape[0]
-        a, b, first, last = self._pages()
-        pages = self.buf.view(-1, pe)[self.table[:, first:last + 1].long()]
-        run = pages.reshape(B, -1)[:, a - first * pe:b - first * pe]
+        runs = self._runs()
+        p0, p1, c0 = runs[0][0], runs[-1][1], runs[0][2]
+        pages = self.buf.view(-1, pe)[self.table[:, p0:p1].long()]
+        run = pages.reshape(B, -1)[:, c0:c0 + math.prod(self.shape)]
         return run.reshape((B,) + self.shape)
+
+    def put(self, values: torch.Tensor) -> None:
+        """The inverse of :meth:`gather`: ``values`` ``(B, *shape)`` of the
+        leaf dtype, written through the table into every slot's runs. The
+        pages between the first and the last are written whole; a partial
+        page is read, the leaf's elements ``[c0, c1)`` replaced, and
+        written back whole, so a neighbour's bytes on it stay as they
+        were. The transient is those partial pages. An inactive slot's
+        rows must be what :meth:`gather` read: a page that resolves to the
+        null page then gets back the zeros it holds (the duplicate indices
+        there all carry zeros)."""
+        pe, B = self.page_elems, self.table.shape[0]
+        pool = self.buf.view(-1, pe)
+        flat = values.reshape(B, -1)
+        i = 0
+        for p0, p1, c0, c1 in self._runs():
+            n = (p1 - p0) * (c1 - c0)
+            part = flat[:, i:i + n].reshape(B, p1 - p0, c1 - c0)
+            i += n
+            idx = self.table[:, p0:p1].long()
+            if c1 - c0 < pe:
+                old = pool[idx]
+                part = torch.cat([old[..., :c0], part, old[..., c1:]], dim=-1)
+            pool[idx] = part
 
     def wipe(self, rows: np.ndarray) -> None:
         """``transformer.reset_slots`` through the page table, for the
@@ -77,15 +114,8 @@ class PagedLeaf:
         transient is at most the pages they map, never the logical
         state. A physical page is mapped by one table entry at most, so
         no page is indexed twice."""
-        pe = self.page_elems
-        a, b, first, last = self._pages()
-        runs = [(first, first + 1, a - first * pe, min(b - first * pe, pe))]
-        if last > first + 1:
-            runs.append((first + 1, last, 0, pe))
-        if last > first:
-            runs.append((last, last + 1, 0, b - last * pe))
-        pool = self.buf.view(-1, pe)
-        for p0, p1, c0, c1 in runs:
+        pool = self.buf.view(-1, self.page_elems)
+        for p0, p1, c0, c1 in self._runs():
             pages = rows[:, p0:p1]
             pages = pages[pages != 0].astype(np.int64)
             if not pages.size:

@@ -6,7 +6,8 @@ algorithm: the reference carries the state across chunks with a
 chunks calls ``repro_torch::ssd_chunk`` once per chunk (the hand-written
 kernel on the card). Decode is the O(1) recurrent update on the
 (B, H, P, N) state, written IN PLACE into the caches, which are views
-into the serving engine's one state buffer.
+into the serving engine's one state buffer, or, paged, the layer's runs
+of the engine's page pool, read and written through the page table.
 
 Block layout follows Mamba2: in_proj -> [z | xBC | dt], causal depthwise
 conv over xBC, SSD core, gated RMSNorm, out_proj. Decode carries
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ref import ssd_chunk_ref
 from repro_torch.kernels.ssd_chunk import ssd_chunk
 from repro_torch.models.layers import init_linear, init_rms, rms_norm
+from repro_torch.models.paged import PagedLeaf
 
 # the SSD core of mamba_prefill, by ``cores``: the kernel op (served) or
 # its plain version (parity checks on the card)
@@ -170,11 +172,14 @@ def mamba_decode(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token; returns (out (B,1,D), cache). The cache tensors are
     written in place — rows with ``active == False`` write back what they
-    hold, bit for bit — and returned."""
+    hold, bit for bit — and returned. A paged cache (two
+    ``models/paged.PagedLeaf``) is gathered through the table, layer by
+    layer, and its new values ``put`` back the same way."""
     B, _, D = x.shape
     d_inner, nheads, conv_dim = ssm_dims(D, expand, head_dim, ngroups, dstate)
     dims = dict(d_inner=d_inner, nheads=nheads, ngroups=ngroups, dstate=dstate)
-    conv_state, state = cache
+    paged = isinstance(cache[0], PagedLeaf)
+    conv_state, state = (leaf.gather() for leaf in cache) if paged else cache
     zxbcdt = x @ p["in_proj"]  # (B,1,·)
     z, xBC_new, dt = _split_proj(dims, zxbcdt)
     window = torch.cat([conv_state, xBC_new], dim=1)  # (B,K,conv_dim), new memory
@@ -203,6 +208,10 @@ def mamba_decode(
     if active is not None:
         new_state = torch.where(active[:, None, None, None], new_state, state)
         new_conv = torch.where(active[:, None, None], new_conv, conv_state)
+    if paged:
+        cache[1].put(new_state)
+        cache[0].put(new_conv)
+        return out, cache
     state.copy_(new_state)
     conv_state.copy_(new_conv)
     return out, (conv_state, state)

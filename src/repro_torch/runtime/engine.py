@@ -34,10 +34,10 @@ buffer is a pool of ``page_pool`` pages (default: enough to map every
 slot fully) plus the null page, admission maps the pages a request's
 cache length touches before it takes a slot (head-of-line: a request
 that does not fit waits for a retirement, and with no slot active
-``PagedOutOfPagesError`` propagates), and retirement frees them. The
-decode step writes and reads the K/V caches through the page table.
-This slice pages global K/V caches only; a sliding-window ring or a
-Mamba2 state raises ``NotImplementedError`` (ROADMAP A10.2).
+``PagedOutOfPagesError`` propagates), and retirement frees them. Every
+family pages: the decode step writes and reads the K/V caches, global,
+ring or the shared block's, through the page table, and a Mamba2 layer
+gathers its conv window and SSM state through it and puts them back.
 
 With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
 certifies its unified plan (activation and state, the paged extras
@@ -150,6 +150,9 @@ class MemoryReport:
     startup_lint_s: float | None = None
     startup_lint_findings: int | None = None
     startup_lint_warnings: tuple[str, ...] = ()
+    # the seconds the state plan took (under paging: the axis probe and
+    # the carve of the page pool)
+    state_plan_s: float | None = None
     # paged state (None on the symmetric backend): the pool's pages, the
     # pages held by active slots, and the page size
     state_pages_total: int | None = None
@@ -258,13 +261,6 @@ class InferenceEngine:
         if self.page_size is not None:
             if self.page_size <= 0:
                 raise ValueError(f"page_size must be positive, got {page_size}")
-            unpaged = [s for s in (*cfg.period, *cfg.remainder)
-                       if s.mixer != "attn" or s.window or s.shared_attn]
-            if unpaged:
-                raise _later(
-                    f"page_size on {cfg.name}: paging a sliding-window ring, a "
-                    f"Mamba2 state or the shared block's cache ({unpaged[0]})",
-                    "the next paging slice (ROADMAP A10.2)")
         self.block_size = int(block_size)
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -294,6 +290,7 @@ class InferenceEngine:
         # template, then allocate the ONE buffer and bind it
         template = self.model.init_cache(n_slots, max_len, device="meta")
         state_records = state_records_from_cache(template, n_slots=n_slots)
+        t0 = time.perf_counter()
         if self.paged:
             state_plan = plan_paged_state(
                 state_records, n_slots=n_slots, max_len=max_len,
@@ -303,6 +300,7 @@ class InferenceEngine:
             )
         else:
             state_plan = plan_state(state_records, n_slots=n_slots, max_len=max_len)
+        state_plan_s = time.perf_counter() - t0
         self.state_layout = ArenaLayout.from_state_plan(state_plan)
         residency, backend = ((PagedStateResidency, PagedResidentState) if self.paged
                               else (StateResidency, ResidentState))
@@ -392,6 +390,7 @@ class InferenceEngine:
             capture_calls=len(captured),
             capture_s=capture_s if captured else None,
             startup_lint_s=lint_s,
+            state_plan_s=state_plan_s,
             startup_lint_findings=lint_findings,
             startup_lint_warnings=lint_warnings,
             state_pages_total=self.state.pages_total if self.paged else None,

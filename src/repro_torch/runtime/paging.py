@@ -12,14 +12,17 @@ the pages its request's cache length touches, so live state follows
 live tokens instead of ``n_slots * slot_stride``.
 
 * :class:`PagedStateResidency` binds the cache structure to the plan
-  with the reference's checks, and gives each leaf a page address
-  (``models/paged.PagedLeaf``: its element offset in a slot region, its
-  strides and the page size in elements). The decode step's K/V write
-  (``models/attention.py``) and ``repro_torch::flash_decode_paged`` read
-  that address and the table; nothing on the served step builds a
-  whole-region view. :meth:`PagedStateResidency.gather` is the
-  reference's ``unpack`` (every leaf gathered through the table), for
-  inspection, the tests and the plain cores only.
+  with the reference's checks, and gives each leaf, of any kind and
+  dtype (K/V caches, global, ring or the shared block's; Mamba2 conv
+  windows and SSM states), a page address (``models/paged.PagedLeaf``:
+  its element offset in a slot region, its strides and the page size in
+  elements). The decode step's K/V write (``models/attention.py``) and
+  ``repro_torch::flash_decode_paged`` read that address and the table,
+  and a Mamba2 layer gathers and puts its own two runs
+  (``models/ssm.py``); nothing on the served step builds a whole-region
+  view. :meth:`PagedStateResidency.gather` is the reference's ``unpack``
+  (every leaf gathered through the table), for inspection, the tests
+  and the plain cores only.
 * :class:`PagedResidentState` is the serving backend: the
   :class:`~repro_torch.runtime.residency.ResidentState` steps (captured
   CUDA graphs on the card) over the pool buffer and ONE persistent int32

@@ -875,3 +875,93 @@ def test_paged_engine_on_the_card_equals_the_symmetric_one(cuda):
             assert torch.equal(a.contiguous().view(torch.uint8),
                                b.contiguous().view(torch.uint8))
         assert paged.state.pages_live == 0
+
+
+def _windowed_gemma3(window):
+    cfg = get_reduced("gemma3-4b")
+    return dataclasses.replace(cfg, period=tuple(
+        dataclasses.replace(s, window=window) if s.window else s for s in cfg.period))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-7b"])
+def test_paged_families_on_the_card_equal_the_symmetric_ones(cuda, arch):
+    """Reduced gemma3 (its window cut to 8, so every ring wraps) and
+    reduced zamba2 (a Mamba2 layer and one after the shared block), fp32,
+    served paged (1000-byte pages: rows and leaves straddle pages) and
+    symmetric on the card, host loop and blocks: tokens and slot logs
+    equal, every decode step a replay holding one flash_decode_paged
+    launch per attention layer or shared-block insertion and no
+    flash_decode, the caches gathered through the table byte-identical,
+    and the null page zero."""
+    cfg = _windowed_gemma3(8) if arch == "gemma3-4b" else get_reduced(arch)
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    per_step = sum(int(s.mixer == "attn") + int(s.shared_attn) for s in cfg.period)
+    for block_size in (1, 4):
+        sym = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                              block_size=block_size)
+        paged = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                                block_size=block_size, page_size=1008)
+        sizes, new = (1, 12, 3, 9), (9, 9, 9, 9)
+        assert _serve(paged, cfg, sizes=sizes, new=new) == \
+            _serve(sym, cfg, sizes=sizes, new=new)
+        assert paged.slot_log == sym.slot_log
+        for name, g in paged.state.graphs.items():
+            assert g.launches["flash_decode_paged"] == per_step, name
+            assert g.launches["flash_decode"] == 0, name
+        for a, b in zip(torch.utils._pytree.tree_leaves(paged.caches),
+                        torch.utils._pytree.tree_leaves(sym.caches)):
+            assert torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+        assert not paged.state.buf[:1008].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,window", [(8, 8), (64, 1024), (1024, 1024)])
+def test_flash_decode_on_a_wrapped_ring_equals_the_ring_masked_core(cuda, T, window,
+                                                                    dtype):
+    """A ring whose every slot is past its wrap: flash_decode at lengths =
+    min(pos + 1, T) against the reference's ring-masked plain core
+    (``attention.decode_attention``) in fp32 on the same ring."""
+    from repro_torch.models import attention
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(T)
+    B, KV, G, D = 3, 2, 2, 64
+    k = (torch.randn((B, T, KV, D), generator=g, device=cuda) * 0.5).to(dt)
+    v = (torch.randn((B, T, KV, D), generator=g, device=cuda) * 0.5).to(dt)
+    q = (torch.randn((B, KV, G, D), generator=g, device=cuda) * Q_STD).to(dt)
+    pos = torch.tensor([T - 1, 2 * T + 3, 3 * T + T // 2], dtype=torch.int32, device=cuda)
+    lengths = torch.clamp(pos + 1, max=T).to(torch.int32)
+    got = fd.flash_decode(q, k, v, lengths).reshape(B, 1, KV * G * D).float()
+    want = attention.decode_attention(q.float().reshape(B, 1, KV * G, D), k.float(),
+                                      v.float(), pos, window)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def test_put_transient_stays_within_the_pages_it_writes(cuda):
+    """``PagedLeaf.put`` of one Mamba2 layer's state (reduced zamba2, 4
+    slots, 1000-byte pages): the allocator's peak above what was
+    allocated stays within the bytes of the pages the layer's runs
+    cover, and the layer gathers back what was put."""
+    from repro_torch.core.unified import plan_paged_state
+    from repro_torch.runtime.paging import PagedStateResidency
+
+    cfg = get_reduced("zamba2-7b")
+    template = init_cache(cfg, 4, 64, "meta")
+    plan = plan_paged_state(state_records_from_cache(template, n_slots=4), n_slots=4,
+                            max_len=64, page_size=1000)
+    res = PagedStateResidency(plan, template, n_slots=4)
+    buf = res.init_buffer(cuda)
+    table = (torch.randperm(plan.n_pages_pool, device=cuda) + 1).reshape(
+        4, plan.pages_per_slot).to(torch.int32)
+    leaf = res.bind(buf, table)["period"][1]["mamba"][1][0]
+    values = torch.randn((4,) + leaf.shape, device=cuda)
+    pages = sum(p1 - p0 for p0, p1, _, _ in leaf._runs())
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    leaf.put(values)
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.max_memory_allocated(cuda) - base <= 4 * pages * 1000
+    assert torch.equal(leaf.gather(), values)

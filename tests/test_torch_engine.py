@@ -72,13 +72,10 @@ def test_engine_without_a_device_needs_cuda():
         serve.run(["--requests", "1"])
 
 
-@pytest.mark.parametrize("kwargs", [{"session": object()}, {"page_size": 4096}])
+@pytest.mark.parametrize("kwargs", [{"session": object()}])
 def test_later_slices_raise(kwargs):
-    # paging covers global K/V caches; a Mamba2 state comes with A10.2
-    arch = "mamba2-2.7b" if "page_size" in kwargs else ARCH
-    with pytest.raises(NotImplementedError, match="A12" if "session" in kwargs
-                       else "A10.2"):
-        InferenceEngine(get_reduced(arch), {}, n_slots=2, max_len=16,
+    with pytest.raises(NotImplementedError, match="A12"):
+        InferenceEngine(get_reduced(ARCH), {}, n_slots=2, max_len=16,
                         device="cpu", **kwargs)
 
 

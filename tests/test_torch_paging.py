@@ -9,18 +9,26 @@ version of ``flash_decode_paged`` (gather, then ``flash_decode_ref``):
 * against ``repro.runtime.engine.InferenceEngine(..., page_size=...)``
   (params bridged through numpy): tokens, slot log, page log and the
   peak of live pages equal, the caches gathered through the table within
-  1e-5 of the JAX engine's, host loop and blocks, for qwen3, granite-moe
-  and internvl2; the memory report's paged fields equal;
+  1e-5 of the JAX engine's, host loop and blocks, for every decoder
+  family (qwen3, granite-moe, internvl2, gemma3 with its window at 1024
+  and cut to 8 so that every ring wraps, mamba2, zamba2); the memory
+  report's paged fields equal;
 * against the port's symmetric engine: tokens identical and every cache
   leaf byte-identical at page sizes 1024, 1000 and 4096, seeded sampling
-  included;
+  included, for qwen3, both ring branches of gemma3 (token-paged and
+  fully live), mamba2 and zamba2;
 * ``flash_decode_paged_ref`` against the reference's oracle on the
   reference's ``unpack`` of the same pool and table, and the paged K/V
   write against the reference's ``unpack``, row update and ``pack``;
-* pool pressure, the refused families, and the serve CLI.
+* the ring mask of the plain decode against the kernel core's lengths,
+  ``PagedLeaf.put`` against ``gather`` and its neighbours, the null page
+  under steals, and no whole-region gather on the served step;
+* pool pressure and the serve CLI.
 """
 
+import dataclasses
 import functools
+import math
 import warnings
 
 import numpy as np
@@ -46,8 +54,9 @@ from repro_torch.core.shared_objects import from_page_log  # noqa: E402
 from repro_torch.core.unified import (detect_state_axes, plan_paged_state,  # noqa: E402
                                       plan_state, state_records_from_cache)
 from repro_torch.kernels.flash_decode import flash_decode_paged  # noqa: E402
-from repro_torch.kernels.ref import flash_decode_paged_ref  # noqa: E402
+from repro_torch.kernels.ref import flash_decode_paged_ref, paged_index  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import DecoderModel  # noqa: E402
 from repro_torch.models.attention import _write_kv_paged  # noqa: E402
 from repro_torch.runtime.engine import InferenceEngine  # noqa: E402
@@ -58,10 +67,21 @@ N_SLOTS, MAX_LEN, MAX_NEW = 2, 64, 6
 SIZES = (4, 6, 3, 5, 4)
 
 
+def _windowed(cfg, window):
+    """``cfg`` with every sliding window cut to ``window`` (None: as is)."""
+    if window is None:
+        return cfg
+    def cut(specs):
+        return tuple(dataclasses.replace(s, window=window) if s.window else s
+                     for s in specs)
+    return dataclasses.replace(cfg, period=cut(cfg.period), remainder=cut(cfg.remainder))
+
+
 @functools.lru_cache(maxsize=None)
-def _params(arch):
+def _params(arch, window=None):
     """The reference's params and the same params in the port."""
-    jcfg, cfg = jax_get_reduced(arch), get_reduced(arch)
+    jcfg = _windowed(jax_get_reduced(arch), window)
+    cfg = _windowed(get_reduced(arch), window)
     jparams = Model.for_config(jcfg).init(jax.random.PRNGKey(0))
     params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     return jcfg, jparams, cfg, params
@@ -79,8 +99,8 @@ def _run(engine, prompts, max_new=MAX_NEW, **kw):
     return {r.request_id: list(r.tokens) for r in done}
 
 
-def _port(arch, **kw):
-    _, _, cfg, params = _params(arch)
+def _port(arch, window=None, **kw):
+    _, _, cfg, params = _params(arch, window)
     return InferenceEngine(cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
                            device="cpu", **kw)
 
@@ -99,18 +119,35 @@ def _assert_byte_identical(a, b):
 # ------------------------------------------------ against the JAX engine
 
 
+# (arch, window): gemma3 with its window cut to 8 wraps every ring; its
+# prompts (up to 12) and 9 new tokens run each slot past 8 positions
+FAMILIES = [("qwen3-0.6b", None), ("granite-moe-3b-a800m", None),
+            ("internvl2-1b", None), ("gemma3-4b", None), ("gemma3-4b", 8),
+            ("mamba2-2.7b", None), ("zamba2-7b", None)]
+WRAP_SIZES, WRAP_NEW = (4, 12, 3, 9, 4), 9
+
+
+def _case(arch, window):
+    """Prompts and new tokens of a case: the wrapping ones for a cut
+    window."""
+    cfg = _params(arch, window)[2]
+    if window is None:
+        return _prompts(cfg), MAX_NEW
+    return _prompts(cfg, WRAP_SIZES), WRAP_NEW
+
+
 @pytest.mark.parametrize("block_size", [1, 4])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m", "internvl2-1b"])
-def test_paged_engine_matches_the_jax_paged_engine(arch, block_size):
-    jcfg, jparams, cfg, _ = _params(arch)
-    prompts = _prompts(cfg)
+@pytest.mark.parametrize("arch,window", FAMILIES)
+def test_paged_engine_matches_the_jax_paged_engine(arch, window, block_size):
+    jcfg, jparams, cfg, _ = _params(arch, window)
+    prompts, max_new = _case(arch, window)
     jeng = jax_engine_mod.InferenceEngine(jcfg, jparams, n_slots=N_SLOTS,
                                           max_len=MAX_LEN, page_size=1024,
                                           block_size=block_size)
-    want = _run(jeng, prompts)
-    eng = _port(arch, page_size=1024, block_size=block_size)
+    want = _run(jeng, prompts, max_new)
+    eng = _port(arch, window, page_size=1024, block_size=block_size)
     ptr = eng.state.buf.data_ptr()
-    got = _run(eng, prompts)
+    got = _run(eng, prompts, max_new)
     assert got == want
     assert eng.slot_log == jeng.slot_log
     assert eng.page_log == jeng.page_log and eng.page_log
@@ -158,19 +195,34 @@ def test_memory_report_under_paging_equals_the_jax_engine():
 
 
 @pytest.mark.parametrize("page_size", [1024, 1000, 4096])
-def test_paged_decode_byte_identical_to_symmetric(page_size):
+@pytest.mark.parametrize("arch,window", [("qwen3-0.6b", None), ("gemma3-4b", None),
+                                         ("gemma3-4b", 8), ("mamba2-2.7b", None),
+                                         ("zamba2-7b", None)])
+def test_paged_decode_byte_identical_to_symmetric(arch, window, page_size):
     """A divisor of the slot stride, a page size that divides nothing
-    (rows straddle pages), and pages larger than one leaf's rows."""
-    prompts = _prompts(get_reduced("qwen3-0.6b"))
-    sym = _port("qwen3-0.6b")
-    want = _run(sym, prompts)
-    paged = _port("qwen3-0.6b", page_size=page_size)
-    assert _run(paged, prompts) == want
+    (rows and leaves straddle pages), and pages larger than one leaf's
+    rows. Both ring branches of ``detect_state_axes``: at ``max_len`` 64
+    gemma3's window of 1024 gives rings of T = 64, which follow
+    ``max_len`` and are paged by tokens; a window of 8 gives rings of 8,
+    fully live. Mamba2 states are fully live; zamba2's shared K/V is
+    token-paged."""
+    prompts, max_new = _case(arch, window)
+    sym = _port(arch, window)
+    want = _run(sym, prompts, max_new)
+    paged = _port(arch, window, page_size=page_size)
+    assert _run(paged, prompts, max_new) == want
     assert paged.slot_log == sym.slot_log
     assert paged.state.pages_live == 0
-    assert paged.state.pages_live_peak < paged.state.pages_total
+    sp = paged.memory_report.state_plan
+    if arch == "gemma3-4b":
+        rings = [span for leaf, span in zip(sp.leaves, sp.token_spans)
+                 if "['period'][0]" in leaf.path]
+        assert len(rings) == 2
+        assert all((span is None) == (window is not None) for span in rings)
+    if arch != "mamba2-2.7b":
+        assert paged.state.pages_live_peak < paged.state.pages_total
     _assert_byte_identical(sym, paged)
-    from_page_log(paged.page_log, state_plan=paged.memory_report.state_plan)
+    from_page_log(paged.page_log, state_plan=sp)
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "nemotron-4-340b"])
@@ -402,6 +454,111 @@ def test_table_is_written_in_place_at_admission_only():
     assert eng.state.inputs["table"] is table
 
 
+# ------------------------------------------- rings on the kernel's lengths
+
+
+@pytest.mark.parametrize("T,window", [(1, 1), (1, 6), (1, 1024), (8, 8), (8, 13),
+                                      (8, 1024), (64, 64), (64, 69), (64, 1024)])
+def test_ring_mask_is_the_kernel_cores_lengths(T, window):
+    """The plain decode's ring mask and the kernel core's ``lengths =
+    min(pos + 1, T)`` read the same slots: on a ring of seeded values
+    (slots the mask drops included), both decodes give the same output
+    within 1e-6 (fp32) at every position over three wraps, per-slot
+    positions apart."""
+    B, KV, G, D = 3, 2, 2, 64
+    gen = torch.Generator().manual_seed(T * 1000 + window)
+    p = attention.attn_init(gen, (), 32, KV * G, KV, D, False, torch.float32, "cpu")
+    kw = dict(n_heads=KV * G, n_kv=KV, head_dim=D, theta=10_000.0, window=window)
+    rng = np.random.default_rng(T + window)
+    for pos in range(3 * T + 3):
+        pos_b = torch.tensor([pos, max(pos - 1, 0), pos + T // 2], dtype=torch.int32)
+        x = torch.from_numpy(rng.normal(0, 1, (B, 1, 32)).astype(np.float32))
+        ring = rng.normal(0, 1, (2, B, T, KV, D)).astype(np.float32)
+        plain = tuple(torch.from_numpy(ring[i].copy()) for i in range(2))
+        kernel = tuple(torch.from_numpy(ring[i].copy()) for i in range(2))
+        want, _ = attention.attn_decode(p, x, plain, pos_b, **kw)
+        got, _ = attention.attn_decode_kernel(p, x, kernel, pos_b, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(plain, kernel))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_a_ring_longer_than_its_window_raises():
+    gen = torch.Generator().manual_seed(0)
+    p = attention.attn_init(gen, (), 32, 4, 2, 64, False, torch.float32, "cpu")
+    cache = (torch.zeros(1, 9, 2, 64), torch.zeros(1, 9, 2, 64))
+    with pytest.raises(ValueError, match="longer than its window"):
+        attention.attn_decode_kernel(p, torch.zeros(1, 1, 32), cache, 3, n_heads=4,
+                                     n_kv=2, head_dim=64, theta=10_000.0, window=8)
+
+
+# --------------------------------------------------------- PagedLeaf.put
+
+
+def _zamba2_pool(page_size, seed):
+    """Reduced zamba2's paged residency over 3 slots (conv windows, SSM
+    states and the shared block's K/V), a pool of seeded values with the
+    null page zero, and a shuffled table mapping slots 0 and 1 fully and
+    nothing of slot 2."""
+    model = DecoderModel(get_reduced("zamba2-7b"), "cpu")
+    template = model.init_cache(3, 64, device="meta")
+    plan = plan_paged_state(state_records_from_cache(template, n_slots=3), n_slots=3,
+                            max_len=64, page_size=page_size)
+    res = PagedStateResidency(plan, template, n_slots=3)
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.normal(0, 1, res.phys_total_size // 4).astype(np.float32))
+    buf = buf.view(torch.uint8)
+    buf[:page_size] = 0
+    table = np.zeros((3, plan.pages_per_slot), np.int32)
+    table[:2] = rng.permutation(np.arange(1, plan.n_pages_pool + 1))[
+        :2 * plan.pages_per_slot].reshape(2, -1)
+    return res, buf, torch.from_numpy(table)
+
+
+def _layers(res, buf, table):
+    """path -> one layer of each leaf (the leaves are stacked over one
+    period)."""
+    return {path: leaf[0] for path, leaf in res.leaves(buf, table).items()}
+
+
+@pytest.mark.parametrize("page_size", [1000, 1024])
+def test_put_of_gather_leaves_the_pool_as_it_was(page_size):
+    res, buf, table = _zamba2_pool(page_size, seed=page_size)
+    before = buf.clone()
+    layers = _layers(res, buf, table)
+    partial = 0
+    for leaf in layers.values():
+        runs = leaf._runs()
+        partial += sum(c1 - c0 < leaf.page_elems for _, _, c0, c1 in runs)
+        leaf.put(leaf.gather())
+    assert partial  # some runs start or end inside a page
+    assert torch.equal(buf, before)
+    assert not buf[:page_size].any()
+
+
+@pytest.mark.parametrize("page_size", [1000, 1024])
+@pytest.mark.parametrize("path", ["['period'][0]['mamba'][0]", "['period'][1]['mamba'][1]",
+                                  "['period'][1]['shared'][0]"])
+def test_put_writes_its_leaf_and_no_neighbour(page_size, path):
+    """A put of seeded values into one leaf (slot 2, unmapped, gets the
+    zeros it gathers): only that leaf's physical elements change, the
+    leaf gathers back what was put, and the null page stays zero."""
+    res, buf, table = _zamba2_pool(page_size, seed=3)
+    before = buf.clone()
+    leaf = _layers(res, buf, table)[path]
+    rng = np.random.default_rng(4)
+    values = torch.from_numpy(rng.normal(0, 1, (3,) + leaf.shape).astype(np.float32))
+    values[2] = 0
+    leaf.put(values)
+    assert torch.equal(leaf.gather(), values)
+    f, f0 = buf.view(torch.float32), before.view(torch.float32)
+    mine = torch.zeros(f.numel(), dtype=torch.bool)
+    mine[paged_index(table[:2], leaf.offset, leaf.strides, leaf.shape,
+                     leaf.page_elems).reshape(-1)] = True
+    changed = f.view(torch.int32) != f0.view(torch.int32)
+    assert changed.any() and not (changed & ~mine).any()
+    assert not buf[:page_size].any()
+
+
 # ---------------------------------------------------------- pool pressure
 
 
@@ -447,14 +604,90 @@ def test_unfinished_requests_under_pool_pressure():
     assert eng.state.pages_live <= per_slot
 
 
-# ---------------------------------------------------- scope and the CLI
+def _null_page_zero_after_every_wave(eng, prompts, budgets):
+    """Serve wave by wave; under paging the null page is all zeros after
+    every wave. Returns the tokens."""
+    for p, n in zip(prompts, budgets):
+        eng.submit(p, max_new_tokens=n)
+    done = []
+    while eng._active or eng._queue:
+        done += eng.step()
+        if eng.paged:
+            assert not eng.state.buf[:eng.page_size].any(), f"wave {eng.waves}"
+    return {r.request_id: list(r.tokens) for r in done}
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "gemma3-4b"])
-def test_unpaged_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        InferenceEngine(get_reduced(arch), {}, n_slots=2, max_len=64, device="cpu",
-                        page_size=1024)
+def test_null_page_stays_zero_with_a_slot_never_admitted():
+    """mamba2 from a pool of one slot's pages: admissions serialize on
+    slot 0, and slot 1, never admitted, maps only the null page, which
+    its state puts write back every wave."""
+    prompts = _prompts(get_reduced("mamba2-2.7b"), sizes=(4, 5, 3))
+    budgets = (5, 4, 6)
+    want = _null_page_zero_after_every_wave(_port("mamba2-2.7b"), prompts, budgets)
+    per_slot = _port("mamba2-2.7b", page_size=1000).memory_report.state_plan.pages_per_slot
+    eng = _port("mamba2-2.7b", page_size=1000, page_pool=per_slot)
+    assert _null_page_zero_after_every_wave(eng, prompts, budgets) == want
+    assert {s for s, _, _, _ in eng.slot_log} == {0}
+    assert not eng.state._table[1].any()
+
+
+def test_null_page_stays_zero_under_steals():
+    """zamba2 from a pool of a short and a long request's pages: the
+    third request (long) waits until both retire, then takes slot 0's
+    own stale pages and steals the rest from slot 1, whose cleared
+    entries resolve to the null page while its rows are put back."""
+    prompts = _prompts(get_reduced("zamba2-7b"), sizes=(4, 4, 4))
+    budgets = (2, 40, 40)
+    want = _null_page_zero_after_every_wave(_port("zamba2-7b"), prompts, budgets)
+    probe = _port("zamba2-7b", page_size=1000)
+    sp = probe.memory_report.state_plan
+    pool = len(sp.pages_needed(6)) + len(sp.pages_needed(44))
+    assert pool < 2 * sp.pages_per_slot
+    eng = _port("zamba2-7b", page_size=1000, page_pool=pool)
+    assert _null_page_zero_after_every_wave(eng, prompts, budgets) == want
+    slots = {rid: s for s, _, _, rid in eng.slot_log}
+    pages = {}
+    for page, _, _, rid in eng.page_log:
+        pages.setdefault(rid, set()).add(page)
+    assert slots == {0: 0, 1: 1, 2: 0}
+    assert pages[2] & pages[1], "no page was stolen"
+    assert (eng.state._table[1] == 0).any() and eng.state._table[1].any()
+
+
+# -------------------------------------------- the served step's transients
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-7b"])
+def test_no_whole_region_gather_on_the_served_step(arch):
+    """The traced step the executor runs with the kernel cores: no node
+    makes a tensor as large as one layer's whole K (or V) region, ring or
+    global, of all slots. The attention layers read through the table
+    (``flash_decode_paged``), and a Mamba2 layer gathers only its own
+    conv window and state."""
+    eng = _port(arch, page_size=1000)
+    regions = [math.prod(s) for path, (_, _, s, _) in eng.residency.addresses.items()
+               if "['attn']" in path or "['shared']" in path]
+    region = N_SLOTS * min(regions) // (eng.cfg.n_periods if eng.cfg.n_periods else 1)
+    trace = eng.executor.trace
+    sizes = {node.name: node.meta["val"].numel() for node in trace.produced
+             if isinstance(node.meta.get("val"), torch.Tensor)}
+    big = {n: k for n, k in sizes.items() if k >= region}
+    assert not big, f"whole-region tensors on the step (region {region}): {big}"
+    assert any("flash_decode_paged" in str(node.target) for node in trace.produced)
+
+
+# --------------------------------------------------------------- the CLI
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-2.7b", "zamba2-7b"])
+def test_serve_cli_pages_every_family(arch, capsys):
+    args = ["--device", "cpu", "--arch", arch, "--requests", "3", "--slots", "2",
+            "--max-len", "64", "--prompt-len", "4", "--max-new", "3"]
+    stats = serve.run(args + ["--page-size", "1024"])
+    out = capsys.readouterr().out
+    assert stats["state_pages_live"] == 0 and stats["pages_live_peak"] > 0
+    assert "paged state: pool" in out and "page audit" in out
+    assert serve.run(args)["tokens_per_request"] == stats["tokens_per_request"]
 
 
 def test_serve_cli_pages_on_the_cpu(capsys):

@@ -408,7 +408,9 @@ def test_step_count_reads_a_ring_up_to_its_window(gemma):
                                 axes=axes, lengths=lengths)
     assert whole.state_read_bytes == 2 * row * (B * WINDOW + (5 + 20))
     H, D = cfg.n_heads, cfg.resolved_head_dim
-    assert count.flops_by_op["repro_torch.flash_decode"] == 4 * 25 * H * D
+    # both layers read their cache with flash_decode: the global one 5 + 20
+    # positions, the ring min(length, 8) of each slot
+    assert count.flops_by_op["repro_torch.flash_decode"] == 4 * (25 + 5 + WINDOW) * H * D
 
 
 # ------------------------------------------------------ bf16 (ROADMAP C1)
