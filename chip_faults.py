@@ -26,7 +26,12 @@ ring's new K/V row at ``min(pos, T - 1)`` in place of ``pos % T``: the
 wrapped-ring cases must fail, rings before their wrap read right.
 ``state_put_ignores_table`` (``models/paged.py``) puts a Mamba2 layer's
 state into logical pages as if the page table were the identity: the
-shuffled paged Mamba2 cases must fail.
+shuffled paged Mamba2 cases must fail. ``bundle_fingerprint_ignored``
+(``core/unified.py``) makes a plan session's fingerprint comparison
+always true: it is run through the ``serve_bundle`` phase (the control
+too, when it is asked for), whose planted mismatch (a bundle for blocks
+of 8 handed to a host-loop engine) must fail while the bundles that fit
+still serve.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -44,9 +49,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = Path("src/repro_torch/kernels/csrc")
 
-# fault -> (the kernel rows it is judged on, the file planted (in
-#           src/repro_torch), [(text in the file, its replacement), ...],
-#           cases it must fail in every dtype)
+# fault -> (the kernel rows it is judged on (or the phase, for a phase
+#           other than kernels), the file planted (in src/repro_torch),
+#           [(text in the file, its replacement), ...], cases it must fail
+#           in every dtype)
 SLOW_CASES = ("slow_L256", "slow_L200_P8", "one_group_slow_L96", "prefill_slow")
 # qwen3's serving shape, and granite-moe's (64, 3): 8 spans of 128 with
 # empty ones, and its serving shape
@@ -130,16 +136,31 @@ FAULTS = {
         ("idx = self.table[:, p0:p1].long()",
          "idx = torch.arange(p0, p1, device=self.table.device).expand(B, -1)"),
     ], STATE_PUT),
+    # a plan session takes any bundle its lookup finds, whatever its
+    # fingerprint: the mismatch case must fail
+    "bundle_fingerprint_ignored": ("serve_bundle", "core/unified.py", [
+        ("        if bundle.fingerprint != expect:\n",
+         "        if False:  # planted: the fingerprint is ignored\n"),
+    ], ("mismatch",)),
 }
+# the phases other than kernels that faults are run through
+PHASE_OF = {"serve_bundle": "serve_bundle"}
 
 
 def label(row: dict) -> str:
+    if "dtype" not in row:
+        return row["case"]
     if "state_dtype" not in row:
         return f"{row['case']}/{row['dtype']}"
     return f"{row['case']}/{row['dtype']}/{row['state_dtype']}"
 
 
-def run(name: str, fault: tuple | None) -> dict:
+def judged(row: dict) -> str:
+    """What a case row is judged as: its kernel, or its phase."""
+    return row.get("kernel") or row.get("phase", "")
+
+
+def run(name: str, fault: tuple | None, phases: str = "kernels") -> dict:
     dst = ROOT / "build" / "faults" / name
     if dst.exists():
         shutil.rmtree(dst)
@@ -157,8 +178,10 @@ def run(name: str, fault: tuple | None) -> dict:
                                  f"{planted} exactly once")
             src = src.replace(old, new)
         path.write_text(src)
+    if fault is not None:
+        phases = PHASE_OF.get(kernel, "kernels")
     out = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--phases", "kernels", "--keep-going"],
+        [sys.executable, "chip_smoke.py", "--phases", phases, "--keep-going"],
         cwd=dst, capture_output=True, text=True, timeout=900,
     )
     cases, build = [], None
@@ -169,15 +192,15 @@ def run(name: str, fault: tuple | None) -> dict:
         if row.get("phase") == "build":
             build = row
         # a source's kernels: flash_decode.cu builds flash_decode_paged too
-        if "case" in row and row.get("kernel", "").startswith(kernel or ""):
+        if "case" in row and judged(row).startswith(kernel or ""):
             cases.append(row)
     if not cases:
         raise SystemExit(f"chip_faults: {name}: no case ran\n{out.stdout}\n{out.stderr}")
     failed = [label(r) for r in cases if not r["ok"]]
     passed = [label(r) for r in cases if r["ok"]]
     worst = {label(r): max(r["y"]["err_over_bar"], r["new_state"]["err_over_bar"])
-             for r in cases if r["kernel"] == "ssd_chunk"}
-    row = {"fault": name, "kernel": kernel, "cases": len(cases),
+             for r in cases if r.get("kernel") == "ssd_chunk"}
+    row = {"fault": name, "kernel": kernel, "phases": phases, "cases": len(cases),
            "failed": len(failed), "failed_cases": failed, "passed_cases": passed,
            "err_over_bar": worst, "ptxas": build and build.get("ptxas"),
            "exit": out.returncode}
@@ -197,7 +220,8 @@ def main() -> None:
         raise SystemExit(f"chip_faults: unknown faults {sorted(set(names) - set(FAULTS))}")
     if not (ROOT / CSRC / "ssd_chunk.cu").is_file():
         raise SystemExit(f"chip_faults: {ROOT} is not a checkout of the repository")
-    control = run("control", None)
+    control = run("control", None, ",".join(sorted(
+        {PHASE_OF.get(FAULTS[n][0], "kernels") for n in names})))
     results = {name: run(name, FAULTS[name]) for name in names}
     problems = []
     if control["failed"]:

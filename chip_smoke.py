@@ -186,7 +186,29 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                steady wave, the device copies per wave by kind, the host time
                of one graph launch and the allocator's peak over a replay,
                beside the twin's, both timed at the same point of the run;
-26. serve_paged_gemma3 — ``serve.run`` on full-width gemma3-4b at 8 slots x
+26. serve_bundle — compile → plan bundle → serve: full-width qwen3-0.6b at
+               8 slots x 2048 (bf16), the symmetric bucket and the paged one
+               (896 pages of 64 KiB), compiled by ``launch/compile`` on
+               ``meta`` and published into a manifest (wall time, bundle
+               bytes, records, certifier and bundle-lint findings), then
+               ``serve.run(... --plan-bundle DIR)``:
+               tokens equal to the serve and serve_paged phases' (twins
+               served here when those did not run), ``plan_source``
+               "bundle" and no warning, ``plan_calls`` and
+               ``state_plan_calls`` 0 and ``trace_calls`` 1 over the
+               engine's construction, the state and the arena fixed, 8,764
+               ``flash_decode`` (``flash_decode_paged``) launches as the
+               twins', the allocator's peak over a replay 0 B, the cold
+               start beside a plan-at-construction engine built right
+               after it, and a steady window timed and profiled as the
+               profile and serve_paged phases time theirs (device ms per
+               wave beside theirs); then a planted mismatch (a bundle for blocks of 8
+               handed to a host-loop engine) must come back planned at
+               construction with the fingerprint-mismatch warning and the
+               same tokens. One row per case (``--keep-going`` lists the
+               failed cases; ``chip_faults.py``'s
+               ``bundle_fingerprint_ignored`` must fail ``mismatch``);
+27. serve_paged_gemma3 — ``serve.run`` on full-width gemma3-4b at 8 slots x
                2048 from a pool of 18,880 pages of 64 KiB, in a fresh
                process of this script (no profiler session before its
                captures), just after a symmetric twin: tokens equal to the
@@ -196,11 +218,18 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                replay and no ``flash_decode``, the allocator's peak over a
                replay 0 B, admission's transient below the pool, the plan's
                carve and certify seconds, aten ops per step, and a steady
-               wave of each engine timed and profiled alike;
-27. serve_paged_zamba2 — the same for zamba2-7b from 13,888 pages
+               wave of each engine timed and profiled alike; then, those
+               engines freed, the bucket compiled into a manifest and the
+               same mix served from it: tokens and 10,642 launches equal,
+               nothing planned or carved, one trace, the cold start, the
+               resolve and the state plan seconds beside the
+               plan-at-construction engine's, and a steady wave timed and
+               profiled as that engine's was;
+28. serve_paged_zamba2 — the same for zamba2-7b from 13,888 pages
                (910,229,504 B): 13 launches per replay, the 81 Mamba2
-               layers gathering and putting their state through the table;
-28. smem      — for each kernel instantiation on the paths, the shared
+               layers gathering and putting their state through the table
+               (no bundle);
+29. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -222,8 +251,9 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, 26, 27; 7 and 24 for
-their own checks) and read just after it.
+5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26, 27
+and its bundle serve, 28; 7 and 24 for their own checks) and read just
+after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -1300,7 +1330,9 @@ def phase_serve() -> tuple[dict, object]:
         "first_tokens": {k: v[:4] for k, v in list(toks.items())[:2]},
         "ok": True,
     })
-    SERVE_NUMBERS.update(tokens=toks, tokens_per_s=stats["tokens_per_s"])
+    SERVE_NUMBERS.update(tokens=toks, tokens_per_s=stats["tokens_per_s"],
+                         launches=launches, cold_start_s=stats["cold_start_s"],
+                         state_plan_s=stats["state_plan_s"])
     return {"launches": launches, "tokens": toks}, stats["engine"]
 
 
@@ -3010,6 +3042,10 @@ def phase_serve_paged() -> dict:
              f"{stats['state_pages_live']} after the drain")
     from_page_log(engine.page_log, state_plan=engine.memory_report.state_plan)
     replayed = check_replayed("serve_paged", stats, "flash_decode_paged")
+    SERVE_NUMBERS.update(paged_tokens=toks,
+                         paged_launches=counts["flash_decode_paged"],
+                         paged_cold_start_s=stats["cold_start_s"],
+                         paged_state_plan_s=stats["state_plan_s"])
     if stats["capture_calls"] != 1:
         fail(f"serve_paged: {stats['capture_calls']} graphs captured, expected 1")
     # the pool is smaller than one slot's 1,792 pages: the certifier warns
@@ -3021,6 +3057,7 @@ def phase_serve_paged() -> dict:
     steady = steady_pair({"paged": engine, "symmetric": twin})
     # each admission's reset gathers only its slot's mapped pages (all 112
     # of them still mapped from the run), never the logical state
+    SERVE_NUMBERS.update(paged_device_ms_per_wave=steady["paged"]["device_ms_per_wave"])
     if steady["paged"]["admission_peak_bytes"] > stats["allocated_bytes"]:
         fail(f"serve_paged: admission took {steady['paged']['admission_peak_bytes']} B "
              f"above the allocated, more than the {stats['allocated_bytes']} B pool")
@@ -3090,6 +3127,214 @@ def phase_serve_paged() -> dict:
     del stats, half
     torch.cuda.empty_cache()
     return row
+
+
+def bundle_case(case: str, checks: dict, row: dict) -> dict:
+    """Emit one ``serve_bundle`` row: the case's numbers and which of its
+    ``checks`` (name -> passed) failed. A failed check fails the run, or
+    under ``--keep-going`` is listed and fails it at the phase's end."""
+    bad = [name for name, ok in checks.items() if not ok]
+    row = {"phase": "serve_bundle", "case": case, **row, "failed_checks": bad,
+           "ok": not bad}
+    emit(row)
+    if bad:
+        fail_case(case, f"serve_bundle {case}: failed {bad}")
+    return row
+
+
+def bundle_serve_checks(stats: dict, tokens: dict, kernel: str,
+                        launches: int, counts: dict) -> dict:
+    """What a bundle-served run must show: the twin's tokens, both plans
+    from the bundle (no planner call, no state layout, one trace: the
+    executor's program), the buffers fixed, the kernel launched as often
+    as the plan-at-construction engine launched it, nothing allocated
+    over a replay."""
+    return {
+        "tokens_equal": stats["tokens_per_request"] == tokens,
+        "plan_source_bundle": stats["plan_source"] == "bundle",
+        "no_bundle_warning": stats["bundle_warning"] is None,
+        "plan_calls_0": stats["plan_calls"] == 0,
+        "state_plan_calls_0": stats["state_plan_calls"] == 0,
+        "trace_calls_1": stats["trace_calls"] == 1,
+        "state_plan_s_none": stats["state_plan_s"] is None,
+        "state_fixed": stats["state_ptr_before"] == stats["state_ptr_after"],
+        "arena_fixed": stats["arena_ptr_before"] == stats["arena_ptr_after"],
+        f"{kernel}_launches_equal": counts[kernel] == launches,
+        "allocator_replay_peak_0": stats["allocator_step_peak_bytes"] == 0,
+    }
+
+
+def cold_start_after(engine) -> float:
+    """Seconds a plan-at-construction twin of ``engine`` (its params,
+    bucket and serve configuration) takes to build, right after it served:
+    the same point of the run, caches as warm. Built after the launch
+    counts were read, then freed."""
+    import torch
+
+    from repro_torch.runtime.engine import InferenceEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = InferenceEngine(engine.cfg, engine.params, n_slots=engine.n_slots,
+                           max_len=engine.max_len, device=engine.device,
+                           block_size=engine.block_size, page_size=engine.page_size,
+                           page_pool=engine.page_pool)
+    seconds = time.perf_counter() - t0
+    del twin
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def compile_row(res, path: Path) -> dict:
+    """A compile's wall time, bundle bytes, records and findings (the
+    certifier's and the bundle lint's, re-run on the published file: the
+    codes of the certifier's warnings and the count of its errors)."""
+    from repro_torch.analysis import bundle_lint, soundness
+    from repro_torch.core.artifact import load_bundle
+
+    bundle = load_bundle(path)
+    certified = soundness.certify_bundle(bundle)
+    return {"compile_s": res.wall_s, "bundle_bytes": path.stat().st_size,
+            "records": len(bundle.plan.records),
+            "state_bytes": bundle.state_plan.total_size,
+            "activation_bytes": bundle.plan.total_size,
+            "certify_errors": sum(f.severity == "error" for f in certified),
+            "certify_warnings": sorted(f.code for f in certified
+                                       if f.severity != "error"),
+            "lint_findings": len(bundle_lint.lint_bundle_file(path))}
+
+
+def phase_serve_bundle() -> dict:
+    """compile → plan bundle → serve at full width: two qwen3-0.6b buckets
+    (8 slots x 2048, bf16; symmetric, and paged from 896 pages of 64 KiB)
+    compiled on ``meta`` and published into a manifest, then served
+    through ``serve.run(... --plan-bundle DIR)``: tokens equal to the
+    plan-at-construction serves' (the serve and serve_paged phases', or
+    twins served here when those did not run), both plans from the bundle
+    (``plan_calls`` and ``state_plan_calls`` 0, ``trace_calls`` 1), the
+    state and the arena fixed, as many ``flash_decode`` /
+    ``flash_decode_paged`` launches as the twins, the allocator's peak over
+    a replay 0 B. Then a planted mismatch: a bundle published for blocks of
+    8 handed to a host-loop engine must come back planned at construction
+    with the fingerprint-mismatch warning and the same tokens (the check
+    reads ``plan_source``, never only the tokens). One row per case."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.artifact import BundleManifest, bucket_key
+    from repro_torch.launch import serve
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_config("qwen3-0.6b")
+    if "launches" not in SERVE_NUMBERS:
+        reset_launches()
+        twin = serve.run(SERVE_ARGS)
+        SERVE_NUMBERS.update(tokens=twin["tokens_per_request"],
+                             launches=read_launches()["flash_decode"],
+                             cold_start_s=twin["cold_start_s"],
+                             state_plan_s=twin["state_plan_s"])
+        del twin
+    if "paged_launches" not in SERVE_NUMBERS:
+        reset_launches()
+        twin = serve.run(SERVE_ARGS + PAGED_ARGS)
+        SERVE_NUMBERS.update(paged_tokens=twin["tokens_per_request"],
+                             paged_launches=read_launches()["flash_decode_paged"],
+                             paged_cold_start_s=twin["cold_start_s"],
+                             paged_state_plan_s=twin["state_plan_s"])
+        del twin
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    rows = {}
+    try:
+        manifest = root / "manifest"
+        for case, page in (("compile", None), ("compile_paged", PAGE_SIZE)):
+            kw = {"page_size": page, "page_pool": PAGE_POOL} if page else {}
+            res = compile_and_publish(cfg, str(manifest), n_slots=8, max_len=2048,
+                                      command="chip_smoke.py serve_bundle", **kw)
+            entry = BundleManifest(manifest).buckets()[
+                bucket_key(cfg, n_slots=8, max_len=2048, page_size=page)]
+            row = compile_row(res, manifest / entry["file"])
+            # the pool of 896 cannot map one slot's 1,792 pages: the
+            # certifier warns, as on serve_paged's plan row
+            rows[case] = bundle_case(case, {
+                "certify_errors_0": row["certify_errors"] == 0,
+                "certify_warnings_expected": row["certify_warnings"] ==
+                (["paged-pool-short"] if page else []),
+                "lint_findings_0": row["lint_findings"] == 0,
+                "executables_null": res.bundle.executables is None,
+            }, {"arch": cfg.name, "page_size": page, **row})
+        for case, extra, kernel, prefix, label in (
+                ("serve", [], "flash_decode", "", "qwen3-0.6b serve_bundle"),
+                ("serve_paged", PAGED_ARGS, "flash_decode_paged", "paged_",
+                 "qwen3-0.6b serve_bundle paged")):
+            reset_launches()
+            stats = serve.run(SERVE_ARGS + extra + ["--plan-bundle", str(manifest)])
+            counts = read_launches()
+            want = SERVE_NUMBERS[f"{prefix}launches"]
+            checks = bundle_serve_checks(stats, SERVE_NUMBERS[f"{prefix}tokens"],
+                                         kernel, want, counts)
+            check_replayed(f"serve_bundle {case}", stats, kernel)
+            plan_row(f"{label} (8 slots x 2048, from its bundle)", stats,
+                     warnings=("paged-pool-short",) if extra else ())
+            built_after = cold_start_after(stats["engine"])
+            # timed as the plan-at-construction engine was: the profile
+            # phase's window, or serve_paged's steady pair
+            steady = (steady_pair({"bundle": stats["engine"]})["bundle"] if extra
+                      else steady_profile(f"serve_bundle {case}", stats["engine"]))
+            rows[case] = bundle_case(case, checks, {
+                "arch": cfg.name, "page_size": PAGE_SIZE if extra else None,
+                "plan_source": stats["plan_source"],
+                "bundle_warning": stats["bundle_warning"],
+                "trace_calls": stats["trace_calls"], "plan_calls": stats["plan_calls"],
+                "state_plan_calls": stats["state_plan_calls"],
+                "launches": counts, "launches_plan_at_construction": want,
+                "cold_start_s": stats["cold_start_s"],
+                "plan_resolve_s": stats["plan_resolve_s"],
+                "state_plan_s": stats["state_plan_s"],
+                # a plan-at-construction engine built right after it, and
+                # the twin's (built at another point of the run)
+                "cold_start_s_built_after": built_after,
+                "cold_start_s_plan_at_construction":
+                    SERVE_NUMBERS[f"{prefix}cold_start_s"],
+                "state_plan_s_plan_at_construction":
+                    SERVE_NUMBERS[f"{prefix}state_plan_s"],
+                "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+                "tokens_per_s": stats["tokens_per_s"],
+                # a steady window of the bundle's engine, and of the
+                # plan-at-construction engine's (profile / serve_paged)
+                "device_ms_per_wave": steady["device_ms_per_wave"],
+                "device_ms_per_wave_plan_at_construction":
+                    SERVE_NUMBERS.get(f"{prefix}device_ms_per_wave"),
+            })
+            del stats
+            torch.cuda.empty_cache()
+        # a planted mismatch: the bundle of another serve configuration
+        # (blocks of 8) published for the same bucket key
+        other = root / "block8"
+        compile_and_publish(cfg, str(other), n_slots=8, max_len=2048, block_size=8)
+        stats = serve.run(SERVE_ARGS + ["--plan-bundle", str(other)])
+        warning = stats["bundle_warning"] or ""
+        rows["mismatch"] = bundle_case("mismatch", {
+            "plan_source_not_bundle": stats["plan_source"] in ("planned", "cache"),
+            "fingerprint_mismatch_warning":
+                warning.startswith("plan bundle fingerprint mismatch"),
+            "planned_at_construction": stats["plan_calls"] == 1
+            and stats["state_plan_calls"] == 1,
+            "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
+        }, {"arch": cfg.name, "compiled_block_size": 8, "served_block_size": 1,
+            "plan_source": stats["plan_source"], "bundle_warning": warning,
+            "plan_calls": stats["plan_calls"],
+            "state_plan_calls": stats["state_plan_calls"]})
+        del stats
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if FAILED_CASES:
+        fail(f"serve_bundle: {len(FAILED_CASES)} case(s) failed: {FAILED_CASES}")
+    return rows
 
 
 # the paged serves of every decoder family beyond qwen3: phase -> (arch,
@@ -3198,12 +3443,90 @@ def phase_serve_paged_family(phase: str) -> dict:
         **{f"{k}_{name}": steady[name][k] for name in steady for k in (
             "device_ms_per_wave", "wall_ms_per_wave", "tokens_per_s",
             "kernel_launches_per_wave", "admission_peak_bytes")},
-        "steady": steady, "tokens_equal_symmetric": True, "ok": True,
+        "steady": steady, "tokens_equal_symmetric": True,
     }
+    stats.pop("engine")
+    del engine, twin, sym
+    torch.cuda.empty_cache()
+    if arch in BUNDLE_FAMILIES:
+        row["bundle"] = serve_family_from_bundle(
+            phase, args, pool, stats, counts, steady["paged"]["device_ms_per_wave"])
+    row["ok"] = True
     emit(row)
-    del engine, twin, stats, sym
+    del stats
     torch.cuda.empty_cache()
     return row
+
+
+# the paged families also served from a compiled bundle (serve_paged_family)
+BUNDLE_FAMILIES = ("gemma3-4b",)
+
+
+def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
+                             counts: dict, device_ms_per_wave: float) -> dict:
+    """The paged bucket of ``args`` compiled on ``meta`` and published,
+    then the same mix served from the manifest (the plan-at-construction
+    engine freed first): tokens and ``flash_decode_paged`` launches equal
+    to that engine's (``stats``, ``counts``), both plans from the bundle
+    (nothing carved: ``state_plan_calls`` 0), one trace, the pool fixed,
+    the allocator's peak over a replay 0 B. Returns the cold start, the
+    resolve and the state plan seconds beside the plan-at-construction
+    engine's, and the device ms of a steady wave beside that engine's
+    (``device_ms_per_wave``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.artifact import BundleManifest, bucket_key
+    from repro_torch.launch import serve
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_config(args[args.index("--arch") + 1])
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    try:
+        res = compile_and_publish(cfg, str(root), n_slots=8, max_len=2048,
+                                  page_size=PAGE_SIZE, page_pool=pool,
+                                  command=f"chip_smoke.py {phase}")
+        entry = BundleManifest(root).buckets()[
+            bucket_key(cfg, n_slots=8, max_len=2048, page_size=PAGE_SIZE)]
+        compiled = compile_row(res, root / entry["file"])
+        reset_launches()
+        got = serve.run(args + ["--page-size", str(PAGE_SIZE), "--page-pool", str(pool),
+                                "--plan-bundle", str(root)])
+        got_counts = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = counts["flash_decode_paged"]
+    checks = bundle_serve_checks(got, stats["tokens_per_request"],
+                                 "flash_decode_paged", want, got_counts)
+    checks["certify_and_lint_findings_0"] = not compiled["certify_warnings"] and \
+        compiled["certify_errors"] == compiled["lint_findings"] == 0
+    check_replayed(f"{phase} bundle", got, "flash_decode_paged",
+                   per_step=PAGED_FAMILIES[phase][3])
+    if not all(checks.values()):
+        fail(f"{phase}: served from its bundle, failed "
+             f"{[k for k, ok in checks.items() if not ok]}")
+    plan_row(f"{cfg.name} {phase} (8 slots x 2048, {pool} pages, from its bundle)", got)
+    built_after = cold_start_after(got["engine"])
+    steady = steady_pair({"bundle": got["engine"]})["bundle"]
+    out = {
+        **compiled, "plan_source": got["plan_source"],
+        "trace_calls": got["trace_calls"], "plan_calls": got["plan_calls"],
+        "state_plan_calls": got["state_plan_calls"], "launches": got_counts,
+        "launches_plan_at_construction": want,
+        "cold_start_s": got["cold_start_s"], "plan_resolve_s": got["plan_resolve_s"],
+        "state_plan_s": got["state_plan_s"],
+        "cold_start_s_built_after": built_after,
+        "device_ms_per_wave": steady["device_ms_per_wave"],
+        "device_ms_per_wave_plan_at_construction": device_ms_per_wave,
+        "cold_start_s_plan_at_construction": stats["cold_start_s"],
+        "state_plan_s_plan_at_construction": stats["state_plan_s"],
+        "allocator_step_peak_bytes": got["allocator_step_peak_bytes"],
+        "tokens_equal": True, "checks": sorted(checks),
+    }
+    del got
+    return out
 
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
@@ -3211,8 +3534,8 @@ PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
           "serve_granite", "prefill_granite", "parity_llama4", "parity_zamba2",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
-          "prefill_internvl2", "parity_paged", "serve_paged", "serve_paged_gemma3",
-          "serve_paged_zamba2", "smem")
+          "prefill_internvl2", "parity_paged", "serve_paged", "serve_bundle",
+          "serve_paged_gemma3", "serve_paged_zamba2", "smem")
 
 
 T0 = time.perf_counter()
@@ -3322,6 +3645,12 @@ def main() -> None:
     if "serve_paged" in phases:
         launches["flash_decode_paged"]["qwen3-0.6b serve_paged"] = \
             phase_serve_paged()["launches"]["flash_decode_paged"]
+    if "serve_bundle" in phases:
+        bundles = phase_serve_bundle()
+        launches["flash_decode"]["qwen3-0.6b serve_bundle"] = \
+            bundles["serve"]["launches"]["flash_decode"]
+        launches["flash_decode_paged"]["qwen3-0.6b serve_bundle paged"] = \
+            bundles["serve_paged"]["launches"]["flash_decode_paged"]
     for phase, (arch, *_) in PAGED_FAMILIES.items():
         if phase not in phases:
             continue
@@ -3334,13 +3663,16 @@ def main() -> None:
             fail(f"{phase}: the paged tokens differ from the symmetric serve phase's")
         launches["flash_decode_paged"][f"{arch} {phase}"] = \
             row["launches"]["flash_decode_paged"]
+        if "bundle" in row:
+            launches["flash_decode_paged"][f"{arch} {phase} bundle"] = \
+                row["bundle"]["launches"]["flash_decode_paged"]
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 15 or len(roofs) != 11:
+    if len(CERTIFIED) != 18 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 15 and 11")
+             f"expected 18 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)

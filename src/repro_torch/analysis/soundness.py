@@ -41,6 +41,7 @@ from repro_torch.analysis.findings import Finding
 from repro_torch.core.unified import dtype_itemsize
 
 if TYPE_CHECKING:  # structural types only; no planner code is executed
+    from repro_torch.core.artifact import PlanBundle
     from repro_torch.core.planner import MemoryPlan
     from repro_torch.core.records import TensorUsageRecord
     from repro_torch.core.shared_objects import SharedObjectsAssignment
@@ -575,10 +576,32 @@ def certify_unified(
     return findings
 
 
+def certify_bundle(
+    bundle: "PlanBundle", *, label: str | None = None
+) -> list[Finding]:
+    """Certify a published :class:`PlanBundle`: its activation plan,
+    (v2) its state plan, and (v4) its prefill plan. Manifest-level
+    coherence is :mod:`repro_torch.analysis.bundle_lint`'s job."""
+    where = label or (
+        f"{bundle.arch}|slots{bundle.n_slots}|len{bundle.max_len}"
+    )
+    findings = certify_plan(bundle.plan, label=where)
+    if bundle.state_plan is not None:
+        findings += certify_state_plan(
+            bundle.state_plan, label=f"{where}:state"
+        )
+    if bundle.prefill_plan is not None:
+        findings += certify_plan(
+            bundle.prefill_plan, label=f"{where}:prefill"
+        )
+    return findings
+
+
 __all__ = [
     "certify_offsets",
     "certify_shared_objects",
     "certify_state_plan",
     "certify_plan",
     "certify_unified",
+    "certify_bundle",
 ]

@@ -1,12 +1,15 @@
 """Core memory-planning library of the port (the paper's contribution),
-a copy of the reference's ``repro.core`` up to its plan sessions and
-bundles (ROADMAP A12).
+a copy of the reference's ``repro.core``.
 
 Public API:
     unified      — the planning facade: ``plan(PlanSpec) -> UnifiedPlan``
                    covering the activation half (MemoryPlan) and the
                    cross-step slot/KV state half (StatePlan, paged or
-                   symmetric) under one fingerprint and one total
+                   symmetric) under one fingerprint and one total;
+                   PlanSession is the one plan source an engine serves
+                   from (a bundle manifest, one bundle, or a spec)
+    artifact     — PlanBundle + BundleManifest: compiled plans as
+                   fingerprinted, content-addressed serving artifacts
     records      — usage records, profiles, breadths, lower bounds
     interval_set — shared overlap engine: DisjointIntervalSet,
                    IntervalTree, BestFitArena
@@ -74,7 +77,9 @@ from repro_torch.core.records import (
 )
 from repro_torch.core.unified import (
     PagedStatePlan,
+    PlanSession,
     PlanSpec,
+    Resolution,
     StatePlan,
     StateRecord,
     UnifiedPlan,
@@ -87,7 +92,9 @@ from repro_torch.core.unified import (
 
 __all__ = [
     "PagedStatePlan",
+    "PlanSession",
     "PlanSpec",
+    "Resolution",
     "StatePlan",
     "StateRecord",
     "UnifiedPlan",

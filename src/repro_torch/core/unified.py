@@ -1,5 +1,5 @@
 """Unified planning facade: one ``plan()`` over both of the paper's halves
-(copy of the reference's ``core/unified.py`` up to its plan sessions).
+(copy of the reference's ``core/unified.py``, its plan sessions included).
 
 * intra-step activation sharing — Offset Calculation / Shared Objects
   over the tensor usage records of one step (§4–§5, ``core/planner``);
@@ -22,9 +22,12 @@ on ``meta`` tensors. The layout code is the reference's, so a port
 nested dict/tuple of tensors) and names each leaf with the path string
 ``jax.tree_util.keystr`` would give it, e.g. ``"['period'][0]['attn'][0]"``.
 
-Every fingerprint here is the content fingerprint of the spec (the
-reference's ``_spec_fingerprint``): the config-level decode fingerprint
-that bundles share comes with plan sessions and bundles (ROADMAP A12).
+A bucketed spec (``cfg``, ``n_slots`` and ``max_len`` set) carries the
+config-level ``artifact.decode_fingerprint`` that compiled bundles carry;
+any other spec the content fingerprint of its inputs. A
+:class:`PlanSession` is the one plan source an engine serves from: a
+manifest of compiled bundles, one bundle, or a spec; it resolves to a
+:class:`Resolution` whose failures are one-line warnings, never errors.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import dataclasses
 import hashlib
 import json
 import math
+import time
+from pathlib import Path
 from typing import TYPE_CHECKING, Any, Iterator, Sequence
 
 import numpy as np
@@ -42,6 +47,8 @@ from repro_torch.core.interval_set import BestFitArena
 from repro_torch.core.records import DEFAULT_ALIGNMENT, TensorUsageRecord, align
 
 if TYPE_CHECKING:
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core.artifact import PlanBundle
     from repro_torch.core.fusion_search import FusionSearchResult
     from repro_torch.core.graph import Graph
     from repro_torch.core.order_search import OrderSearchResult
@@ -567,8 +574,11 @@ class PlanSpec:
 
     Activation input is the ``graph`` (preferred — enables ``search``) or
     raw ``records``; the cross-step half is ``state_records`` (omit for an
-    activation-only plan). ``n_slots``/``max_len`` are the bucket
-    identity, and join the fingerprint."""
+    activation-only plan). ``cfg``/``n_slots``/``max_len`` are the bucket
+    identity: with all three set the plan's fingerprint is the bundle's
+    config-level :func:`~repro_torch.core.artifact.decode_fingerprint`
+    (under ``cores``), so a spec-planned :class:`UnifiedPlan` and a
+    compiled bundle for the same bucket carry the same key."""
 
     graph: "Graph | None" = None
     records: Sequence[TensorUsageRecord] | None = None
@@ -582,6 +592,7 @@ class PlanSpec:
     prefill_graph: "Graph | None" = None
     prefill_len: int | None = None
     # bucket identity
+    cfg: "ArchConfig | None" = None
     n_slots: int | None = None
     max_len: int | None = None
     # serve-loop identity (joins the fingerprint): block size
@@ -606,6 +617,9 @@ class PlanSpec:
     cache: "plan_io.PlanCache | None" = None
     use_cache: bool = True
     graph_name: str = "records"
+    # the decode step's cores ("kernel" or "plain"): joins the bucketed
+    # fingerprint when not "kernel"
+    cores: str = "kernel"
 
 
 @dataclasses.dataclass
@@ -686,8 +700,9 @@ class UnifiedPlan:
 
 
 def _spec_fingerprint(spec: PlanSpec, records, state_records) -> str:
-    """Content fingerprint of a spec: everything the unified output
-    depends on."""
+    """Content fingerprint for bucket-less specs: everything the unified
+    output depends on. Bucketed specs use the config-level
+    ``decode_fingerprint`` instead (shared with compiled bundles)."""
     payload = {
         "planner_revision": plan_io.PLANNER_REVISION,
         "mode": spec.mode,
@@ -843,7 +858,21 @@ def plan(spec: PlanSpec) -> UnifiedPlan:
         provenance["state_total_bytes"] = state.total_size
         provenance["state_leaves"] = len(state.leaves)
 
-    fingerprint = _spec_fingerprint(spec, records, spec.state_records)
+    if (
+        spec.cfg is not None
+        and spec.n_slots is not None
+        and spec.max_len is not None
+    ):
+        from repro_torch.core.artifact import decode_fingerprint
+
+        fingerprint = decode_fingerprint(
+            spec.cfg, n_slots=spec.n_slots, max_len=spec.max_len,
+            serve_params=spec.serve_params,
+            prefill_len=spec.prefill_len,
+            cores=spec.cores,
+        )
+    else:
+        fingerprint = _spec_fingerprint(spec, records, spec.state_records)
 
     return UnifiedPlan(
         activation=activation,
@@ -857,3 +886,197 @@ def plan(spec: PlanSpec) -> UnifiedPlan:
     )
 
 
+
+
+# ---------------------------------------------------------------- session
+
+
+@dataclasses.dataclass
+class Resolution:
+    """What a :class:`PlanSession` hands the engine: the unified plan (or
+    None — trace-and-plan fallback), the backing bundle when there is one,
+    the effective serving bucket (``max_len`` and ``n_slots`` may both be
+    >= requested when nearest-bucket selection picked a longer or
+    wider-pool compiled bucket), a one-line warning for the report, the
+    spec knobs the fallback path should honor, and the seconds the
+    resolution took."""
+
+    unified: UnifiedPlan | None
+    bundle: "PlanBundle | None"
+    source: str  # "bundle" | "spec" | "unresolved"
+    warning: str | None
+    max_len: int
+    n_slots: int = 0  # 0 = the requested slot count
+    spec: PlanSpec | None = None
+    resolve_s: float = 0.0
+
+
+class PlanSession:
+    """The one plan source an engine serves from.
+
+    ``from_manifest(dir)`` — compiled-artifact serving with bucket
+    auto-selection: exact bucket first, else the admissible compiled
+    bucket (``max_len >= requested`` and ``n_slots >= requested``, same
+    arch/dtype) with the smallest unified footprint (pass
+    ``nearest=False`` for exact-only). ``from_bundle`` — one bundle file
+    or object. ``from_spec`` — plan on demand from a :class:`PlanSpec`;
+    an empty spec defers to the engine's own trace with its knobs.
+    ``verify_graph`` is accepted for the reference's signature: the port's
+    engine traces its decode step once whatever the source (the trace is
+    its executor's program), and always checks a bundle's structural
+    graph fingerprint against that trace."""
+
+    def __init__(
+        self,
+        *,
+        manifest_dir: str | Path | None = None,
+        bundle: "PlanBundle | str | Path | None" = None,
+        spec: PlanSpec | None = None,
+        nearest: bool = True,
+        verify_graph: bool = False,
+    ):
+        sources = [manifest_dir is not None, bundle is not None, spec is not None]
+        if sum(sources) != 1:
+            raise ValueError(
+                "PlanSession takes exactly one source: manifest_dir, "
+                "bundle, or spec"
+            )
+        self.manifest_dir = Path(manifest_dir) if manifest_dir else None
+        self.bundle = bundle
+        self.spec = spec
+        self.nearest = nearest
+        self.verify_graph = verify_graph
+
+    @classmethod
+    def from_manifest(
+        cls, directory: str | Path, *, nearest: bool = True,
+        verify_graph: bool = False,
+    ) -> "PlanSession":
+        return cls(
+            manifest_dir=directory, nearest=nearest, verify_graph=verify_graph
+        )
+
+    @classmethod
+    def from_bundle(
+        cls, bundle: "PlanBundle | str | Path", *, verify_graph: bool = False
+    ) -> "PlanSession":
+        return cls(bundle=bundle, verify_graph=verify_graph)
+
+    @classmethod
+    def from_spec(cls, spec: PlanSpec) -> "PlanSession":
+        return cls(spec=spec)
+
+    def resolve(
+        self, cfg: "ArchConfig", *, n_slots: int, max_len: int,
+        serve_params: dict | None = None, cores: str = "kernel",
+    ) -> Resolution:
+        """``serve_params`` is the engine's serve-loop fingerprint payload
+        (``artifact.serve_fingerprint``) — None for the default greedy
+        host loop — and ``cores`` its decode step's cores; bundles
+        compiled for another serving configuration fail the fingerprint
+        check and fall back."""
+        t0 = time.perf_counter()
+        if self.spec is not None:
+            res = self._resolve_spec(
+                cfg, n_slots=n_slots, max_len=max_len,
+                serve_params=serve_params, cores=cores,
+            )
+        else:
+            res = self._resolve_bundle(
+                cfg, n_slots=n_slots, max_len=max_len,
+                serve_params=serve_params, cores=cores,
+            )
+        res.resolve_s = time.perf_counter() - t0
+        return res
+
+    def _resolve_spec(
+        self, cfg, *, n_slots: int, max_len: int,
+        serve_params: dict | None = None, cores: str = "kernel",
+    ) -> Resolution:
+        spec = dataclasses.replace(
+            self.spec, cfg=cfg, n_slots=n_slots, max_len=max_len, cores=cores,
+            serve_params=(
+                serve_params if serve_params is not None
+                else self.spec.serve_params
+            ),
+        )
+        if spec.graph is None and spec.records is None:
+            # knobs only — the engine traces, then plans with these knobs
+            return Resolution(
+                unified=None, bundle=None, source="spec", warning=None,
+                max_len=max_len, n_slots=n_slots, spec=spec,
+            )
+        return Resolution(
+            unified=plan(spec), bundle=None, source="spec", warning=None,
+            max_len=max_len, n_slots=n_slots, spec=spec,
+        )
+
+    def _resolve_bundle(
+        self, cfg, *, n_slots: int, max_len: int,
+        serve_params: dict | None = None, cores: str = "kernel",
+    ) -> Resolution:
+        from repro_torch.core import artifact
+
+        nearest = self.nearest and self.manifest_dir is not None
+        source = self.bundle if self.bundle is not None else self.manifest_dir
+        # paged engines resolve within their own |page{P} bucket family
+        page_size = (serve_params or {}).get("page_size")
+        try:
+            bundle = artifact.resolve_bundle(
+                source, cfg, n_slots=n_slots, max_len=max_len,
+                nearest=nearest, page_size=page_size,
+            )
+        except Exception as e:
+            # a bad artifact degrades to plan-at-construction, never
+            # crashes serving (whatever a corrupt or adversarially
+            # malformed document raises)
+            return Resolution(
+                unified=None, bundle=None, source="unresolved",
+                warning=f"plan bundle unusable ({e}); "
+                        f"planned at construction instead",
+                max_len=max_len, n_slots=n_slots,
+            )
+        # Nearest-bucket mode verifies the bundle against ITS OWN bucket
+        # (serving max_len >= requested — and, since the slot pool is the
+        # §4 shared-objects set, n_slots >= requested — is the point of
+        # auto-selection); strict mode (single bundles, exact-only
+        # manifests) keeps the requested bucket as the expectation.
+        if nearest and (bundle.max_len < max_len or bundle.n_slots < n_slots):
+            return Resolution(
+                unified=None, bundle=None, source="unresolved",
+                warning=(
+                    f"plan bundle compiled for slots={bundle.n_slots} "
+                    f"len={bundle.max_len} < requested slots={n_slots} "
+                    f"len={max_len}; planned at construction instead"
+                ),
+                max_len=max_len, n_slots=n_slots,
+            )
+        verify_len = bundle.max_len if nearest else max_len
+        verify_slots = bundle.n_slots if nearest else n_slots
+        # a prefill-carrying bundle verifies against its OWN prefill_len
+        # (the prefill plan is inert extra metadata on the decode path,
+        # exactly like a longer max_len under nearest selection)
+        expect = artifact.decode_fingerprint(
+            cfg, n_slots=verify_slots, max_len=verify_len,
+            serve_params=serve_params,
+            prefill_len=bundle.prefill_len or None,
+            cores=cores,
+        )
+        if bundle.fingerprint != expect:
+            return Resolution(
+                unified=None, bundle=None, source="unresolved",
+                warning=(
+                    f"plan bundle fingerprint mismatch (bundle "
+                    f"{str(bundle.fingerprint)[:12]}, engine {expect[:12]}); "
+                    f"planned at construction instead"
+                ),
+                max_len=max_len, n_slots=n_slots,
+            )
+        return Resolution(
+            unified=artifact.unified_from_bundle(bundle),
+            bundle=bundle,
+            source="bundle",
+            warning=None,
+            max_len=max(bundle.max_len, max_len) if nearest else max_len,
+            n_slots=max(bundle.n_slots, n_slots) if nearest else n_slots,
+        )

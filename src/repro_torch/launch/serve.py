@@ -37,6 +37,21 @@ nemotron-4-340b and llama4-maverick-400b-a17b without ``--full``);
 prompts go token by token through the decode step, as in the reference
 (internvl2's decode has no image prefix, as in the reference engine).
 
+``--plan-bundle PATH`` serves from a compiled plan artifact, a bundle
+file or a manifest directory from ``launch/compile.py`` (nearest
+admissible bucket unless ``--exact-bucket``): the engine then runs no
+planner and lays no state out, and falls back to planning at
+construction with a one-line warning when the bundle does not fit.
+``--compile-first`` compiles the bucket into ``--plan-bundle`` (default
+``plan_artifacts/torch``) before the engine starts, and
+``--compare-cold-start`` also builds a plan-at-construction engine and
+prints both cold starts. E.g.::
+
+    PYTHONPATH=src python -m repro_torch.launch.compile --arch qwen3-0.6b \
+        --full --slots 8 --max-len 2048 --out plan_artifacts/torch
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --slots 8 \
+        --max-len 2048 --plan-bundle plan_artifacts/torch --compare-cold-start
+
 ``--device cpu`` runs on the CPU (tests); the default is the card, and
 without one the engine raises.
 """
@@ -45,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,6 +68,7 @@ import torch
 from repro_torch.analysis import counters
 from repro_torch.configs.base import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.shared_objects import from_page_log
+from repro_torch.core.unified import PlanSession
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.engine import InferenceEngine
@@ -92,25 +109,87 @@ def run(argv: list[str] | None = None) -> dict:
     ap.add_argument("--page-pool", type=int, default=None,
                     help="physical pool page count for --page-size "
                          "(default: slots x pages-per-slot)")
+    ap.add_argument("--plan-bundle", default=None,
+                    help="precompiled plan artifact: a bundle file or a "
+                         "manifest directory from launch/compile.py")
+    ap.add_argument("--exact-bucket", action="store_true",
+                    help="disable nearest-bucket auto-selection (serve "
+                         "only an exact (slots, max_len, dtype) match)")
+    ap.add_argument("--compile-first", action="store_true",
+                    help="run the plan compiler into --plan-bundle (default "
+                         "plan_artifacts/torch) before starting the engine")
+    ap.add_argument("--compare-cold-start", action="store_true",
+                    help="also time a plan-at-construction engine so the "
+                         "artifact's cold-start win is printed side by side")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    bundle_dir = args.plan_bundle
+    if args.compile_first:
+        from repro_torch.launch.compile import DEFAULT_BUNDLE_DIR, compile_and_publish
+
+        bundle_dir = bundle_dir or DEFAULT_BUNDLE_DIR
+        t0 = time.perf_counter()
+        res = compile_and_publish(
+            cfg, bundle_dir, n_slots=args.slots, max_len=args.max_len,
+            command="launch/serve.py --compile-first",
+            block_size=args.block_size, greedy=not args.sample,
+            temperature=args.temperature, top_k=args.top_k,
+            page_size=args.page_size, page_pool=args.page_pool,
+        )
+        print(f"compiled plan bundle in {time.perf_counter() - t0:.2f}s: "
+              f"{res.bundle.summary()}")
+    session = None
+    if bundle_dir is not None:
+        if Path(bundle_dir).is_dir():
+            session = PlanSession.from_manifest(bundle_dir,
+                                                nearest=not args.exact_bucket)
+        else:
+            session = PlanSession.from_bundle(bundle_dir)
     print(f"initializing {cfg.name} ({cfg.n_layers}L d={cfg.d_model}, "
           f"{cfg.dtype}) on {device}...")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = DecoderModel(cfg, device).init(gen)
-    t0 = time.perf_counter()
-    engine = InferenceEngine(
-        cfg, params, n_slots=args.slots, max_len=args.max_len, device=device,
-        greedy=not args.sample, sample_seed=args.seed,
-        temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        block_size=args.block_size, page_size=args.page_size,
-        page_pool=args.page_pool,
-    )
-    cold_start_s = time.perf_counter() - t0
-    print(f"--- engine cold start: {cold_start_s:.3f}s (trace + plan + "
-          f"state allocation + capture) ---")
+
+    def build(session):
+        return InferenceEngine(
+            cfg, params, n_slots=args.slots, max_len=args.max_len, device=device,
+            greedy=not args.sample, sample_seed=args.seed,
+            temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
+            block_size=args.block_size, page_size=args.page_size,
+            page_pool=args.page_pool, session=session,
+        )
+
+    with counters.capture("trace_calls", "plan_calls", "state_plan_calls") as cap:
+        t0 = time.perf_counter()
+        engine = build(session)
+        cold_start_s = time.perf_counter() - t0
+        built = cap.deltas()
+    report = engine.memory_report
+    work = ("trace + state allocation + capture; plans from the bundle"
+            if report.plan_source == "bundle"
+            else "trace + plan + state allocation + capture")
+    print(f"--- engine cold start: {cold_start_s:.3f}s (plan source: "
+          f"{report.plan_source}; {work}) ---")
+    if report.bundle_warning:
+        print(f"--- WARNING: {report.bundle_warning} ---")
+    if engine.max_len != args.max_len:
+        print(f"--- bucket auto-selection: requested max_len={args.max_len} "
+              f"-> serving the compiled len={engine.max_len} bucket ---")
+    if engine.n_slots != args.slots:
+        print(f"--- bucket auto-selection: requested slots={args.slots} "
+              f"-> serving the compiled slots={engine.n_slots} pool ---")
+    cold_start_noartifact_s = None
+    if args.compare_cold_start and report.plan_source == "bundle":
+        _sync(device)
+        t0 = time.perf_counter()
+        build(None)
+        cold_start_noartifact_s = time.perf_counter() - t0
+        print(f"--- cold start without the artifact: "
+              f"{cold_start_noartifact_s:.3f}s "
+              f"({cold_start_noartifact_s / max(cold_start_s, 1e-9):.1f}x "
+              f"the bundle's) ---")
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -165,6 +244,12 @@ def run(argv: list[str] | None = None) -> dict:
           f"per layer)")
     return {
         "device": str(device),
+        "plan_source": report.plan_source,
+        "bundle_warning": report.bundle_warning,
+        # the counters' deltas over the engine's construction
+        **built,
+        "plan_resolve_s": report.plan_resolve_s,
+        "cold_start_noartifact_s": cold_start_noartifact_s,
         "requests": len(done),
         "tokens": toks,
         "tokens_per_request": {r.request_id: list(r.tokens) for r in done},

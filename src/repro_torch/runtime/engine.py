@@ -39,13 +39,22 @@ family pages: the decode step writes and reads the K/V caches, global,
 ring or the shared block's, through the page table, and a Mamba2 layer
 gathers its conv window and SSM state through it and puts them back.
 
+With ``session=PlanSession.from_manifest(dir)`` (or ``.from_bundle``)
+the engine serves a bundle that ``launch/compile.py`` published: after
+the config-level fingerprint check it takes both halves from the bundle,
+so neither the planner nor the state layout runs (``plan_calls`` and
+``state_plan_calls`` stay 0). It still traces the decode step once, as
+the executor's program (the reference pays that as jit tracing), and
+holds the trace's structural fingerprint against the bundle's before the
+plan reaches the executor. A mismatch, an unusable bundle, or a searched
+activation plan (another order or fusion groups; the executor runs
+program order) falls back to planning at construction with a one-line
+``MemoryReport.bundle_warning``; it never raises.
+
 With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
 certifies its unified plan (activation and state, the paged extras
 included) with ``analysis/soundness.certify_unified`` before it captures
 or serves anything, and refuses a plan with findings (``LintGateError``).
-
-Left for a later slice, raising ``NotImplementedError``: plan sessions
-and bundles (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -54,6 +63,8 @@ import dataclasses
 import os
 import time
 import warnings
+from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -61,10 +72,14 @@ import torch
 from repro_torch.analysis import soundness
 from repro_torch.analysis.findings import LintGateError, Report
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import unified
+from repro_torch.core import plan_io, unified
+from repro_torch.core.artifact import (PlanBundle, decode_fingerprint,
+                                      graph_fingerprint, serve_fingerprint)
+from repro_torch.core.graph import Graph
 from repro_torch.core.planner import MemoryPlan
-from repro_torch.core.unified import (StatePlan, detect_state_axes, plan_paged_state,
-                                     plan_state, state_records_from_cache)
+from repro_torch.core.unified import (PagedStatePlan, PlanSession, PlanSpec, StatePlan,
+                                     detect_state_axes, plan_paged_state, plan_state,
+                                     state_plan_to_obj, state_records_from_cache)
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.arena import ArenaLayout
 from repro_torch.runtime.device import resolve_device
@@ -73,6 +88,7 @@ from repro_torch.runtime.paging import (PagedOutOfPagesError, PagedResidentState
                                        PagedStateResidency)
 from repro_torch.runtime.residency import BlockOut, ResidentState, StateResidency
 from repro_torch.runtime.sampling import SamplingParams, TokenSampler, host_probs
+from repro_torch.trace.fx_liveness import FxTrace, trace_fx
 
 # Decode-phase host synchronization points, module-wide (the reference's
 # counter): +1 per host-loop wave (its logits fetch), +1 per block
@@ -126,6 +142,14 @@ class MemoryReport:
     state_plan: StatePlan
     # the whole cross-step state is ONE buffer of exactly the planned size
     state_live_bytes: int
+    # where the plan came from: "bundle" (compiled artifact: no planner
+    # call, no state layout), "cache" (plan cache hit) or "planned"
+    plan_source: str = "planned"
+    # one-line reason when a requested bundle could not be used and the
+    # engine fell back to plan-at-construction
+    bundle_warning: str | None = None
+    # the seconds the session took to resolve the plan (None: no session)
+    plan_resolve_s: float | None = None
     # the caching allocator's peak over one decode step (a replay on the
     # card), above what was allocated before it (None on the CPU, or
     # before the first step); the reference reports XLA's temp
@@ -151,7 +175,7 @@ class MemoryReport:
     startup_lint_findings: int | None = None
     startup_lint_warnings: tuple[str, ...] = ()
     # the seconds the state plan took (under paging: the axis probe and
-    # the carve of the page pool)
+    # the carve of the page pool); None when the bundle supplied it
     state_plan_s: float | None = None
     # paged state (None on the symmetric backend): the pool's pages, the
     # pages held by active slots, and the page size
@@ -169,6 +193,14 @@ class MemoryReport:
 
     def summary(self) -> str:
         lines = [self.activation_plan.summary()]
+        if self.bundle_warning:
+            lines.append(f"WARNING: {self.bundle_warning}")
+        if self.plan_source == "bundle":
+            lines.append(
+                "activation + state plans served from a precompiled bundle"
+            )
+        elif self.plan_source == "cache":
+            lines.append("activation plan served from the plan cache")
         lines.append(
             f"arena executor: {self.executor_in_place} nodes written in "
             f"place, {self.executor_copied} copied into the arena"
@@ -216,8 +248,149 @@ class MemoryReport:
         return "\n".join(lines)
 
 
-def _later(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with {slice_}")
+def _session_from_legacy_kwargs(
+    session: PlanSession | None,
+    *,
+    plan_strategy: str | None,
+    activation_graph: Graph | None,
+    plan_bundle: "PlanBundle | str | Path | None",
+    verify_bundle: bool | None,
+) -> PlanSession | None:
+    """Deprecated-kwarg shim (the reference's): the pre-session
+    plan-source kwargs map onto a PlanSession. ``plan_bundle`` keeps its
+    historical exact-bucket semantics (``nearest=False``); new callers get
+    auto-selection through ``PlanSession.from_manifest``."""
+    # explicitly-passed OLD DEFAULTS are semantic no-ops, not deprecated
+    # usage — callers migrating incrementally must be able to combine
+    # them with session= (the downstream spec/verify defaults reproduce
+    # them exactly)
+    if plan_strategy == "auto":
+        plan_strategy = None
+    if verify_bundle is False:
+        verify_bundle = None
+    legacy = {
+        "plan_strategy": plan_strategy,
+        "activation_graph": activation_graph,
+        "plan_bundle": plan_bundle,
+        "verify_bundle": verify_bundle,
+    }
+    used = [k for k, v in legacy.items() if v is not None]
+    if not used:
+        return session
+    if session is not None:
+        raise ValueError(
+            f"pass either session= or the deprecated {used} kwargs, not both"
+        )
+    warnings.warn(
+        f"InferenceEngine({', '.join(used)}=...) is deprecated; pass "
+        f"session=PlanSession.from_manifest(dir) / .from_bundle(b) / "
+        f".from_spec(PlanSpec(...)) instead",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+    verify = bool(verify_bundle)
+    if plan_bundle is not None:
+        if not isinstance(plan_bundle, PlanBundle) and Path(plan_bundle).is_dir():
+            return PlanSession.from_manifest(
+                plan_bundle, nearest=False, verify_graph=verify
+            )
+        return PlanSession.from_bundle(plan_bundle, verify_graph=verify)
+    return PlanSession.from_spec(
+        PlanSpec(graph=activation_graph, strategy=plan_strategy or "auto")
+    )
+
+
+def plan_state_half(model: DecoderModel, *, n_slots: int, max_len: int,
+                    page_size: int | None = None,
+                    page_pool: int | None = None) -> StatePlan:
+    """Lay the per-slot caches out from a shape-only (``meta``) template:
+    ``plan_state``, or with ``page_size`` ``plan_paged_state`` over the
+    axes ``detect_state_axes`` finds (each counted in
+    ``unified.STATE_PLAN_CALLS``)."""
+    template = model.init_cache(n_slots, max_len, device="meta")
+    records = state_records_from_cache(template, n_slots=n_slots)
+    if page_size:
+        return plan_paged_state(
+            records, n_slots=n_slots, max_len=max_len, page_size=page_size,
+            page_pool=page_pool,
+            axes=detect_state_axes(model.init_cache, n_slots=n_slots,
+                                   max_len=max_len),
+        )
+    return plan_state(records, n_slots=n_slots, max_len=max_len)
+
+
+def _sorted_keys(tree):
+    """``tree`` with every dict's keys in sorted order (the leaves are the
+    same tensors): the step's flat inputs, hence its traced graph, then
+    do not depend on the order a caller built the params in."""
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_sorted_keys(v) for v in tree)
+    return tree
+
+
+@dataclasses.dataclass
+class DecodeProgram:
+    """The served decode step and what it runs on: the residency binding
+    of the state plan, the state backend holding the one state buffer,
+    the step function and its arguments (params, RoPE tables, tokens,
+    the state inputs, positions, the active mask). The engine traces it
+    as its executor's program, and ``launch/compile.py`` traces the same
+    program on ``meta``, so a compiled bundle has the records the
+    engine's executor traces."""
+
+    residency: StateResidency
+    state: ResidentState
+    fn: Callable
+    args: tuple
+    name: str
+
+    @property
+    def params(self):
+        """The params as the program takes them (keys sorted)."""
+        return self.args[0]
+
+    def trace(self) -> FxTrace:
+        return trace_fx(self.fn, *self.args, name=self.name)
+
+
+def decode_program(model: DecoderModel, params, state_plan: StatePlan, *,
+                   n_slots: int, max_len: int, device) -> DecodeProgram:
+    """Bind ``state_plan`` to the model's cache structure, allocate its
+    state buffer on ``device`` (``meta`` allocates nothing) and build the
+    decode step over it: the state inputs are views of the flat state
+    buffer, or under paging the pool buffer and the page table, which each
+    layer reads through ``PagedStateResidency.bind``. A plan that does not
+    bind this cache structure raises ``ValueError``."""
+    template = model.init_cache(n_slots, max_len, device="meta")
+    paged = isinstance(state_plan, PagedStatePlan)
+    residency_cls, backend = ((PagedStateResidency, PagedResidentState) if paged
+                              else (StateResidency, ResidentState))
+    residency = residency_cls(state_plan, template, n_slots=n_slots,
+                              layout=ArenaLayout.from_state_plan(state_plan))
+    state = backend(model, residency, device)
+    tok0 = torch.zeros((n_slots, 1), dtype=torch.int32, device=device)
+    pos0 = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+    act0 = torch.ones((n_slots,), dtype=torch.bool, device=device)
+
+    if paged:
+        bind = residency.bind
+
+        def fn(p, tables, t, c, pos, act):
+            # the pool and the table are the step's state inputs; each
+            # layer gets its leaves' page addresses over them
+            logits, _ = model.decode_step(p, t, bind(c["buf"], c["table"]),
+                                          pos, act, **tables)
+            return logits, c
+    else:
+        def fn(p, tables, t, c, pos, act):
+            return model.decode_step(p, t, c, pos, act, **tables)
+
+    return DecodeProgram(residency, state, fn,
+                         (_sorted_keys(params), model.rope_tables, tok0, state.inputs,
+                          pos0, act0),
+                         name=f"{model.cfg.name}-decode")
 
 
 class InferenceEngine:
@@ -242,20 +415,36 @@ class InferenceEngine:
         # the cores of the decode step: "kernel" (served) or "plain"
         # (parity checks only)
         cores: str = "kernel",
-        session=None,
+        # the plan source: a compiled manifest, one bundle, or a spec
+        # (None = trace and plan at construction)
+        session: PlanSession | None = None,
         # paged state (None = symmetric max_len slot regions): the page
         # size in bytes and the pool size in pages (None = enough to map
-        # every slot fully)
+        # every slot fully); joins the serve fingerprint so paged and
+        # symmetric bundles for the same bucket never cross-match
         page_size: int | None = None,
         page_pool: int | None = None,
         # certify the unified plan at startup with the static analyzer
         # (analysis/soundness); None -> the REPRO_STARTUP_LINT env knob
         # (default: off), as in the reference
         startup_lint: bool | None = None,
+        # deprecated plan-source kwargs — use session=PlanSession...
+        plan_strategy: str | None = None,
+        activation_graph: Graph | None = None,
+        plan_bundle: "PlanBundle | str | Path | None" = None,
+        verify_bundle: bool | None = None,
     ):
-        if session is not None:
-            raise _later("session= (plan sessions and bundles)",
-                         "the compile/artifact slice (ROADMAP A12)")
+        session = _session_from_legacy_kwargs(
+            session,
+            plan_strategy=plan_strategy,
+            activation_graph=activation_graph,
+            plan_bundle=plan_bundle,
+            verify_bundle=verify_bundle,
+        )
+        if session is not None and not isinstance(session, PlanSession):
+            raise TypeError(
+                f"session must be a PlanSession, got {type(session).__name__}")
+        self.session = session
         self.page_size = None if not page_size else int(page_size)
         self.page_pool = None if page_pool is None else int(page_pool)
         if self.page_size is not None:
@@ -280,69 +469,131 @@ class InferenceEngine:
         self.model = DecoderModel(cfg, self.device, cores=cores)
         self.params = params
         self.eos_id = None if eos_id is None else int(eos_id)
-        self.n_slots = n_slots
-        self.max_len = max_len
+        # the part of the serve config that shapes the captured graphs —
+        # joins the decode fingerprint (None = default greedy host loop)
+        self._serve_params = serve_fingerprint(
+            block_size=self.block_size, greedy=greedy,
+            temperature=self.temperature, top_k=self.top_k,
+            page_size=self.page_size, page_pool=self.page_pool,
+        )
         # ONE engine-owned generator for the host loop's draws
         self._sampler = np.random.default_rng(sample_seed)
         self._sample_seed = sample_seed
 
-        # --- cross-step state: plan the slot/KV layout from a shape-only
-        # template, then allocate the ONE buffer and bind it
-        template = self.model.init_cache(n_slots, max_len, device="meta")
-        state_records = state_records_from_cache(template, n_slots=n_slots)
-        t0 = time.perf_counter()
-        if self.paged:
-            state_plan = plan_paged_state(
-                state_records, n_slots=n_slots, max_len=max_len,
-                page_size=self.page_size, page_pool=self.page_pool,
-                axes=detect_state_axes(self.model.init_cache, n_slots=n_slots,
-                                       max_len=max_len),
-            )
-        else:
-            state_plan = plan_state(state_records, n_slots=n_slots, max_len=max_len)
-        state_plan_s = time.perf_counter() - t0
-        self.state_layout = ArenaLayout.from_state_plan(state_plan)
-        residency, backend = ((PagedStateResidency, PagedResidentState) if self.paged
-                              else (StateResidency, ResidentState))
-        self.residency = residency(state_plan, template, n_slots=n_slots,
-                                   layout=self.state_layout)
-        self.state = backend(self.model, self.residency, self.device)
+        # --- the unified plan for this serving bucket. The session is the
+        # single plan source: a compiled bundle carries BOTH halves behind
+        # one fingerprint check, so neither the planner nor the state
+        # layout runs. Nearest-bucket selection may hand back a longer
+        # max_len or a wider slot pool; the engine serves that bucket. Any
+        # mismatch or load failure falls back to plan-at-construction with
+        # a one-line warning, never an error.
+        resolution = (
+            session.resolve(cfg, n_slots=n_slots, max_len=max_len,
+                            serve_params=self._serve_params, cores=cores)
+            if session is not None else None
+        )
+        self.max_len = resolution.max_len if resolution is not None else max_len
+        if resolution is not None and resolution.n_slots:
+            n_slots = resolution.n_slots
+        self.n_slots = n_slots
+        bundle = resolution.bundle if resolution is not None else None
+        resolved = resolution.unified if resolution is not None else None
+        bundle_warning = resolution.warning if resolution is not None else None
+        spec = resolution.spec if resolution is not None else None
+        if resolved is not None and (resolved.order is not None
+                                     or resolved.fusion_groups is not None):
+            what = "order" if resolved.order is not None else "fusion groups"
+            bundle_warning = (
+                f"plan {'bundle' if bundle is not None else 'spec'} carries a "
+                f"searched activation plan ({what}); the arena executor runs "
+                f"the decode step in program order (ROADMAP A24), so planned "
+                f"at construction instead")
+            bundle = resolved = None
 
-        # --- activation half: trace the decode step once (fake tensors:
-        # nothing runs, nothing is allocated), plan it, and allocate its
-        # arena inside the executor that runs the step out of it
-        tok0 = torch.zeros((n_slots, 1), dtype=torch.int32, device=self.device)
-        pos0 = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
-        act0 = torch.ones((n_slots,), dtype=torch.bool, device=self.device)
-        model = self.model
+        def fallback(warning: str) -> None:
+            nonlocal bundle, resolved, bundle_warning
+            bundle, resolved, bundle_warning = None, None, warning
 
-        if self.paged:
-            bind = self.residency.bind
+        # --- cross-step state: the bundle's layout, or the state planned
+        # here (counted); then the ONE buffer and the decode step over it
+        program = state_plan_s = None
+        if resolved is not None and resolved.state is not None:
+            try:
+                program = decode_program(self.model, params, resolved.state,
+                                         n_slots=n_slots, max_len=self.max_len,
+                                         device=self.device)
+            except (TypeError, ValueError) as e:
+                fallback(f"plan bundle unusable (its state plan does not bind "
+                         f"this cache: {e}); planned at construction instead")
+        state_from_source = program is not None
 
-            def _decode_fn(p, tables, t, c, pos, act):
-                # the pool and the table are the step's state inputs; each
-                # layer gets its leaves' page addresses over them
-                logits, _ = model.decode_step(p, t, bind(c["buf"], c["table"]),
-                                              pos, act, **tables)
-                return logits, c
-        else:
-            def _decode_fn(p, tables, t, c, pos, act):
-                return model.decode_step(p, t, c, pos, act, **tables)
+        def program_here() -> DecodeProgram:
+            nonlocal state_plan_s
+            t0 = time.perf_counter()
+            sp = plan_state_half(self.model, n_slots=n_slots, max_len=self.max_len,
+                                 page_size=self.page_size, page_pool=self.page_pool)
+            state_plan_s = time.perf_counter() - t0
+            if program is not None and state_plan_to_obj(sp) == state_plan_to_obj(
+                    program.residency.state_plan):
+                return program
+            return decode_program(self.model, params, sp, n_slots=n_slots,
+                                  max_len=self.max_len, device=self.device)
 
+        if program is None:
+            program = program_here()
+        # --- activation half: the decode step traced ONCE (fake tensors:
+        # nothing runs, nothing is allocated) into the executor's program.
+        # A bundle's plan is used only if the trace is the graph it was
+        # compiled from (structural fingerprint), a spec's only if it
+        # covers the trace's records
+        trace = program.trace()
+        if resolved is not None and resolved.activation is not None:
+            if bundle is not None:
+                fresh = graph_fingerprint(trace.graph)
+                if bundle.graph_fingerprint != fresh:
+                    fallback(
+                        f"plan bundle graph fingerprint mismatch (bundle "
+                        f"{str(bundle.graph_fingerprint)[:12]}, traced "
+                        f"{fresh[:12]} — model code changed since compile?); "
+                        f"planned at construction instead")
+            elif plan_io.canonical_records(resolved.activation.records) != \
+                    plan_io.canonical_records(trace.graph.usage_records()):
+                fallback("plan spec's activation plan does not cover the traced "
+                         "decode step's records; planned at construction instead")
+            if resolved is None and state_from_source:
+                # both halves fall back: the state is laid out here too, and
+                # the program stands if that layout is the bundle's
+                replanned = program_here()
+                if replanned is not program:
+                    program, trace = replanned, replanned.trace()
+        activation = resolved.activation if resolved is not None else None
+        residency, self.state = program.residency, program.state
+        self.residency = residency
+        state_plan = residency.state_plan
+        self.state_layout = residency.arena.layout
         self.executor = ArenaExecutor(
-            _decode_fn, params, model.rope_tables, tok0, self.state.inputs,
-            pos0, act0, device=self.device, name=f"{cfg.name}-decode",
+            program.fn, *program.args, device=self.device, name=program.name,
+            trace=trace, plan=activation,
+            strategy=spec.strategy if spec is not None else "auto",
         )
         self.decode_graph = self.executor.graph
         plan = self.executor.plan
         self.activation_arena = self.executor.arena
-        # both halves under one fingerprint (the content fingerprint of the
-        # bucket: bundles and their config-level fingerprint come with A12)
+        if bundle is not None:
+            plan_source = "bundle"
+        else:
+            plan_source = "cache" if plan.cache_hit else "planned"
+        self.plan_bundle = bundle
+        # both halves under one fingerprint: the config-level one, shared
+        # with the bundle compiled for this bucket
         self.unified_plan = unified.UnifiedPlan(
             activation=plan, state=state_plan,
-            fingerprint=unified._spec_fingerprint(
-                unified.PlanSpec(n_slots=n_slots, max_len=max_len),
-                plan.records, state_records),
+            fingerprint=(
+                resolved.fingerprint if resolved is not None
+                else decode_fingerprint(cfg, n_slots=n_slots, max_len=self.max_len,
+                                        serve_params=self._serve_params,
+                                        cores=cores)
+            ),
         )
         lint_s = lint_findings = None
         lint_warnings: tuple[str, ...] = ()
@@ -367,9 +618,10 @@ class InferenceEngine:
                 )
 
         # --- the steps: static inputs, and on the card their CUDA graphs
-        self._token_sampler = TokenSampler(self.sampling, max_len=max_len)
+        model = self.model
+        self._token_sampler = TokenSampler(self.sampling, max_len=self.max_len)
         t0 = time.perf_counter()
-        self.state.start(self.executor, params, model.rope_tables,
+        self.state.start(self.executor, program.params, model.rope_tables,
                          self._token_sampler, n_slots=n_slots,
                          block_size=self.block_size)
         capture_s = time.perf_counter() - t0
@@ -381,6 +633,9 @@ class InferenceEngine:
             n_slots=n_slots,
             state_plan=state_plan,
             state_live_bytes=self.state.live_bytes,
+            plan_source=plan_source,
+            bundle_warning=bundle_warning,
+            plan_resolve_s=resolution.resolve_s if resolution is not None else None,
             graph_pool_bytes=(self.state.pool.reserved_bytes()
                               if self.state.pool is not None else None),
             graph_capture_peak_bytes=(max(g.capture_peak_bytes for g in captured)

@@ -132,9 +132,11 @@ class ArenaExecutor:
     ``fn(*example_args)`` is traced on fake tensors; the example tensors
     are read for their metadata only, and later calls must pass tensors
     of the same shapes, dtypes and strides (the caches as views with the
-    same strides). ``plan`` is a precomputed :class:`MemoryPlan` of this
-    graph's records, refused if it covers other records. The arena lies
-    on ``device`` (default: the device of the first example tensor, and
+    same strides). ``trace`` is a trace of ``fn`` on those arguments
+    already made (``trace_fx``), taken as the program instead of tracing
+    again. ``plan`` is a precomputed :class:`MemoryPlan` of this graph's
+    records, refused if it covers other records. The arena lies on
+    ``device`` (default: the device of the first example tensor, and
     without one the card: ``resolve_device`` raises if there is none)."""
 
     def __init__(
@@ -146,8 +148,10 @@ class ArenaExecutor:
         plan: MemoryPlan | None = None,
         device=None,
         name: str | None = None,
+        trace: FxTrace | None = None,
     ):
-        self.trace: FxTrace = trace_fx(fn, *example_args, name=name)
+        self.trace: FxTrace = (trace if trace is not None
+                               else trace_fx(fn, *example_args, name=name))
         self.graph = self.trace.graph
         if plan is not None:
             # a precomputed plan skips the planner — but only if it covers

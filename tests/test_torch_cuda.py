@@ -965,3 +965,62 @@ def test_put_transient_stays_within_the_pages_it_writes(cuda):
     torch.cuda.synchronize(cuda)
     assert torch.cuda.max_memory_allocated(cuda) - base <= 4 * pages * 1000
     assert torch.equal(leaf.gather(), values)
+
+
+# ------------------------------------------------------------ plan bundles
+
+
+@pytest.mark.parametrize("page_size", [None, 65536])
+@pytest.mark.parametrize("full", [False, True])
+def test_a_bundle_compiled_on_meta_has_the_card_engines_records(cuda, tmp_path, full,
+                                                                 page_size):
+    """qwen3-0.6b (reduced fp32, and full width bf16 at 2 slots x 256),
+    symmetric and paged: the bundle ``launch/compile`` traces on ``meta``
+    has exactly the usage records and the graph fingerprint of the card
+    engine's executor trace, the engine served from it plans nothing, and
+    its tokens are the plan-at-construction engine's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import plan_io
+    from repro_torch.core.artifact import graph_fingerprint
+    from repro_torch.core.unified import PlanSession
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_config("qwen3-0.6b") if full else get_reduced("qwen3-0.6b")
+    n_slots, max_len = 2, 256
+    res = compile_and_publish(cfg, str(tmp_path), n_slots=n_slots, max_len=max_len,
+                              page_size=page_size)
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    with counters.capture("trace_calls", "plan_calls", "state_plan_calls") as cap:
+        got = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                              device=cuda, page_size=page_size,
+                              session=PlanSession.from_manifest(tmp_path))
+    assert got.memory_report.plan_source == "bundle", got.memory_report.bundle_warning
+    assert cap.deltas() == {"trace_calls": 1, "plan_calls": 0, "state_plan_calls": 0}
+    want = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len, device=cuda,
+                           page_size=page_size)
+    canon = plan_io.canonical_records
+    assert canon(res.bundle.plan.records) == canon(want.executor.plan.records) == \
+        canon(want.decode_graph.usage_records())
+    assert graph_fingerprint(want.decode_graph) == res.bundle.graph_fingerprint
+    assert _serve(got, cfg) == _serve(want, cfg)
+
+
+def test_a_plain_cores_bundle_is_refused_by_a_kernel_engine(cuda, tmp_path):
+    """A bundle compiled with ``cores="plain"`` traces another graph: the
+    served (kernel) engine refuses it by fingerprint with the warning and
+    plans at construction; a plain engine takes it."""
+    from repro_torch.core.unified import PlanSession
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_reduced("qwen3-0.6b")
+    compile_and_publish(cfg, str(tmp_path), n_slots=2, max_len=64, cores="plain")
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    kernel = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                             session=PlanSession.from_manifest(tmp_path))
+    rep = kernel.memory_report
+    assert rep.plan_source in ("planned", "cache")
+    assert "plan bundle fingerprint mismatch" in rep.bundle_warning
+    plain = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                            cores="plain", session=PlanSession.from_manifest(tmp_path))
+    assert plain.memory_report.plan_source == "bundle"
+    assert _serve(kernel, cfg) == _serve(plain, cfg)

@@ -74,7 +74,9 @@ def test_engine_without_a_device_needs_cuda():
 
 @pytest.mark.parametrize("kwargs", [{"session": object()}])
 def test_later_slices_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="A12"):
+    """Plan sessions came with ROADMAP A12.1: a session that is not a
+    ``PlanSession`` is refused before anything is built."""
+    with pytest.raises(TypeError, match="PlanSession"):
         InferenceEngine(get_reduced(ARCH), {}, n_slots=2, max_len=16,
                         device="cpu", **kwargs)
 

@@ -100,6 +100,17 @@ def test_the_moe_modules_are_checked(path):
     assert path in SOURCES
 
 
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/core/artifact.py", "src/repro_torch/core/unified.py",
+     "src/repro_torch/launch/compile.py", "src/repro_torch/launch/serve.py",
+     "src/repro_torch/analysis/bundle_lint.py", "src/repro_torch/analysis/lint.py",
+     "src/repro_torch/runtime/engine.py"],
+)
+def test_the_plan_bundle_modules_are_checked(path):
+    assert path in SOURCES
+
+
 def test_no_source_imports_ml_dtypes():
     """The card machine has no ml_dtypes: the port sizes bfloat16 itself."""
     pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes\b", re.MULTILINE)

@@ -57,7 +57,7 @@ def _ported(text: str) -> str:
 @pytest.mark.parametrize("name", ["_SweepSet", "certify_offsets", "certify_shared_objects",
                                   "_positional_maximums_sum", "certify_state_plan",
                                   "_certify_paged_state", "certify_plan",
-                                  "certify_unified"])
+                                  "certify_unified", "certify_bundle"])
 def test_certifier_is_the_reference(name):
     """The copy differs only in ``_leaf_nbytes`` (the port's dtype sizes,
     bfloat16 included, in place of the ml_dtypes fallback) and in the
