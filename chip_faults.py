@@ -31,7 +31,11 @@ shuffled paged Mamba2 cases must fail. ``bundle_fingerprint_ignored``
 always true: it is run through the ``serve_bundle`` phase (the control
 too, when it is asked for), whose planted mismatch (a bundle for blocks
 of 8 handed to a host-loop engine) must fail while the bundles that fit
-still serve.
+still serve. ``aot_key_ignored`` (``runtime/aot.py``) makes the AOT
+loader take a pack whatever torch version its key names: it is run
+through the ``serve_aot`` phase, whose planted stale pack must fail while
+the packs that fit still serve. A fault run through a phase other than
+kernels must fail exactly its ``must_fail`` cases.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -142,9 +146,15 @@ FAULTS = {
         ("        if bundle.fingerprint != expect:\n",
          "        if False:  # planted: the fingerprint is ignored\n"),
     ], ("mismatch",)),
+    # the loader takes a pack whatever torch version its key names: the
+    # planted stale pack must fail, and nothing else
+    "aot_key_ignored": ("serve_aot", "runtime/aot.py", [
+        ("    if pack.torch_version != torch.__version__:\n",
+         "    if False:  # planted: the torch version is ignored\n"),
+    ], ("stale",)),
 }
 # the phases other than kernels that faults are run through
-PHASE_OF = {"serve_bundle": "serve_bundle"}
+PHASE_OF = {"serve_bundle": "serve_bundle", "serve_aot": "serve_aot"}
 
 
 def label(row: dict) -> str:
@@ -233,6 +243,10 @@ def main() -> None:
         for case in row["passed_cases"]:
             if case.split("/")[0] in must_fail:
                 problems.append(f"{name} passed {case}")
+        if FAULTS[name][0] in PHASE_OF:
+            extra = sorted(set(row["failed_cases"]) - set(must_fail))
+            if extra:
+                problems.append(f"{name} failed {extra} beside its {list(must_fail)}")
     print(json.dumps({"faults": {n: {"failed": r["failed"], "of": r["cases"]}
                                  for n, r in results.items()},
                       "problems": problems}), flush=True)

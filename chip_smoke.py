@@ -189,14 +189,19 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 26. serve_bundle — compile → plan bundle → serve: full-width qwen3-0.6b at
                8 slots x 2048 (bf16), the symmetric bucket and the paged one
                (896 pages of 64 KiB), compiled by ``launch/compile`` on
-               ``meta`` and published into a manifest (wall time, bundle
-               bytes, records, certifier and bundle-lint findings), then
-               ``serve.run(... --plan-bundle DIR)``:
+               ``meta`` with their AOT programs, in two background
+               processes that see no card (started before the build, they
+               run beside the kernel phases), and published into
+               manifests (wall time, bundle and pack bytes, records,
+               certifier and bundle-lint findings), each also published
+               without its program; then ``serve.run(... --plan-bundle
+               DIR)`` from the bundles without programs:
                tokens equal to the serve and serve_paged phases' (twins
                served here when those did not run), ``plan_source``
                "bundle" and no warning, ``plan_calls`` and
                ``state_plan_calls`` 0 and ``trace_calls`` 1 over the
-               engine's construction, the state and the arena fixed, 8,764
+               engine's construction (its ``trace_s``), the state and the
+               arena fixed, 8,764
                ``flash_decode`` (``flash_decode_paged``) launches as the
                twins', the allocator's peak over a replay 0 B, the cold
                start beside a plan-at-construction engine built right
@@ -208,7 +213,29 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                same tokens. One row per case (``--keep-going`` lists the
                failed cases; ``chip_faults.py``'s
                ``bundle_fingerprint_ignored`` must fail ``mismatch``);
-27. serve_paged_gemma3 — ``serve.run`` on full-width gemma3-4b at 8 slots x
+27. serve_aot — the same two buckets served from the bundles that carry
+               their AOT decode programs (``runtime/aot.py``): the program
+               loaded, ``trace_calls``, ``plan_calls`` and
+               ``state_plan_calls`` 0, as many captures as the twins,
+               tokens and 8,764 launches equal to the twins', the
+               allocator's peak over a replay 0 B; the cold start, capture
+               seconds, program load seconds and pack bytes beside
+               serve_bundle's engine (which traces: its trace seconds);
+               then a planted stale pack (another torch version in its
+               key) must be refused with the warning, traced once, the
+               same tokens (``chip_faults.py``'s ``aot_key_ignored`` must
+               fail ``stale`` and only it);
+28. serve_pytree — ``serve.run(... --no-residency)`` on full-width
+               qwen3-0.6b with the serve mix: the residency-off backend
+               (the model's step run eagerly over the caches ``init_cache``
+               returns, nothing captured, 28 ``flash_decode`` launches per
+               step by the wrapper), tokens equal to the serve phase's, the
+               caches 939,524,096 B, and the allocator's peak over the
+               serve beside the resident engine's and its planned arena +
+               state; then the paged bucket's bundle handed to a
+               residency-off engine: the warning, symmetric state, the
+               plans from the bundle and its program unused, tokens equal;
+29. serve_paged_gemma3 — ``serve.run`` on full-width gemma3-4b at 8 slots x
                2048 from a pool of 18,880 pages of 64 KiB, in a fresh
                process of this script (no profiler session before its
                captures), just after a symmetric twin: tokens equal to the
@@ -220,16 +247,19 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                carve and certify seconds, aten ops per step, and a steady
                wave of each engine timed and profiled alike; then, those
                engines freed, the bucket compiled into a manifest and the
-               same mix served from it: tokens and 10,642 launches equal,
-               nothing planned or carved, one trace, the cold start, the
-               resolve and the state plan seconds beside the
-               plan-at-construction engine's, and a steady wave timed and
-               profiled as that engine's was;
-28. serve_paged_zamba2 — the same for zamba2-7b from 13,888 pages
+               same mix served from it without its AOT program: tokens and
+               10,642 launches equal, nothing planned or carved, one trace,
+               the cold start, the resolve and the state plan seconds
+               beside the plan-at-construction engine's, and a steady wave
+               timed and profiled as that engine's was; then from it with
+               its program: the program loaded, nothing traced, planned or
+               carved, as many captures, tokens and 10,642 launches equal,
+               the cold start, capture and program load seconds;
+30. serve_paged_zamba2 — the same for zamba2-7b from 13,888 pages
                (910,229,504 B): 13 launches per replay, the 81 Mamba2
                layers gathering and putting their state through the table
                (no bundle);
-29. smem      — for each kernel instantiation on the paths, the shared
+31. smem      — for each kernel instantiation on the paths, the shared
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
@@ -251,9 +281,9 @@ utilisation (``mfu``).
 Every path runs at its full depth (the parity phases cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
-5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26, 27
-and its bundle serve, 28; 7 and 24 for their own checks) and read just
-after it.
+5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26 and
+27, 28, 29 and each of its bundle serves, 30; 7 and 24 for their own
+checks) and read just after it.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -1332,7 +1362,11 @@ def phase_serve() -> tuple[dict, object]:
     })
     SERVE_NUMBERS.update(tokens=toks, tokens_per_s=stats["tokens_per_s"],
                          launches=launches, cold_start_s=stats["cold_start_s"],
-                         state_plan_s=stats["state_plan_s"])
+                         state_plan_s=stats["state_plan_s"],
+                         capture_calls=stats["capture_calls"],
+                         serve_peak_bytes=stats["serve_peak_bytes"],
+                         unified_bytes=stats["plan_total_bytes"]
+                         + stats["state_planned_bytes"])
     return {"launches": launches, "tokens": toks}, stats["engine"]
 
 
@@ -3045,7 +3079,8 @@ def phase_serve_paged() -> dict:
     SERVE_NUMBERS.update(paged_tokens=toks,
                          paged_launches=counts["flash_decode_paged"],
                          paged_cold_start_s=stats["cold_start_s"],
-                         paged_state_plan_s=stats["state_plan_s"])
+                         paged_state_plan_s=stats["state_plan_s"],
+                         paged_capture_calls=stats["capture_calls"])
     if stats["capture_calls"] != 1:
         fail(f"serve_paged: {stats['capture_calls']} graphs captured, expected 1")
     # the pool is smaller than one slot's 1,792 pages: the certifier warns
@@ -3129,39 +3164,160 @@ def phase_serve_paged() -> dict:
     return row
 
 
-def bundle_case(case: str, checks: dict, row: dict) -> dict:
-    """Emit one ``serve_bundle`` row: the case's numbers and which of its
-    ``checks`` (name -> passed) failed. A failed check fails the run, or
-    under ``--keep-going`` is listed and fails it at the phase's end."""
+def phase_case(phase: str, case: str, checks: dict, row: dict) -> dict:
+    """Emit one row of ``phase`` (serve_bundle, serve_aot, serve_pytree):
+    the case's numbers and which of its ``checks`` (name -> passed)
+    failed. A failed check fails the run, or under ``--keep-going`` is
+    listed and fails it at the phase's end."""
     bad = [name for name, ok in checks.items() if not ok]
-    row = {"phase": "serve_bundle", "case": case, **row, "failed_checks": bad,
-           "ok": not bad}
+    row = {"phase": phase, "case": case, **row, "failed_checks": bad, "ok": not bad}
     emit(row)
     if bad:
-        fail_case(case, f"serve_bundle {case}: failed {bad}")
+        fail_case(case, f"{phase} {case}: failed {bad}")
     return row
 
 
 def bundle_serve_checks(stats: dict, tokens: dict, kernel: str,
-                        launches: int, counts: dict) -> dict:
+                        launches: int, counts: dict, traces: int = 1) -> dict:
     """What a bundle-served run must show: the twin's tokens, both plans
-    from the bundle (no planner call, no state layout, one trace: the
-    executor's program), the buffers fixed, the kernel launched as often
-    as the plan-at-construction engine launched it, nothing allocated
-    over a replay."""
+    from the bundle (no planner call, no state layout, ``traces`` traces:
+    1 without a program, the executor's; 0 with one), the buffers fixed,
+    the kernel launched as often as the plan-at-construction engine
+    launched it, nothing allocated over a replay."""
     return {
         "tokens_equal": stats["tokens_per_request"] == tokens,
         "plan_source_bundle": stats["plan_source"] == "bundle",
         "no_bundle_warning": stats["bundle_warning"] is None,
         "plan_calls_0": stats["plan_calls"] == 0,
         "state_plan_calls_0": stats["state_plan_calls"] == 0,
-        "trace_calls_1": stats["trace_calls"] == 1,
+        f"trace_calls_{traces}": stats["trace_calls"] == traces,
         "state_plan_s_none": stats["state_plan_s"] is None,
         "state_fixed": stats["state_ptr_before"] == stats["state_ptr_after"],
         "arena_fixed": stats["arena_ptr_before"] == stats["arena_ptr_after"],
         f"{kernel}_launches_equal": counts[kernel] == launches,
         "allocator_replay_peak_0": stats["allocator_step_peak_bytes"] == 0,
     }
+
+
+def aot_checks(stats: dict, entry: str, capture_calls: int) -> dict:
+    """What a run served from a bundle's AOT program must show beside
+    ``bundle_serve_checks(..., traces=0)``: the program loaded (its one
+    entry), no refusal, no trace timed, and as many CUDA graphs captured
+    as the engine that traced its step (AOT removes the trace, not the
+    capture)."""
+    return {
+        "aot_loaded": stats["aot_executables"] == [entry],
+        "no_aot_warning": stats["aot_warning"] is None,
+        "trace_s_none": stats["trace_s"] is None,
+        "capture_calls_equal": stats["capture_calls"] == capture_calls,
+    }
+
+
+def serve_twins() -> None:
+    """The serve and serve_paged phases' numbers (tokens, launches, cold
+    start, captures) from twins served here when those phases did not
+    run."""
+    from repro_torch.launch import serve
+
+    for prefix, extra, kernel in (("", [], "flash_decode"),
+                                  ("paged_", PAGED_ARGS, "flash_decode_paged")):
+        if f"{prefix}launches" in SERVE_NUMBERS:
+            continue
+        reset_launches()
+        twin = serve.run(SERVE_ARGS + extra)
+        SERVE_NUMBERS.update({
+            f"{prefix}tokens": twin["tokens_per_request"],
+            f"{prefix}launches": read_launches()[kernel],
+            f"{prefix}cold_start_s": twin["cold_start_s"],
+            f"{prefix}state_plan_s": twin["state_plan_s"],
+            f"{prefix}capture_calls": twin["capture_calls"]})
+        if not prefix:
+            SERVE_NUMBERS.update(serve_peak_bytes=twin["serve_peak_bytes"],
+                                 unified_bytes=twin["plan_total_bytes"]
+                                 + twin["state_planned_bytes"])
+        del twin
+
+
+# page size (None: symmetric) -> the qwen3-0.6b bucket compiled with its AOT
+# program: {"row" (compile_row), "aot" (its manifest), "plain" (the same
+# bundle without the program, published alone), "file" (its bundle)}
+QWEN3_BUCKETS: dict = {}
+# page size -> the background compile of that bucket (start_qwen3_compiles)
+QWEN3_COMPILES: dict = {}
+# the phases that serve the compiled qwen3-0.6b buckets
+BUCKET_PHASES = ("serve_bundle", "serve_aot", "serve_pytree")
+
+
+def _bucket_dir(page) -> str:
+    return "paged" if page else "symmetric"
+
+
+def start_qwen3_compiles() -> None:
+    """Compile the two full-width qwen3-0.6b buckets (8 slots x 2048, bf16;
+    symmetric, and paged from 896 pages of 64 KiB) with
+    ``python -m repro_torch.launch.compile`` in two background processes
+    that see no card (``CUDA_VISIBLE_DEVICES`` empty: the compile traces
+    on ``meta``), each into a manifest of its own, while the kernel and
+    parity phases hold the card. ``main`` starts them when a phase of
+    ``BUCKET_PHASES`` runs; the run kills them if it ends first."""
+    import atexit
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT / "src")}
+    for page in (None, PAGE_SIZE):
+        cmd = [sys.executable, "-m", "repro_torch.launch.compile", "--arch",
+               "qwen3-0.6b", "--full", "--slots", "8", "--max-len", "2048", "--json",
+               "--out", str(root / "aot" / _bucket_dir(page))]
+        if page:
+            cmd += ["--page-size", str(page), "--page-pool", str(PAGE_POOL)]
+        QWEN3_COMPILES[page] = subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    QWEN3_COMPILES["root"] = root
+
+    def stop() -> None:
+        for page in (None, PAGE_SIZE):
+            QWEN3_COMPILES[page].kill()
+            QWEN3_COMPILES[page].wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(stop)
+
+
+def qwen3_buckets() -> dict:
+    """The buckets of ``start_qwen3_compiles`` (started here if ``main`` did
+    not), each compiled with its AOT program (``launch/compile``'s
+    default: the program packed behind the lint gate, then loaded and
+    audited by ``lint_executables``), and each bundle without its program
+    published into another manifest, for serve_bundle, serve_aot and
+    serve_pytree."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.artifact import BundleManifest, bucket_key, load_bundle
+
+    if QWEN3_BUCKETS:
+        return QWEN3_BUCKETS
+    if not QWEN3_COMPILES:
+        start_qwen3_compiles()
+    cfg = get_config("qwen3-0.6b")
+    root = QWEN3_COMPILES["root"]
+    for page in (None, PAGE_SIZE):
+        out, err = QWEN3_COMPILES[page].communicate(timeout=900)
+        if QWEN3_COMPILES[page].returncode:
+            fail(f"compile of the qwen3-0.6b {_bucket_dir(page)} bucket exited "
+                 f"{QWEN3_COMPILES[page].returncode}\n{out[-2000:]}\n{err[-3000:]}")
+        key = bucket_key(cfg, n_slots=8, max_len=2048, page_size=page)
+        manifest = root / "aot" / _bucket_dir(page)
+        path = manifest / BundleManifest(manifest).buckets()[key]["file"]
+        plain = root / "plain" / _bucket_dir(page)
+        BundleManifest(plain).publish(
+            key, dataclasses.replace(load_bundle(path), executables=None))
+        QWEN3_BUCKETS[page] = {
+            "row": compile_row(json.loads(out.splitlines()[-1])["wall_s"], path),
+            "aot": manifest, "plain": plain, "file": path}
+    return QWEN3_BUCKETS
 
 
 def cold_start_after(engine) -> float:
@@ -3185,7 +3341,7 @@ def cold_start_after(engine) -> float:
     return seconds
 
 
-def compile_row(res, path: Path) -> dict:
+def compile_row(wall_s: float, path: Path) -> dict:
     """A compile's wall time, bundle bytes, records and findings (the
     certifier's and the bundle lint's, re-run on the published file: the
     codes of the certifier's warnings and the count of its errors)."""
@@ -3194,7 +3350,12 @@ def compile_row(res, path: Path) -> dict:
 
     bundle = load_bundle(path)
     certified = soundness.certify_bundle(bundle)
-    return {"compile_s": res.wall_s, "bundle_bytes": path.stat().st_size,
+    pack = bundle.executables
+    return {"compile_s": wall_s, "bundle_bytes": path.stat().st_size,
+            # the AOT program's entries and bytes (the compile packed it,
+            # and its gate loaded and linted it)
+            "aot_entries": sorted(pack.entries) if pack else [],
+            "aot_bytes": pack.nbytes if pack else 0,
             "records": len(bundle.plan.records),
             "state_bytes": bundle.state_plan.total_size,
             "activation_bytes": bundle.plan.total_size,
@@ -3208,7 +3369,8 @@ def phase_serve_bundle() -> dict:
     """compile → plan bundle → serve at full width: two qwen3-0.6b buckets
     (8 slots x 2048, bf16; symmetric, and paged from 896 pages of 64 KiB)
     compiled on ``meta`` and published into a manifest, then served
-    through ``serve.run(... --plan-bundle DIR)``: tokens equal to the
+    WITHOUT their AOT programs (``qwen3_buckets``' plain manifest) through
+    ``serve.run(... --plan-bundle DIR)``: tokens equal to the
     plan-at-construction serves' (the serve and serve_paged phases', or
     twins served here when those did not run), both plans from the bundle
     (``plan_calls`` and ``state_plan_calls`` 0, ``trace_calls`` 1), the
@@ -3224,117 +3386,279 @@ def phase_serve_bundle() -> dict:
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.artifact import BundleManifest, bucket_key
     from repro_torch.launch import serve
     from repro_torch.launch.compile import compile_and_publish
 
     cfg = get_config("qwen3-0.6b")
-    if "launches" not in SERVE_NUMBERS:
-        reset_launches()
-        twin = serve.run(SERVE_ARGS)
-        SERVE_NUMBERS.update(tokens=twin["tokens_per_request"],
-                             launches=read_launches()["flash_decode"],
-                             cold_start_s=twin["cold_start_s"],
-                             state_plan_s=twin["state_plan_s"])
-        del twin
-    if "paged_launches" not in SERVE_NUMBERS:
-        reset_launches()
-        twin = serve.run(SERVE_ARGS + PAGED_ARGS)
-        SERVE_NUMBERS.update(paged_tokens=twin["tokens_per_request"],
-                             paged_launches=read_launches()["flash_decode_paged"],
-                             paged_cold_start_s=twin["cold_start_s"],
-                             paged_state_plan_s=twin["state_plan_s"])
-        del twin
-    (ROOT / "build").mkdir(exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    serve_twins()
     rows = {}
-    try:
-        manifest = root / "manifest"
-        for case, page in (("compile", None), ("compile_paged", PAGE_SIZE)):
-            kw = {"page_size": page, "page_pool": PAGE_POOL} if page else {}
-            res = compile_and_publish(cfg, str(manifest), n_slots=8, max_len=2048,
-                                      command="chip_smoke.py serve_bundle", **kw)
-            entry = BundleManifest(manifest).buckets()[
-                bucket_key(cfg, n_slots=8, max_len=2048, page_size=page)]
-            row = compile_row(res, manifest / entry["file"])
-            # the pool of 896 cannot map one slot's 1,792 pages: the
-            # certifier warns, as on serve_paged's plan row
-            rows[case] = bundle_case(case, {
-                "certify_errors_0": row["certify_errors"] == 0,
-                "certify_warnings_expected": row["certify_warnings"] ==
-                (["paged-pool-short"] if page else []),
-                "lint_findings_0": row["lint_findings"] == 0,
-                "executables_null": res.bundle.executables is None,
-            }, {"arch": cfg.name, "page_size": page, **row})
-        for case, extra, kernel, prefix, label in (
-                ("serve", [], "flash_decode", "", "qwen3-0.6b serve_bundle"),
-                ("serve_paged", PAGED_ARGS, "flash_decode_paged", "paged_",
-                 "qwen3-0.6b serve_bundle paged")):
-            reset_launches()
-            stats = serve.run(SERVE_ARGS + extra + ["--plan-bundle", str(manifest)])
-            counts = read_launches()
-            want = SERVE_NUMBERS[f"{prefix}launches"]
-            checks = bundle_serve_checks(stats, SERVE_NUMBERS[f"{prefix}tokens"],
-                                         kernel, want, counts)
-            check_replayed(f"serve_bundle {case}", stats, kernel)
-            plan_row(f"{label} (8 slots x 2048, from its bundle)", stats,
-                     warnings=("paged-pool-short",) if extra else ())
-            built_after = cold_start_after(stats["engine"])
-            # timed as the plan-at-construction engine was: the profile
-            # phase's window, or serve_paged's steady pair
-            steady = (steady_pair({"bundle": stats["engine"]})["bundle"] if extra
-                      else steady_profile(f"serve_bundle {case}", stats["engine"]))
-            rows[case] = bundle_case(case, checks, {
-                "arch": cfg.name, "page_size": PAGE_SIZE if extra else None,
-                "plan_source": stats["plan_source"],
-                "bundle_warning": stats["bundle_warning"],
-                "trace_calls": stats["trace_calls"], "plan_calls": stats["plan_calls"],
-                "state_plan_calls": stats["state_plan_calls"],
-                "launches": counts, "launches_plan_at_construction": want,
-                "cold_start_s": stats["cold_start_s"],
-                "plan_resolve_s": stats["plan_resolve_s"],
-                "state_plan_s": stats["state_plan_s"],
-                # a plan-at-construction engine built right after it, and
-                # the twin's (built at another point of the run)
-                "cold_start_s_built_after": built_after,
-                "cold_start_s_plan_at_construction":
-                    SERVE_NUMBERS[f"{prefix}cold_start_s"],
-                "state_plan_s_plan_at_construction":
-                    SERVE_NUMBERS[f"{prefix}state_plan_s"],
-                "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
-                "tokens_per_s": stats["tokens_per_s"],
-                # a steady window of the bundle's engine, and of the
-                # plan-at-construction engine's (profile / serve_paged)
-                "device_ms_per_wave": steady["device_ms_per_wave"],
-                "device_ms_per_wave_plan_at_construction":
-                    SERVE_NUMBERS.get(f"{prefix}device_ms_per_wave"),
-            })
-            del stats
-            torch.cuda.empty_cache()
-        # a planted mismatch: the bundle of another serve configuration
-        # (blocks of 8) published for the same bucket key
-        other = root / "block8"
-        compile_and_publish(cfg, str(other), n_slots=8, max_len=2048, block_size=8)
-        stats = serve.run(SERVE_ARGS + ["--plan-bundle", str(other)])
-        warning = stats["bundle_warning"] or ""
-        rows["mismatch"] = bundle_case("mismatch", {
-            "plan_source_not_bundle": stats["plan_source"] in ("planned", "cache"),
-            "fingerprint_mismatch_warning":
-                warning.startswith("plan bundle fingerprint mismatch"),
-            "planned_at_construction": stats["plan_calls"] == 1
-            and stats["state_plan_calls"] == 1,
-            "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
-        }, {"arch": cfg.name, "compiled_block_size": 8, "served_block_size": 1,
-            "plan_source": stats["plan_source"], "bundle_warning": warning,
-            "plan_calls": stats["plan_calls"],
-            "state_plan_calls": stats["state_plan_calls"]})
+    for case, page in (("compile", None), ("compile_paged", PAGE_SIZE)):
+        bucket = qwen3_buckets()[page]
+        row = bucket["row"]
+        # the pool of 896 cannot map one slot's 1,792 pages: the certifier
+        # warns, as on serve_paged's plan row
+        rows[case] = phase_case("serve_bundle", case, {
+            "certify_errors_0": row["certify_errors"] == 0,
+            "certify_warnings_expected": row["certify_warnings"] ==
+            (["paged-pool-short"] if page else []),
+            "lint_findings_0": row["lint_findings"] == 0,
+            "aot_entry": row["aot_entries"] ==
+            (["paged_decode"] if page else ["resident_decode"]),
+        }, {"arch": cfg.name, "page_size": page, **row})
+    for case, extra, kernel, prefix, label in (
+            ("serve", [], "flash_decode", "", "qwen3-0.6b serve_bundle"),
+            ("serve_paged", PAGED_ARGS, "flash_decode_paged", "paged_",
+             "qwen3-0.6b serve_bundle paged")):
+        manifest = qwen3_buckets()[PAGE_SIZE if extra else None]["plain"]
+        reset_launches()
+        stats = serve.run(SERVE_ARGS + extra + ["--plan-bundle", str(manifest)])
+        counts = read_launches()
+        want = SERVE_NUMBERS[f"{prefix}launches"]
+        checks = bundle_serve_checks(stats, SERVE_NUMBERS[f"{prefix}tokens"],
+                                     kernel, want, counts)
+        checks["no_aot"] = stats["aot_executables"] == [] and stats["trace_s"] > 0
+        check_replayed(f"serve_bundle {case}", stats, kernel)
+        plan_row(f"{label} (8 slots x 2048, from its bundle)", stats,
+                 warnings=("paged-pool-short",) if extra else ())
+        built_after = cold_start_after(stats["engine"])
+        # timed as the plan-at-construction engine was: the profile
+        # phase's window, or serve_paged's steady pair
+        steady = (steady_pair({"bundle": stats["engine"]})["bundle"] if extra
+                  else steady_profile(f"serve_bundle {case}", stats["engine"]))
+        SERVE_NUMBERS.update({f"bundle_{prefix}{k}": stats[k] for k in (
+            "cold_start_s", "trace_s", "capture_s", "plan_resolve_s")})
+        rows[case] = phase_case("serve_bundle", case, checks, {
+            "arch": cfg.name, "page_size": PAGE_SIZE if extra else None,
+            "plan_source": stats["plan_source"],
+            "bundle_warning": stats["bundle_warning"],
+            "trace_calls": stats["trace_calls"], "plan_calls": stats["plan_calls"],
+            "state_plan_calls": stats["state_plan_calls"],
+            "launches": counts, "launches_plan_at_construction": want,
+            "cold_start_s": stats["cold_start_s"],
+            "trace_s": stats["trace_s"], "capture_s": stats["capture_s"],
+            "plan_resolve_s": stats["plan_resolve_s"],
+            "state_plan_s": stats["state_plan_s"],
+            # a plan-at-construction engine built right after it, and
+            # the twin's (built at another point of the run)
+            "cold_start_s_built_after": built_after,
+            "cold_start_s_plan_at_construction":
+                SERVE_NUMBERS[f"{prefix}cold_start_s"],
+            "state_plan_s_plan_at_construction":
+                SERVE_NUMBERS[f"{prefix}state_plan_s"],
+            "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+            "tokens_per_s": stats["tokens_per_s"],
+            # a steady window of the bundle's engine, and of the
+            # plan-at-construction engine's (profile / serve_paged)
+            "device_ms_per_wave": steady["device_ms_per_wave"],
+            "device_ms_per_wave_plan_at_construction":
+                SERVE_NUMBERS.get(f"{prefix}device_ms_per_wave"),
+        })
         del stats
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
+    # a planted mismatch: the bundle of another serve configuration
+    # (blocks of 8) published for the same bucket key
+    (ROOT / "build").mkdir(exist_ok=True)
+    other = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    try:
+        compile_and_publish(cfg, str(other), n_slots=8, max_len=2048, block_size=8,
+                            aot=False)
+        stats = serve.run(SERVE_ARGS + ["--plan-bundle", str(other)])
+    finally:
+        shutil.rmtree(other, ignore_errors=True)
+    warning = stats["bundle_warning"] or ""
+    rows["mismatch"] = phase_case("serve_bundle", "mismatch", {
+        "plan_source_not_bundle": stats["plan_source"] in ("planned", "cache"),
+        "fingerprint_mismatch_warning":
+            warning.startswith("plan bundle fingerprint mismatch"),
+        "planned_at_construction": stats["plan_calls"] == 1
+        and stats["state_plan_calls"] == 1,
+        "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
+    }, {"arch": cfg.name, "compiled_block_size": 8, "served_block_size": 1,
+        "plan_source": stats["plan_source"], "bundle_warning": warning,
+        "plan_calls": stats["plan_calls"],
+        "state_plan_calls": stats["state_plan_calls"]})
+    del stats
+    torch.cuda.empty_cache()
     if FAILED_CASES:
         fail(f"serve_bundle: {len(FAILED_CASES)} case(s) failed: {FAILED_CASES}")
     return rows
+
+
+def phase_serve_aot() -> dict:
+    """compile → plan bundle with its AOT decode program → serve: the two
+    qwen3-0.6b buckets of ``qwen3_buckets`` (8 slots x 2048, bf16;
+    symmetric, and paged from 896 pages of 64 KiB) served from the
+    manifest that carries their programs through ``serve.run(...
+    --plan-bundle DIR)``: the program loaded (``aot_executables``), and
+    ``trace_calls``, ``plan_calls`` and ``state_plan_calls`` 0 over the
+    engine's construction, as many captures as the twin's, tokens and
+    ``flash_decode`` / ``flash_decode_paged`` launches equal to the
+    twins' (8,764), the allocator's peak over a replay 0 B; the cold
+    start, its capture seconds, the program's load seconds and the pack's
+    bytes beside serve_bundle's engine (which traces once: its trace
+    seconds). Then a planted stale pack (another torch version in its
+    key) must be refused with the warning, traced once, and serve the
+    same tokens (``chip_faults.py``'s ``aot_key_ignored`` must fail
+    ``stale``, and only it). One row per case."""
+    import torch
+
+    from repro_torch.core.artifact import load_bundle, save_bundle
+    from repro_torch.launch import serve
+
+    serve_twins()
+    rows = {}
+    for case, extra, kernel, prefix, entry in (
+            ("serve", [], "flash_decode", "", "resident_decode"),
+            ("serve_paged", PAGED_ARGS, "flash_decode_paged", "paged_", "paged_decode")):
+        bucket = qwen3_buckets()[PAGE_SIZE if extra else None]
+        reset_launches()
+        stats = serve.run(SERVE_ARGS + extra + ["--plan-bundle", str(bucket["aot"])])
+        counts = read_launches()
+        want = SERVE_NUMBERS[f"{prefix}launches"]
+        checks = {**bundle_serve_checks(stats, SERVE_NUMBERS[f"{prefix}tokens"],
+                                        kernel, want, counts, traces=0),
+                  **aot_checks(stats, entry, SERVE_NUMBERS[f"{prefix}capture_calls"])}
+        check_replayed(f"serve_aot {case}", stats, kernel)
+        plan_row(f"qwen3-0.6b serve_aot{' paged' if extra else ''} (8 slots x 2048, "
+                 f"from its bundle's program)", stats,
+                 warnings=("paged-pool-short",) if extra else ())
+        rows[case] = phase_case("serve_aot", case, checks, {
+            "arch": "qwen3-0.6b", "page_size": PAGE_SIZE if extra else None,
+            "aot_executables": stats["aot_executables"],
+            "trace_calls": stats["trace_calls"], "plan_calls": stats["plan_calls"],
+            "state_plan_calls": stats["state_plan_calls"],
+            "capture_calls": stats["capture_calls"],
+            "capture_calls_plan_at_construction": SERVE_NUMBERS[f"{prefix}capture_calls"],
+            "launches": counts, "launches_plan_at_construction": want,
+            "cold_start_s": stats["cold_start_s"], "trace_s": stats["trace_s"],
+            "capture_s": stats["capture_s"], "aot_load_s": stats["aot_load_s"],
+            "plan_resolve_s": stats["plan_resolve_s"],
+            "aot_bytes": bucket["row"]["aot_bytes"],
+            "bundle_bytes": bucket["row"]["bundle_bytes"],
+            "compile_s_with_program": bucket["row"]["compile_s"],
+            # serve_bundle's engine: the same bundle without its program
+            **{f"{k}_traced": SERVE_NUMBERS.get(f"bundle_{prefix}{k}") for k in (
+                "cold_start_s", "trace_s", "capture_s", "plan_resolve_s")},
+            "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+            "tokens_per_s": stats["tokens_per_s"],
+        })
+        del stats
+        torch.cuda.empty_cache()
+    # a planted stale pack: the symmetric bundle with another torch version
+    # in its pack's key, served from its file
+    bucket = qwen3_buckets()[None]
+    bundle = load_bundle(bucket["file"])
+    stale = bucket["file"].parent.parent / "stale.json"
+    save_bundle(dataclasses.replace(bundle, executables=dataclasses.replace(
+        bundle.executables, torch_version="0.0.0+stale")), stale)
+    stats = serve.run(SERVE_ARGS + ["--plan-bundle", str(stale)])
+    warning = stats["aot_warning"] or ""
+    rows["stale"] = phase_case("serve_aot", "stale", {
+        "refused_with_warning":
+            warning.startswith("AOT executables were compiled under torch 0.0.0+stale"),
+        "nothing_loaded": stats["aot_executables"] == [],
+        "traced_once": stats["trace_calls"] == 1 and stats["trace_s"] is not None,
+        "plans_from_the_bundle": stats["plan_source"] == "bundle"
+        and stats["plan_calls"] == 0 and stats["state_plan_calls"] == 0,
+        "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
+    }, {"arch": "qwen3-0.6b", "aot_warning": warning,
+        "aot_executables": stats["aot_executables"],
+        "trace_calls": stats["trace_calls"], "plan_source": stats["plan_source"],
+        "cold_start_s": stats["cold_start_s"], "trace_s": stats["trace_s"]})
+    del stats
+    torch.cuda.empty_cache()
+    if FAILED_CASES:
+        fail(f"serve_aot: {len(FAILED_CASES)} case(s) failed: {FAILED_CASES}")
+    return rows
+
+
+def phase_serve_pytree() -> dict:
+    """The residency-off backend at full width: ``serve.run(...
+    --no-residency)`` on qwen3-0.6b with the serve mix: the model's step
+    run eagerly over the caches ``init_cache`` returns (owned by the
+    caching allocator), nothing captured, every ``flash_decode`` launched
+    by its wrapper (28 per step); tokens equal to the serve phase's,
+    ``state_residency`` false, the caches 939,524,096 B, and the
+    allocator's peak over the serve (above what was allocated before the
+    engine) beside the resident engine's and its planned arena + state:
+    the paper's planned-versus-allocator footprint. Then the paged bucket
+    of ``qwen3_buckets`` handed to a residency-off engine: the warning,
+    symmetric state of the same bytes, its plans from the bundle (its
+    program unused), tokens equal."""
+    import warnings
+
+    import torch
+
+    from repro_torch.launch import serve
+
+    serve_twins()
+    reset_launches()
+    stats = serve.run(SERVE_ARGS + ["--no-residency"])
+    counts = read_launches()
+    eager = wrapper_launches()
+    steps = stats["decode_calls"] * stats["n_layers"]
+    checks = {
+        "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
+        "state_residency_false": stats["state_residency"] is False,
+        "live_bytes": stats["state_live_bytes"] == QWEN3_STATE_BYTES,
+        "nothing_captured": stats["capture_calls"] == 0 and not stats["graphs"],
+        "flash_decode_eager_per_layer": counts["flash_decode"] == steps
+        and eager["flash_decode"] == steps,
+        "finite_logits": stats["last_logits_finite"],
+    }
+    plan_row("qwen3-0.6b serve_pytree (8 slots x 2048, residency off: accounting)",
+             stats)
+    row = {
+        "case": "serve", "arch": "qwen3-0.6b", "layers": stats["n_layers"],
+        "state_residency": stats["state_residency"],
+        "state_live_bytes": stats["state_live_bytes"],
+        "launches": counts, "decode_steps": stats["decode_calls"],
+        "serve_peak_bytes": stats["serve_peak_bytes"],
+        "resident_serve_peak_bytes": SERVE_NUMBERS.get("serve_peak_bytes"),
+        # the eager step's own peak (its first step: the caching
+        # allocator's first cuBLAS workspace included) beside the arena
+        # the plan would give it
+        "allocator_step_peak_bytes": stats["allocator_step_peak_bytes"],
+        "planned_arena_bytes": stats["plan_total_bytes"],
+        "planned_arena_plus_state_bytes": stats["plan_total_bytes"]
+        + stats["state_planned_bytes"],
+        "resident_planned_arena_plus_state_bytes": SERVE_NUMBERS.get("unified_bytes"),
+        "cold_start_s": stats["cold_start_s"], "trace_s": stats["trace_s"],
+        "tokens_per_s": stats["tokens_per_s"], "wall_s": stats["wall_s"],
+    }
+    rows = {"serve": phase_case("serve_pytree", "serve", checks, row)}
+    launches = counts["flash_decode"]
+    del stats
+    torch.cuda.empty_cache()
+    manifest = qwen3_buckets()[PAGE_SIZE]["aot"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stats = serve.run(SERVE_ARGS + PAGED_ARGS + ["--no-residency", "--plan-bundle",
+                                                     str(manifest)])
+    said = [str(w.message) for w in caught if w.category is RuntimeWarning]
+    rows["paged_bundle"] = phase_case("serve_pytree", "paged_bundle", {
+        "paged_warning": said == ["paged state requires state residency; serving "
+                                  "the symmetric allocator-owned pytree backend "
+                                  "instead"],
+        "symmetric_state": stats["page_size"] is None
+        and stats["state_live_bytes"] == QWEN3_STATE_BYTES,
+        "plans_from_the_bundle": stats["plan_source"] == "bundle"
+        and stats["plan_calls"] == 0 and stats["state_plan_calls"] == 0,
+        "program_unused": stats["aot_executables"] == [],
+        "tokens_equal": stats["tokens_per_request"] == SERVE_NUMBERS["tokens"],
+    }, {"arch": "qwen3-0.6b", "warnings": said, "plan_source": stats["plan_source"],
+        "state_live_bytes": stats["state_live_bytes"],
+        "serve_peak_bytes": stats["serve_peak_bytes"]})
+    del stats
+    torch.cuda.empty_cache()
+    if FAILED_CASES:
+        fail(f"serve_pytree: {len(FAILED_CASES)} case(s) failed: {FAILED_CASES}")
+    return {"launches": launches, **rows}
+
+
+# qwen3-0.6b's symmetric state at 8 slots x 2048: 28 layers x K and V x
+# 8 slots x 2048 x 8 heads x 128 x 2 B
+QWEN3_STATE_BYTES = 939_524_096
 
 
 # the paged serves of every decoder family beyond qwen3: phase -> (arch,
@@ -3464,17 +3788,22 @@ BUNDLE_FAMILIES = ("gemma3-4b",)
 
 def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
                              counts: dict, device_ms_per_wave: float) -> dict:
-    """The paged bucket of ``args`` compiled on ``meta`` and published,
-    then the same mix served from the manifest (the plan-at-construction
-    engine freed first): tokens and ``flash_decode_paged`` launches equal
-    to that engine's (``stats``, ``counts``), both plans from the bundle
-    (nothing carved: ``state_plan_calls`` 0), one trace, the pool fixed,
-    the allocator's peak over a replay 0 B. Returns the cold start, the
+    """The paged bucket of ``args`` compiled on ``meta`` with its AOT
+    program and published, then the same mix served twice, the
+    plan-at-construction engine freed first: from the bundle without its
+    program (one trace), then from the bundle with it (no trace). Each
+    serve: tokens and ``flash_decode_paged`` launches equal to that
+    engine's (``stats``, ``counts``), both plans from the bundle (nothing
+    carved: ``state_plan_calls`` 0), the pool fixed, the allocator's peak
+    over a replay 0 B; from the program also the program loaded and as
+    many captures. Returns the no-program serve's row (the cold start, the
     resolve and the state plan seconds beside the plan-at-construction
     engine's, and the device ms of a steady wave beside that engine's
-    (``device_ms_per_wave``)."""
+    ``device_ms_per_wave``) with the program's serve under ``"aot"``."""
     import shutil
     import tempfile
+
+    import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.artifact import BundleManifest, bucket_key
@@ -3482,51 +3811,70 @@ def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
     from repro_torch.launch.compile import compile_and_publish
 
     cfg = get_config(args[args.index("--arch") + 1])
+    paged_args = args + ["--page-size", str(PAGE_SIZE), "--page-pool", str(pool)]
+    want = counts["flash_decode_paged"]
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
     try:
-        res = compile_and_publish(cfg, str(root), n_slots=8, max_len=2048,
+        res = compile_and_publish(cfg, str(root / "aot"), n_slots=8, max_len=2048,
                                   page_size=PAGE_SIZE, page_pool=pool,
                                   command=f"chip_smoke.py {phase}")
-        entry = BundleManifest(root).buckets()[
-            bucket_key(cfg, n_slots=8, max_len=2048, page_size=PAGE_SIZE)]
-        compiled = compile_row(res, root / entry["file"])
-        reset_launches()
-        got = serve.run(args + ["--page-size", str(PAGE_SIZE), "--page-pool", str(pool),
-                                "--plan-bundle", str(root)])
-        got_counts = read_launches()
+        key = bucket_key(cfg, n_slots=8, max_len=2048, page_size=PAGE_SIZE)
+        compiled = compile_row(
+            res.wall_s, root / "aot" / BundleManifest(root / "aot").buckets()[key]["file"])
+        BundleManifest(root / "plain").publish(
+            key, dataclasses.replace(res.bundle, executables=None))
+        served = {}
+        for name, traces in (("plain", 1), ("aot", 0)):
+            reset_launches()
+            got = serve.run(paged_args + ["--plan-bundle", str(root / name)])
+            got_counts = read_launches()
+            checks = bundle_serve_checks(got, stats["tokens_per_request"],
+                                         "flash_decode_paged", want, got_counts,
+                                         traces=traces)
+            if name == "aot":
+                checks.update(aot_checks(got, "paged_decode", stats["capture_calls"]))
+            checks["certify_and_lint_findings_0"] = not compiled["certify_warnings"] \
+                and compiled["certify_errors"] == compiled["lint_findings"] == 0
+            check_replayed(f"{phase} bundle {name}", got, "flash_decode_paged",
+                           per_step=PAGED_FAMILIES[phase][3])
+            if not all(checks.values()):
+                fail(f"{phase}: served from its bundle ({name}), failed "
+                     f"{[k for k, ok in checks.items() if not ok]}")
+            what = "its bundle's program" if name == "aot" else "its bundle"
+            plan_row(f"{cfg.name} {phase} (8 slots x 2048, {pool} pages, from {what})",
+                     got)
+            out = {
+                "plan_source": got["plan_source"],
+                "trace_calls": got["trace_calls"], "plan_calls": got["plan_calls"],
+                "state_plan_calls": got["state_plan_calls"], "launches": got_counts,
+                "launches_plan_at_construction": want,
+                "cold_start_s": got["cold_start_s"], "trace_s": got["trace_s"],
+                "capture_s": got["capture_s"], "capture_calls": got["capture_calls"],
+                "aot_executables": got["aot_executables"],
+                "aot_load_s": got["aot_load_s"],
+                "plan_resolve_s": got["plan_resolve_s"],
+                "state_plan_s": got["state_plan_s"],
+                "allocator_step_peak_bytes": got["allocator_step_peak_bytes"],
+                "tokens_equal": True, "checks": sorted(checks),
+            }
+            if name == "plain":
+                out["cold_start_s_built_after"] = cold_start_after(got["engine"])
+                steady = steady_pair({"bundle": got["engine"]})["bundle"]
+                out.update({
+                    **compiled,
+                    "device_ms_per_wave": steady["device_ms_per_wave"],
+                    "device_ms_per_wave_plan_at_construction": device_ms_per_wave,
+                    "cold_start_s_plan_at_construction": stats["cold_start_s"],
+                    "trace_s_plan_at_construction": stats["trace_s"],
+                    "capture_s_plan_at_construction": stats["capture_s"],
+                    "state_plan_s_plan_at_construction": stats["state_plan_s"]})
+            served[name] = out
+            del got
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    want = counts["flash_decode_paged"]
-    checks = bundle_serve_checks(got, stats["tokens_per_request"],
-                                 "flash_decode_paged", want, got_counts)
-    checks["certify_and_lint_findings_0"] = not compiled["certify_warnings"] and \
-        compiled["certify_errors"] == compiled["lint_findings"] == 0
-    check_replayed(f"{phase} bundle", got, "flash_decode_paged",
-                   per_step=PAGED_FAMILIES[phase][3])
-    if not all(checks.values()):
-        fail(f"{phase}: served from its bundle, failed "
-             f"{[k for k, ok in checks.items() if not ok]}")
-    plan_row(f"{cfg.name} {phase} (8 slots x 2048, {pool} pages, from its bundle)", got)
-    built_after = cold_start_after(got["engine"])
-    steady = steady_pair({"bundle": got["engine"]})["bundle"]
-    out = {
-        **compiled, "plan_source": got["plan_source"],
-        "trace_calls": got["trace_calls"], "plan_calls": got["plan_calls"],
-        "state_plan_calls": got["state_plan_calls"], "launches": got_counts,
-        "launches_plan_at_construction": want,
-        "cold_start_s": got["cold_start_s"], "plan_resolve_s": got["plan_resolve_s"],
-        "state_plan_s": got["state_plan_s"],
-        "cold_start_s_built_after": built_after,
-        "device_ms_per_wave": steady["device_ms_per_wave"],
-        "device_ms_per_wave_plan_at_construction": device_ms_per_wave,
-        "cold_start_s_plan_at_construction": stats["cold_start_s"],
-        "state_plan_s_plan_at_construction": stats["state_plan_s"],
-        "allocator_step_peak_bytes": got["allocator_step_peak_bytes"],
-        "tokens_equal": True, "checks": sorted(checks),
-    }
-    del got
-    return out
+    return {**served["plain"], "aot": served["aot"]}
 
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
@@ -3535,7 +3883,8 @@ PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_granite", "prefill_granite", "parity_llama4", "parity_zamba2",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
           "prefill_internvl2", "parity_paged", "serve_paged", "serve_bundle",
-          "serve_paged_gemma3", "serve_paged_zamba2", "smem")
+          "serve_aot", "serve_pytree", "serve_paged_gemma3", "serve_paged_zamba2",
+          "smem")
 
 
 T0 = time.perf_counter()
@@ -3563,6 +3912,8 @@ def main() -> None:
         fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
     sys.path.insert(0, str(ROOT / "src"))
     smi, card_name = phase_device()
+    if phases & set(BUCKET_PHASES):
+        start_qwen3_compiles()
     # every engine built below certifies its unified plan before it serves
     os.environ["REPRO_STARTUP_LINT"] = "1"
     phase_build()
@@ -3651,6 +4002,15 @@ def main() -> None:
             bundles["serve"]["launches"]["flash_decode"]
         launches["flash_decode_paged"]["qwen3-0.6b serve_bundle paged"] = \
             bundles["serve_paged"]["launches"]["flash_decode_paged"]
+    if "serve_aot" in phases:
+        aot = phase_serve_aot()
+        launches["flash_decode"]["qwen3-0.6b serve_aot"] = \
+            aot["serve"]["launches"]["flash_decode"]
+        launches["flash_decode_paged"]["qwen3-0.6b serve_aot paged"] = \
+            aot["serve_paged"]["launches"]["flash_decode_paged"]
+    if "serve_pytree" in phases:
+        launches["flash_decode"]["qwen3-0.6b serve_pytree"] = \
+            phase_serve_pytree()["launches"]
     for phase, (arch, *_) in PAGED_FAMILIES.items():
         if phase not in phases:
             continue
@@ -3666,13 +4026,15 @@ def main() -> None:
         if "bundle" in row:
             launches["flash_decode_paged"][f"{arch} {phase} bundle"] = \
                 row["bundle"]["launches"]["flash_decode_paged"]
+            launches["flash_decode_paged"][f"{arch} {phase} bundle aot"] = \
+                row["bundle"]["aot"]["launches"]["flash_decode_paged"]
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 18 or len(roofs) != 11:
+    if len(CERTIFIED) != 22 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 18 and 11")
+             f"expected 22 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)

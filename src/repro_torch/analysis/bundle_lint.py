@@ -20,9 +20,13 @@ re-derives what the index claims:
   recompile (error);
 * **format drift** — v1/v2/v3 documents load through their shims
   (warnings); unknown newer versions are errors;
-* **executable coherence** — only when a bundle carries the reference's
-  AOT pack (the port writes none): its platform + jax-version key, the
-  entries' stored sha256/nbytes, and a complete entry set;
+* **executable coherence** — only when a bundle carries an AOT pack: a
+  port pack (``runtime/aot.py``) against its runtime + torch-version +
+  device-type key and the port's one entry
+  (``artifact.port_executable_entries``), a reference pack against its
+  platform + jax-version key and the reference's entry set; both against
+  the entries' stored sha256/nbytes. Loading the port's program is
+  ``decode_lint.lint_executables``' job;
 * **bucket coverage gaps** — within one (arch, layers, width, dtype)
   family the sweep grid should be the full cross product of its observed
   slot counts and cache lengths (warning).
@@ -182,31 +186,38 @@ def lint_bundle(
 
     pack = bundle.executables
     if pack is not None:
-        from repro_torch.core.artifact import expected_executable_entries
+        from repro_torch.core.artifact import (expected_executable_entries,
+                                              port_executable_entries)
 
-        if not pack.platform or not pack.jax_version:
+        if pack.is_port:
+            # the port's pack: runtime + torch version + the program's device
+            key = {"torch_version": pack.torch_version,
+                   "device_type": pack.device_type}
+            expected = port_executable_entries(paged=bool(serve_page))
+        else:
+            key = {"platform": pack.platform, "jax_version": pack.jax_version}
+            block = int((serve_params or {}).get("block_size", 1))
+            expected = expected_executable_entries(block, paged=bool(serve_page))
+        if not all(key.values()):
+            shown = " ".join(f"{k}={v!r}" for k, v in key.items())
             findings.append(
                 _finding(
                     "executable-key-missing",
-                    f"AOT pack records platform={pack.platform!r} "
-                    f"jax_version={pack.jax_version!r} — without both "
-                    f"keys a serving process cannot refuse a stale or "
+                    f"AOT pack records {shown} — without every key a "
+                    f"serving process cannot refuse a stale or "
                     f"cross-platform executable",
                     where,
                 )
             )
-        block = int((serve_params or {}).get("block_size", 1))
-        missing = sorted(
-            set(expected_executable_entries(block, paged=bool(serve_page)))
-            - set(pack.entries)
-        )
+        missing = sorted(set(expected) - set(pack.entries))
         if missing:
             findings.append(
                 _finding(
                     "executable-missing",
                     f"AOT pack is incomplete for this bucket's serve "
-                    f"configuration: missing {missing} — those functions "
-                    f"would silently lazy-compile at serving time; "
+                    f"configuration: missing {missing} — an engine "
+                    f"refuses the pack and traces (the port) or "
+                    f"lazy-compiles (the reference) at serving time; "
                     f"recompile",
                     where,
                 )

@@ -4,7 +4,9 @@ Twin of the reference's ``analysis/lint.py``. Subcommands::
 
     bundles PATH             audit a manifest dir (or one bundle file):
                              bundle_lint coherence + soundness certification
-                             of every reachable plan
+                             of every reachable plan + the AOT decode
+                             program of each port pack, loaded
+                             (``decode_lint.lint_executables``)
     decode ARCH [ARCH...]    serve a few requests on each architecture's
                              reduced engine under the port's live decode
                              lint (``decode_lint.lint_run``)
@@ -33,8 +35,20 @@ from pathlib import Path
 from repro_torch.analysis.findings import Report
 
 
+def _certify(report: Report, bundle, name: str, label: str | None) -> None:
+    """Soundness of the bundle's plans and, for a port pack, the audit of
+    its loaded decode program."""
+    from repro_torch.analysis import decode_lint, soundness
+
+    report.extend(soundness.certify_bundle(bundle, label=label),
+                  checked=f"soundness:{name}")
+    if bundle.executables is not None and bundle.executables.is_port:
+        report.extend(decode_lint.lint_executables(bundle),
+                      checked=f"decode_lint:executables:{name}")
+
+
 def _lint_bundles_path(path: Path) -> Report:
-    from repro_torch.analysis import bundle_lint, soundness
+    from repro_torch.analysis import bundle_lint
     from repro_torch.core.artifact import BundleManifest, load_bundle
 
     if path.is_dir():
@@ -55,10 +69,7 @@ def _lint_bundles_path(path: Path) -> Report:
                     bundle = load_bundle(path / fname)
             except Exception:
                 continue  # unreadable: bundle_lint reported it
-            report.extend(
-                soundness.certify_bundle(bundle, label=key),
-                checked=f"soundness:{key}",
-            )
+            _certify(report, bundle, key, key)
         return report
     report = Report()
     report.extend(bundle_lint.lint_bundle_file(path), checked=str(path))
@@ -68,9 +79,7 @@ def _lint_bundles_path(path: Path) -> Report:
             bundle = load_bundle(path)
     except Exception:
         return report
-    report.extend(
-        soundness.certify_bundle(bundle), checked=f"soundness:{path.name}"
-    )
+    _certify(report, bundle, path.name, None)
     return report
 
 

@@ -40,8 +40,12 @@ Where the port departs from the reference on purpose:
   port's fingerprint while its activation plan covers a jaxpr's records,
   not the fx graph's; with it such a bundle is refused by fingerprint and
   the engine plans at construction;
-* the port writes no executables (``executables: null``). A reference
-  bundle that carries an AOT pack keeps it as opaque bytes: it is
+* the port's own AOT pack (``runtime/aot.py``) is keyed by
+  ``runtime: "repro_torch"``, the torch version and the device type its
+  program was traced on (``meta``: the loader retargets it), where the
+  reference keys its pack by platform and jax version. Its one entry is
+  the decode program (:func:`port_executable_entries`). A reference
+  bundle's pack keeps its own key and is carried as opaque bytes:
   encoded, decoded and linted, never deserialised or run.
 """
 
@@ -75,8 +79,9 @@ if TYPE_CHECKING:
 # v2: + state_plan (cross-step slot/KV layout), + n_layers/d_model (the
 # bucket-key shape fields, so a manifest index can be rebuilt from bundle
 # files alone)
-# v3: + executables (the reference's AOT-serialized decode functions,
-# platform + jax-version keyed; the port writes none)
+# v3: + executables (AOT-serialized decode functions: the reference's,
+# platform + jax-version keyed, or the port's programs, runtime +
+# torch-version keyed)
 # v4: + prefill_plan/prefill_len (the planned prefill activation arena —
 # long-lifetime full-sequence regime — compiled alongside the decode
 # plan; the prefill shape joins the fingerprint and the bucket key)
@@ -297,8 +302,8 @@ def _payload_sha(payload: bytes) -> str:
 
 @dataclasses.dataclass
 class ExecutableEntry:
-    """One of the reference's AOT-serialized compiled functions: opaque
-    bytes, carried and linted, never deserialised by the port."""
+    """One AOT-serialized decode function: the reference's compiled
+    executable (carried opaque) or the port's exported program."""
 
     payload: bytes
     sha256: str  # of payload — integrity check before deserialization
@@ -311,26 +316,52 @@ def executable_entry(payload: bytes) -> ExecutableEntry:
     )
 
 
+# the ``runtime`` key of a pack the port wrote
+PORT_RUNTIME = "repro_torch"
+
+
 @dataclasses.dataclass
 class ExecutablePack:
-    """The reference's v3 AOT half: serialized executables keyed by the
-    platform and jax version they were compiled under. The port writes
-    none; a loaded one round-trips unchanged and the engine ignores it
-    (executables for the port come with ROADMAP A12.2)."""
+    """The v3 AOT half: serialized decode functions and the key a loader
+    refuses a stale pack by. The reference's pack is keyed by the
+    platform and jax version it was compiled under; the port's by
+    ``runtime`` (``"repro_torch"``), the torch version and the device
+    type its program was traced on. The port's program is an exported
+    aten graph whose custom ops dispatch by the tensors' device at run
+    time and whose kernels are built at first use, so nothing in it is
+    specific to a card's compute capability and none is recorded."""
 
-    platform: str  # the reference's backend at compile time
-    jax_version: str
     entries: dict[str, ExecutableEntry]
+    platform: str | None = None  # the reference's backend at compile time
+    jax_version: str | None = None
+    runtime: str | None = None  # PORT_RUNTIME for the port's packs
+    torch_version: str | None = None
+    device_type: str | None = None
 
     @property
     def nbytes(self) -> int:
         return sum(e.nbytes for e in self.entries.values())
 
+    @property
+    def is_port(self) -> bool:
+        return self.runtime == PORT_RUNTIME
+
+    @property
+    def key(self) -> str:
+        """The pack's key in one line, for summaries and warnings."""
+        if self.runtime is not None:
+            return f"{self.runtime} torch {self.torch_version} on {self.device_type}"
+        return f"{self.platform} jax {self.jax_version}"
+
 
 def executables_to_obj(pack: ExecutablePack) -> dict:
+    if pack.runtime is not None:
+        key = {"runtime": pack.runtime, "torch_version": pack.torch_version,
+               "device_type": pack.device_type}
+    else:
+        key = {"platform": pack.platform, "jax_version": pack.jax_version}
     return {
-        "platform": pack.platform,
-        "jax_version": pack.jax_version,
+        **key,
         "entries": {
             name: {
                 "payload_b64": base64.b64encode(entry.payload).decode(
@@ -353,8 +384,9 @@ def block_entry_name(backend: str, length: int) -> str:
 def expected_executable_entries(
     block_size: int = 1, *, paged: bool = False
 ) -> list[str]:
-    """The entry names a complete pack carries for one serving bucket:
-    decode + reset for BOTH state backends (residency is a serving-time
+    """The entry names a complete REFERENCE pack carries for one serving
+    bucket (the port's: :func:`port_executable_entries`): decode + reset
+    for BOTH state backends (residency is a serving-time
     knob the compile step cannot predict; paged buckets pair the paged
     backend with the pytree fallback), plus the full-size scan block on
     block-mode buckets (tail blocks have engine-chosen shorter lengths
@@ -372,6 +404,16 @@ def expected_executable_entries(
     return sorted(names)
 
 
+def port_executable_entries(*, paged: bool = False) -> list[str]:
+    """The entry names of a complete port pack: ONE decode program,
+    ``resident_decode`` or under paging ``paged_decode``. The port's
+    slot reset and block wave are eager code around that program (the
+    block wave is captured as a CUDA graph at construction), and its
+    residency-off backend runs the model's step eagerly, so no entry
+    stands for them."""
+    return ["paged_decode" if paged else "resident_decode"]
+
+
 def executables_from_obj(obj: dict) -> ExecutablePack:
     entries = {}
     for name, e in obj.get("entries", {}).items():
@@ -379,6 +421,11 @@ def executables_from_obj(obj: dict) -> ExecutablePack:
             payload=base64.b64decode(e["payload_b64"]),
             sha256=e["sha256"],
             nbytes=e["nbytes"],
+        )
+    if "runtime" in obj:
+        return ExecutablePack(
+            entries=entries, runtime=obj["runtime"],
+            torch_version=obj["torch_version"], device_type=obj["device_type"],
         )
     return ExecutablePack(
         platform=obj["platform"],
@@ -421,8 +468,9 @@ class PlanBundle:
     # "unknown" (v1-shim bundles, hand-built test bundles)
     n_layers: int = 0
     d_model: int = 0
-    # v3: the reference's AOT-serialized decode executables, carried
-    # opaque — None in every bundle the port compiles
+    # v3: AOT-serialized decode functions — the port's decode program
+    # (``runtime/aot.py``; ``launch/compile.py --no-aot`` leaves None),
+    # or a reference pack, carried opaque
     executables: ExecutablePack | None = None
     # v4: the planned prefill activation arena (full-sequence forward at
     # ``prefill_len`` tokens — the long-lifetime regime) — None in
@@ -471,7 +519,7 @@ class PlanBundle:
             aot = (
                 f" + {len(self.executables.entries)} AOT executable(s) "
                 f"({self.executables.nbytes / 2**20:.3f} MiB, "
-                f"{self.executables.platform})"
+                f"{self.executables.key})"
             )
         prefill = ""
         if self.prefill_plan is not None:

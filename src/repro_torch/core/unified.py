@@ -921,10 +921,15 @@ class PlanSession:
     ``nearest=False`` for exact-only). ``from_bundle`` — one bundle file
     or object. ``from_spec`` — plan on demand from a :class:`PlanSpec`;
     an empty spec defers to the engine's own trace with its knobs.
-    ``verify_graph`` is accepted for the reference's signature: the port's
-    engine traces its decode step once whatever the source (the trace is
-    its executor's program), and always checks a bundle's structural
-    graph fingerprint against that trace."""
+    ``verify_graph`` (the reference's meaning): a bundle that carries the
+    AOT decode program (``runtime/aot.py``) gives the engine its
+    executor's program, so by default nothing is traced (the config
+    fingerprint and the program's own fingerprint, checked at load,
+    stand); ``verify_graph=True`` also traces the step and holds its
+    structural fingerprint against the bundle's (``trace_calls`` 1).
+    Without a pack the engine traces its step once whatever the source
+    (the trace is its executor's program) and always checks that
+    fingerprint."""
 
     def __init__(
         self,

@@ -19,18 +19,25 @@ dtype)`` serving bucket it:
    certifier proves the activation arena and the state layout
    collision-free, and the bundle self-lint checks fingerprint/shape
    coherence — error findings refuse the publish (``LintGateError``);
-4. publishes a fingerprinted v4 :class:`~repro_torch.core.artifact.PlanBundle`
+4. packs the traced decode program (``runtime/aot.py``: the trace of
+   step 1 exported and saved without its example inputs) into the
+   bundle's ``executables`` (default on; ``--no-aot`` skips it), behind
+   the lint gate, and audits the pack after serialization
+   (``analysis/decode_lint.lint_executables``: it loads, it is the
+   bundle's graph, no host transfer, the state written in place); error
+   findings refuse the publish;
+5. publishes a fingerprinted v4 :class:`~repro_torch.core.artifact.PlanBundle`
    into a content-addressed manifest directory that
    ``InferenceEngine(session=PlanSession.from_manifest(dir))`` and
-   ``launch/serve.py --plan-bundle`` serve from with no planner call and
-   no state layout.
+   ``launch/serve.py --plan-bundle`` serve from with no planner call, no
+   state layout and, with the pack, no trace.
 
-The reference's step 4 (AOT-compiled decode executables) and its XLA
-temp measurement have no counterpart yet: the bundle's ``executables``
-are null (ROADMAP A12.2). A bundle whose activation plan was searched
-(another order, or fusion groups) is published as in the reference, but
-an engine refuses it and plans at construction, since its executor runs
-program order (ROADMAP A24).
+The reference's XLA temp measurement has no counterpart (the caching
+allocator's peak over one step is the engine's
+``allocator_step_peak_bytes``). A bundle whose activation plan was
+searched (another order, or fusion groups) is published as in the
+reference, but an engine refuses it and plans at construction, since its
+executor runs program order (ROADMAP A24).
 
 ``--all`` sweeps every selected arch × ``--slots-list`` × ``--max-lens``
 (× ``--dtypes``) into one manifest.
@@ -43,7 +50,7 @@ certified by ``analysis/soundness.certify_plan``.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.compile --arch qwen3-0.6b \
         --full --slots 8 --max-len 2048 [--page-size 65536 --page-pool 896] \
-        [--search] [--out plan_artifacts/torch]
+        [--search] [--no-aot] [--out plan_artifacts/torch]
     PYTHONPATH=src python -m repro_torch.launch.compile --all \
         --slots-list 2 4 --max-lens 64 128 256
 """
@@ -169,6 +176,7 @@ def compile_decode_plan(
     prefill_len: int | None = None,
     lint: bool = True,
     cores: str = "kernel",
+    aot: bool = True,
 ) -> CompileResult:
     """Trace → unified plan (both halves) → lint gate → bundle, in memory.
 
@@ -182,7 +190,8 @@ def compile_decode_plan(
 
     ``prefill_len`` additionally traces and plans the full-sequence
     prefill at that many tokens; ``prefill_len`` then joins the
-    fingerprint and the bucket key (``|pf{S}``)."""
+    fingerprint and the bucket key (``|pf{S}``). ``aot`` packs the traced
+    decode program into the bundle (``runtime/aot.py``)."""
     wall0 = time.perf_counter()
     serve_params = serve_fingerprint(
         block_size=block_size, greedy=greedy,
@@ -191,7 +200,8 @@ def compile_decode_plan(
     )
     program = _decode_program(cfg, n_slots=n_slots, max_len=max_len,
                               page_size=page_size, page_pool=page_pool, cores=cores)
-    graph = program.trace().graph
+    trace = program.trace()
+    graph = trace.graph
     state_plan = program.residency.state_plan
     prefill_graph = (
         trace_prefill_graph(cfg, prefill_len=prefill_len)
@@ -263,6 +273,28 @@ def compile_decode_plan(
                 context=f"refusing to publish "
                 f"{bucket_key(cfg, n_slots=n_slots, max_len=max_len, page_size=page_size, prefill_len=prefill_len)}",
             )
+    if aot:
+        # behind the lint gate: an unsound plan is refused before its
+        # program is exported
+        from repro_torch.runtime.aot import build_decode_executables
+
+        pack = build_decode_executables(cfg, state_plan, n_slots=n_slots,
+                                        max_len=max_len, cores=cores,
+                                        program=program, trace=trace)
+        bundle = dataclasses.replace(bundle, executables=pack)
+        if lint:
+            # post-serialization audit: the program must load, be the
+            # bundle's graph, and keep the step's invariants
+            from repro_torch.analysis import decode_lint
+
+            report = Report().extend(decode_lint.lint_executables(bundle),
+                                     checked="decode_lint:executables")
+            if not report.ok():
+                raise LintGateError(
+                    report,
+                    context=f"refusing to publish AOT executables for "
+                    f"{bucket_key(cfg, n_slots=n_slots, max_len=max_len, page_size=page_size, prefill_len=prefill_len)}",
+                )
     outcome = unified.search
     return CompileResult(
         bundle=bundle,
@@ -425,6 +457,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--no-lint", action="store_true",
                     help="skip the pre-publish static-analysis gate "
                          "(soundness certifier + bundle self-lint)")
+    ap.add_argument("--no-aot", action="store_true",
+                    help="skip packing the traced decode program into the "
+                         "bundle (an engine served from it traces its step)")
     ap.add_argument("--out", default=DEFAULT_BUNDLE_DIR,
                     help="bundle manifest directory")
     ap.add_argument("--json", action="store_true",
@@ -441,6 +476,7 @@ def main(argv: list[str] | None = None) -> None:
         temperature=args.temperature, top_k=args.top_k,
         page_size=args.page_size, page_pool=args.page_pool,
         prefill_len=args.prefill_len, lint=not args.no_lint,
+        aot=not args.no_aot,
     )
     if args.all:
         results = sweep_buckets(
@@ -491,6 +527,10 @@ def main(argv: list[str] | None = None) -> None:
             ),
             "unified_total_bytes": res.bundle.total_size,
             "records": len(res.bundle.plan.records),
+            "aot_executables": (sorted(res.bundle.executables.entries)
+                                if res.bundle.executables else []),
+            "aot_bytes": (res.bundle.executables.nbytes
+                          if res.bundle.executables else 0),
             "searched": args.search,
             "wall_s": round(res.wall_s, 3),
         }))

@@ -52,6 +52,17 @@ prints both cold starts. E.g.::
     PYTHONPATH=src python -m repro_torch.launch.serve --full --slots 8 \
         --max-len 2048 --plan-bundle plan_artifacts/torch --compare-cold-start
 
+A bundle compiled with its AOT decode program (``launch/compile.py``'s
+default; ``--no-aot`` leaves it out) also gives the engine its step's
+program: the engine then traces nothing (``trace_calls`` 0, ``trace_s``
+None, ``aot_executables`` names the program) and still captures its
+CUDA graphs.
+
+``--no-residency`` (or ``REPRO_STATE_RESIDENCY=off``) serves the pytree
+backend: caches owned by the caching allocator and the model's step run
+eagerly, with the plans kept as accounting (``state_residency`` false);
+a paged bucket then serves symmetric state with one warning.
+
 ``--device cpu`` runs on the CPU (tests); the default is the card, and
 without one the engine raises.
 """
@@ -59,6 +70,7 @@ without one the engine raises.
 from __future__ import annotations
 
 import argparse
+import gc
 import time
 from pathlib import Path
 
@@ -109,6 +121,10 @@ def run(argv: list[str] | None = None) -> dict:
     ap.add_argument("--page-pool", type=int, default=None,
                     help="physical pool page count for --page-size "
                          "(default: slots x pages-per-slot)")
+    ap.add_argument("--no-residency", action="store_true",
+                    help="serve the pytree state backend (allocator-owned "
+                         "caches, the step run eagerly; default: the "
+                         "REPRO_STATE_RESIDENCY knob, on)")
     ap.add_argument("--plan-bundle", default=None,
                     help="precompiled plan artifact: a bundle file or a "
                          "manifest directory from launch/compile.py")
@@ -159,21 +175,31 @@ def run(argv: list[str] | None = None) -> dict:
             temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
             block_size=args.block_size, page_size=args.page_size,
             page_pool=args.page_pool, session=session,
+            state_residency=False if args.no_residency else None,
         )
 
+    before_engine = _allocated(device)
     with counters.capture("trace_calls", "plan_calls", "state_plan_calls") as cap:
         t0 = time.perf_counter()
         engine = build(session)
         cold_start_s = time.perf_counter() - t0
         built = cap.deltas()
     report = engine.memory_report
-    work = ("trace + state allocation + capture; plans from the bundle"
+    trace = ("program from the bundle" if report.aot_executables
+             else f"trace {report.trace_s:.3f}s")
+    work = (f"{trace} + state allocation + capture; plans from the bundle"
             if report.plan_source == "bundle"
-            else "trace + plan + state allocation + capture")
+            else f"{trace} + plan + state allocation + capture")
     print(f"--- engine cold start: {cold_start_s:.3f}s (plan source: "
-          f"{report.plan_source}; {work}) ---")
+          f"{report.plan_source}; {work}; state residency "
+          f"{'on' if report.state_residency else 'off'}) ---")
     if report.bundle_warning:
         print(f"--- WARNING: {report.bundle_warning} ---")
+    if report.aot_warning:
+        print(f"--- WARNING: {report.aot_warning} ---")
+    if report.aot_executables:
+        print(f"--- AOT decode program(s) {list(report.aot_executables)} loaded "
+              f"in {report.aot_load_s:.3f}s ---")
     if engine.max_len != args.max_len:
         print(f"--- bucket auto-selection: requested max_len={args.max_len} "
               f"-> serving the compiled len={engine.max_len} bucket ---")
@@ -197,14 +223,19 @@ def run(argv: list[str] | None = None) -> dict:
             rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32),
             max_new_tokens=args.max_new,
         )
-    state_ptr = engine.state.buf.data_ptr()
-    arena_ptr = engine.activation_arena.buf.data_ptr()
+    state_ptr = _ptr(engine.state.buf)
+    arena_ptr = _ptr(engine.activation_arena and engine.activation_arena.buf)
     replays0 = {k: g.replays for k, g in engine.state.graphs.items()}
     t0 = time.perf_counter()
     with counters.capture("host_syncs", "capture_calls") as cap:
         done = engine.run_until_done()
         _sync(device)
     wall = time.perf_counter() - t0
+    # the caching allocator's peak over the serve above what was allocated
+    # before the engine was built (its state, arena, graph pool and each
+    # step's transients; None on the CPU)
+    serve_peak_bytes = (torch.cuda.max_memory_allocated(device) - before_engine
+                        if device.type == "cuda" else None)
     host_syncs = cap.delta("host_syncs")
     report = engine.memory_report
     print("--- memory report (the paper's planner on the decode step) ---")
@@ -249,6 +280,11 @@ def run(argv: list[str] | None = None) -> dict:
         # the counters' deltas over the engine's construction
         **built,
         "plan_resolve_s": report.plan_resolve_s,
+        "state_residency": report.state_residency,
+        "aot_executables": list(report.aot_executables),
+        "aot_warning": report.aot_warning,
+        "aot_load_s": report.aot_load_s,
+        "trace_s": report.trace_s,
         "cold_start_noartifact_s": cold_start_noartifact_s,
         "requests": len(done),
         "tokens": toks,
@@ -267,7 +303,8 @@ def run(argv: list[str] | None = None) -> dict:
         "graph_capture_peak_bytes": report.graph_capture_peak_bytes,
         "executor_in_place": report.executor_in_place,
         "executor_copied": report.executor_copied,
-        "executor_copied_bytes": engine.executor.stats.copied_bytes,
+        "executor_copied_bytes": (engine.executor.stats.copied_bytes
+                                  if engine.executor is not None else 0),
         # kernel launches each graph holds, and its replays while serving
         "graphs": {
             k: {"launches": dict(g.launches), "replays": g.replays - replays0[k]}
@@ -286,25 +323,47 @@ def run(argv: list[str] | None = None) -> dict:
         "startup_lint_findings": report.startup_lint_findings,
         "startup_lint_warnings": list(report.startup_lint_warnings),
         "allocator_step_peak_bytes": report.allocator_step_peak_bytes,
+        "serve_peak_bytes": serve_peak_bytes,
         "state_planned_bytes": report.state_planned_bytes,
         "state_live_bytes": report.state_live_bytes,
-        # the state buffer's bytes (under paging the null page and the pool)
-        "allocated_bytes": engine.state.buf.numel(),
+        # the state buffer's bytes (under paging the null page and the
+        # pool; with residency off the caches')
+        "allocated_bytes": (engine.state.buf.numel() if engine.state.buf is not None
+                            else report.state_live_bytes),
         "page_size": final_report.state_page_size,
         "state_pages_total": pages_total,
         "state_pages_live": pages_live,
         "pages_live_peak": pages_peak,
         "page_log": engine.page_log,
         "state_ptr_before": state_ptr,
-        "state_ptr_after": engine.state.buf.data_ptr(),
+        "state_ptr_after": _ptr(engine.state.buf),
         "arena_ptr_before": arena_ptr,
-        "arena_ptr_after": engine.activation_arena.buf.data_ptr(),
+        "arena_ptr_after": _ptr(engine.activation_arena
+                                and engine.activation_arena.buf),
         "last_logits_finite": bool(
             engine.last_logits is not None and np.isfinite(engine.last_logits).all()
         ),
         "decode_step_ops": n_ops,
         "engine": engine,
     }
+
+
+def _allocated(device: torch.device) -> int | None:
+    """The caching allocator's bytes in use on ``device``, its peak reset
+    to them (None on the CPU). Unreachable objects are collected first:
+    tensors of an earlier engine freed later would make a baseline that
+    the serve's peak does not exceed."""
+    if device.type != "cuda":
+        return None
+    gc.collect()
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _ptr(buf) -> int | None:
+    """A buffer's address (None without one: residency off)."""
+    return None if buf is None else buf.data_ptr()
 
 
 def _sync(device: torch.device) -> None:

@@ -43,13 +43,33 @@ With ``session=PlanSession.from_manifest(dir)`` (or ``.from_bundle``)
 the engine serves a bundle that ``launch/compile.py`` published: after
 the config-level fingerprint check it takes both halves from the bundle,
 so neither the planner nor the state layout runs (``plan_calls`` and
-``state_plan_calls`` stay 0). It still traces the decode step once, as
-the executor's program (the reference pays that as jit tracing), and
-holds the trace's structural fingerprint against the bundle's before the
-plan reaches the executor. A mismatch, an unusable bundle, or a searched
+``state_plan_calls`` stay 0). A bundle that carries the AOT decode
+program (``runtime/aot.py``) also gives the executor its program, so
+nothing is traced (``trace_calls`` 0; ``MemoryReport.aot_executables``
+names it); the CUDA graphs are captured all the same, one per graph, as
+a captured graph cannot be serialized: AOT removes the trace, not the
+capture. With ``PlanSession(verify_graph=True)`` the engine also traces
+the step and holds its structural fingerprint against the bundle's
+(``trace_calls`` 1). A pack that ``load_executables`` refuses warns one
+line (``MemoryReport.aot_warning``) and the step is traced as without
+one. Without a pack the engine traces the decode step once, as the
+executor's program (the reference pays that as jit tracing), and holds
+the trace's structural fingerprint against the bundle's before the plan
+reaches the executor. A mismatch, an unusable bundle, or a searched
 activation plan (another order or fusion groups; the executor runs
 program order) falls back to planning at construction with a one-line
 ``MemoryReport.bundle_warning``; it never raises.
+
+With ``state_residency=False`` (or ``REPRO_STATE_RESIDENCY=off``) the
+pytree backend serves (``runtime/residency.PytreeState``): the caches
+``init_cache`` returns, owned by the caching allocator, and the model's
+step run eagerly, the baseline the planner is measured against. The
+unified plan is still made or loaded, on a ``meta`` twin of the program
+(nothing is allocated for it), and kept as accounting; no activation
+arena is allocated. A bundle still serves its plans (``plan_source``
+"bundle"), but its AOT program is not used: the eager step has no
+entry. A paged bucket serves the symmetric pytree backend with one
+warning.
 
 With ``startup_lint=True`` (or ``REPRO_STARTUP_LINT=1``) the engine
 certifies its unified plan (activation and state, the paged extras
@@ -76,17 +96,19 @@ from repro_torch.core import plan_io, unified
 from repro_torch.core.artifact import (PlanBundle, decode_fingerprint,
                                       graph_fingerprint, serve_fingerprint)
 from repro_torch.core.graph import Graph
-from repro_torch.core.planner import MemoryPlan
+from repro_torch.core.planner import MemoryPlan, plan_graph
 from repro_torch.core.unified import (PagedStatePlan, PlanSession, PlanSpec, StatePlan,
                                      detect_state_axes, plan_paged_state, plan_state,
                                      state_plan_to_obj, state_records_from_cache)
 from repro_torch.models.api import DecoderModel
+from repro_torch.runtime.aot import decode_entry, inputs_mismatch, load_executables
 from repro_torch.runtime.arena import ArenaLayout
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.executor import ArenaExecutor
 from repro_torch.runtime.paging import (PagedOutOfPagesError, PagedResidentState,
                                        PagedStateResidency)
-from repro_torch.runtime.residency import BlockOut, ResidentState, StateResidency
+from repro_torch.runtime.residency import (BlockOut, PytreeState, ResidentState,
+                                          StateResidency, residency_enabled)
 from repro_torch.runtime.sampling import SamplingParams, TokenSampler, host_probs
 from repro_torch.trace.fx_liveness import FxTrace, trace_fx
 
@@ -182,6 +204,19 @@ class MemoryReport:
     state_pages_total: int | None = None
     state_pages_live: int | None = None
     state_page_size: int | None = None
+    # False: the pytree backend serves (allocator-owned caches, the step
+    # run eagerly); the activation plan is then accounting, no arena is
+    # allocated, and the state plan is the layout the resident backend
+    # would hold
+    state_residency: bool = True
+    # the bundle's AOT decode programs the engine loaded (their names), the
+    # one-line reason a pack was refused, and the seconds the load took
+    aot_executables: tuple[str, ...] = ()
+    aot_warning: str | None = None
+    aot_load_s: float | None = None
+    # the seconds spent tracing the decode step at construction (None:
+    # no trace ran, the program came from the bundle)
+    trace_s: float | None = None
 
     @property
     def state_planned_bytes(self) -> int:
@@ -195,16 +230,32 @@ class MemoryReport:
         lines = [self.activation_plan.summary()]
         if self.bundle_warning:
             lines.append(f"WARNING: {self.bundle_warning}")
+        if self.aot_warning:
+            lines.append(f"WARNING: {self.aot_warning}")
         if self.plan_source == "bundle":
             lines.append(
                 "activation + state plans served from a precompiled bundle"
             )
+        if self.aot_executables:
+            lines.append(
+                f"AOT decode program(s) loaded from the bundle in "
+                f"{self.aot_load_s:.3f}s: {', '.join(self.aot_executables)} "
+                f"(no trace)"
+            )
+        elif self.trace_s is not None:
+            lines.append(f"decode step traced in {self.trace_s:.3f}s")
         elif self.plan_source == "cache":
             lines.append("activation plan served from the plan cache")
-        lines.append(
-            f"arena executor: {self.executor_in_place} nodes written in "
-            f"place, {self.executor_copied} copied into the arena"
-        )
+        if self.state_residency:
+            lines.append(
+                f"arena executor: {self.executor_in_place} nodes written in "
+                f"place, {self.executor_copied} copied into the arena"
+            )
+        else:
+            lines.append(
+                "activation arena: planned, not allocated (state residency "
+                "off: the step runs eagerly on the caching allocator)"
+            )
         if self.capture_calls:
             lines.append(
                 f"CUDA graphs: {self.capture_calls} captured in "
@@ -222,7 +273,13 @@ class MemoryReport:
             f"unified footprint (activation + state): "
             f"{self.unified_total_bytes / 2**20:.3f} MiB"
         )
-        if self.state_pages_total is not None:
+        if not self.state_residency:
+            lines.append(
+                f"state residency: OFF — live device state "
+                f"{self.state_live_bytes / 2**20:.3f} MiB in allocator-owned "
+                f"caches (the state plan is accounting)"
+            )
+        elif self.state_pages_total is not None:
             live = self.state_pages_live or 0
             page = self.state_page_size or 0
             lines.append(
@@ -424,6 +481,9 @@ class InferenceEngine:
         # symmetric bundles for the same bucket never cross-match
         page_size: int | None = None,
         page_pool: int | None = None,
+        # None -> the REPRO_STATE_RESIDENCY env knob (default: on); off
+        # serves the pytree backend (runtime/residency.PytreeState)
+        state_residency: bool | None = None,
         # certify the unified plan at startup with the static analyzer
         # (analysis/soundness); None -> the REPRO_STARTUP_LINT env knob
         # (default: off), as in the reference
@@ -460,8 +520,8 @@ class InferenceEngine:
         self.temperature = self.sampling.temperature
         self.top_k = self.sampling.top_k
         self.device = resolve_device(device)
-        if self.paged and self.device.type == "cuda" and cores == "kernel" \
-                and self.page_size % 16:
+        if self.page_size is not None and self.device.type == "cuda" \
+                and cores == "kernel" and self.page_size % 16:
             # flash_decode_paged loads 16-byte chunks, each inside one page
             raise ValueError(f"page_size {self.page_size}: the card's paged kernel "
                              f"takes whole 16-byte multiples")
@@ -514,14 +574,23 @@ class InferenceEngine:
             nonlocal bundle, resolved, bundle_warning
             bundle, resolved, bundle_warning = None, None, warning
 
+        # residency off: the decode program is built (and traced) on meta,
+        # for the accounting plan only, and the pytree backend serves
+        resident = residency_enabled(state_residency)
+        if resident:
+            prog_model, prog_params, prog_device = self.model, params, self.device
+        else:
+            prog_model = DecoderModel(cfg, "meta", cores=cores)
+            prog_params, prog_device = prog_model.init(None), "meta"
+
         # --- cross-step state: the bundle's layout, or the state planned
         # here (counted); then the ONE buffer and the decode step over it
         program = state_plan_s = None
         if resolved is not None and resolved.state is not None:
             try:
-                program = decode_program(self.model, params, resolved.state,
+                program = decode_program(prog_model, prog_params, resolved.state,
                                          n_slots=n_slots, max_len=self.max_len,
-                                         device=self.device)
+                                         device=prog_device)
             except (TypeError, ValueError) as e:
                 fallback(f"plan bundle unusable (its state plan does not bind "
                          f"this cache: {e}); planned at construction instead")
@@ -536,49 +605,97 @@ class InferenceEngine:
             if program is not None and state_plan_to_obj(sp) == state_plan_to_obj(
                     program.residency.state_plan):
                 return program
-            return decode_program(self.model, params, sp, n_slots=n_slots,
-                                  max_len=self.max_len, device=self.device)
+            return decode_program(prog_model, prog_params, sp, n_slots=n_slots,
+                                  max_len=self.max_len, device=prog_device)
 
         if program is None:
             program = program_here()
-        # --- activation half: the decode step traced ONCE (fake tensors:
-        # nothing runs, nothing is allocated) into the executor's program.
-        # A bundle's plan is used only if the trace is the graph it was
-        # compiled from (structural fingerprint), a spec's only if it
-        # covers the trace's records
-        trace = program.trace()
-        if resolved is not None and resolved.activation is not None:
-            if bundle is not None:
-                fresh = graph_fingerprint(trace.graph)
-                if bundle.graph_fingerprint != fresh:
-                    fallback(
-                        f"plan bundle graph fingerprint mismatch (bundle "
-                        f"{str(bundle.graph_fingerprint)[:12]}, traced "
-                        f"{fresh[:12]} — model code changed since compile?); "
-                        f"planned at construction instead")
-            elif plan_io.canonical_records(resolved.activation.records) != \
-                    plan_io.canonical_records(trace.graph.usage_records()):
-                fallback("plan spec's activation plan does not cover the traced "
-                         "decode step's records; planned at construction instead")
-            if resolved is None and state_from_source:
-                # both halves fall back: the state is laid out here too, and
-                # the program stands if that layout is the bundle's
-                replanned = program_here()
-                if replanned is not program:
-                    program, trace = replanned, replanned.trace()
+
+        # --- the bundle's AOT decode program (resident backends only: the
+        # pytree step has no entry). A refused pack warns one line and the
+        # step is traced as without one
+        aot: dict[str, FxTrace] = {}
+        trace = aot_warning = aot_load_s = None
+        if resident and bundle is not None and bundle.executables is not None:
+            t0 = time.perf_counter()
+            aot, aot_warning = load_executables(bundle, device=self.device)
+            aot_load_s = time.perf_counter() - t0
+            trace = aot.get(decode_entry(isinstance(resolved.state, PagedStatePlan)))
+            why = trace is not None and inputs_mismatch(trace, program.args)
+            if why:
+                aot, trace, aot_warning = {}, None, (
+                    f"AOT executable does not take this engine's step ({why}); "
+                    f"falling back to tracing the decode step")
+            if aot_warning:
+                warnings.warn(aot_warning, RuntimeWarning, stacklevel=2)
+        verify = self.session is not None and self.session.verify_graph
+        trace_s = 0.0
+
+        def traced(prog: DecodeProgram) -> FxTrace:
+            nonlocal trace_s
+            t0 = time.perf_counter()
+            tr = prog.trace()
+            trace_s += time.perf_counter() - t0
+            return tr
+
+        # --- activation half: the loaded program, or the decode step traced
+        # ONCE (fake tensors: nothing runs, nothing is allocated) into the
+        # executor's program. A bundle's plan is used only if the trace is
+        # the graph it was compiled from (structural fingerprint; a loaded
+        # program was held against it at load, a fresh trace is held here),
+        # a spec's only if it covers the trace's records
+        if trace is None or verify:
+            fresh_trace = traced(program)
+            trace = trace or fresh_trace
+            if resolved is not None and resolved.activation is not None:
+                if bundle is not None:
+                    fresh = graph_fingerprint(fresh_trace.graph)
+                    if bundle.graph_fingerprint != fresh:
+                        fallback(
+                            f"plan bundle graph fingerprint mismatch (bundle "
+                            f"{str(bundle.graph_fingerprint)[:12]}, traced "
+                            f"{fresh[:12]} — model code changed since compile?); "
+                            f"planned at construction instead")
+                        aot, trace = {}, fresh_trace
+                elif plan_io.canonical_records(resolved.activation.records) != \
+                        plan_io.canonical_records(fresh_trace.graph.usage_records()):
+                    fallback("plan spec's activation plan does not cover the traced "
+                             "decode step's records; planned at construction instead")
+                if resolved is None and state_from_source:
+                    # both halves fall back: the state is laid out here too,
+                    # and the program stands if that layout is the bundle's
+                    replanned = program_here()
+                    if replanned is not program:
+                        program, trace = replanned, traced(replanned)
         activation = resolved.activation if resolved is not None else None
-        residency, self.state = program.residency, program.state
-        self.residency = residency
-        state_plan = residency.state_plan
-        self.state_layout = residency.arena.layout
-        self.executor = ArenaExecutor(
-            program.fn, *program.args, device=self.device, name=program.name,
-            trace=trace, plan=activation,
-            strategy=spec.strategy if spec is not None else "auto",
-        )
-        self.decode_graph = self.executor.graph
-        plan = self.executor.plan
-        self.activation_arena = self.executor.arena
+        state_plan = program.residency.state_plan
+        self.state_layout = program.residency.arena.layout
+        strategy = spec.strategy if spec is not None else "auto"
+        if resident:
+            self.residency, self.state = program.residency, program.state
+            self.executor = ArenaExecutor(
+                program.fn, *program.args, device=self.device, name=program.name,
+                trace=trace, plan=activation, strategy=strategy,
+            )
+            plan = self.executor.plan
+            self.activation_arena = self.executor.arena
+            step_params = program.params
+        else:
+            if isinstance(state_plan, PagedStatePlan):
+                # the pytree backend has no page indirection: tokens are the
+                # same, the state is symmetric and the page plan accounting
+                warnings.warn(
+                    "paged state requires state residency; serving the "
+                    "symmetric allocator-owned pytree backend instead",
+                    RuntimeWarning, stacklevel=2)
+            # nothing runs in an activation arena: the plan is accounting
+            self.residency = self.executor = self.activation_arena = None
+            plan = activation if activation is not None else plan_graph(
+                trace.graph, mode="offsets", strategy=strategy, alignment=64)
+            self.state = PytreeState(self.model, n_slots=n_slots,
+                                     max_len=self.max_len, device=self.device)
+            step_params = _sorted_keys(params)
+        self.decode_graph = trace.graph
         if bundle is not None:
             plan_source = "bundle"
         else:
@@ -621,12 +738,12 @@ class InferenceEngine:
         model = self.model
         self._token_sampler = TokenSampler(self.sampling, max_len=self.max_len)
         t0 = time.perf_counter()
-        self.state.start(self.executor, program.params, model.rope_tables,
+        self.state.start(self.executor, step_params, model.rope_tables,
                          self._token_sampler, n_slots=n_slots,
                          block_size=self.block_size)
         capture_s = time.perf_counter() - t0
         captured = list(self.state.graphs.values())
-        stats = self.executor.stats
+        stats = self.executor.stats if self.executor is not None else None
         self._memory_report = MemoryReport(
             activation_plan=plan,
             cache_bytes_per_slot=0 if self.paged else state_plan.bytes_per_slot,
@@ -640,8 +757,8 @@ class InferenceEngine:
                               if self.state.pool is not None else None),
             graph_capture_peak_bytes=(max(g.capture_peak_bytes for g in captured)
                                       if captured else None),
-            executor_in_place=stats.n_in_place,
-            executor_copied=stats.n_copied,
+            executor_in_place=stats.n_in_place if stats is not None else 0,
+            executor_copied=stats.n_copied if stats is not None else 0,
             capture_calls=len(captured),
             capture_s=capture_s if captured else None,
             startup_lint_s=lint_s,
@@ -650,7 +767,12 @@ class InferenceEngine:
             startup_lint_warnings=lint_warnings,
             state_pages_total=self.state.pages_total if self.paged else None,
             state_pages_live=0 if self.paged else None,
-            state_page_size=self.page_size,
+            state_page_size=self.page_size if self.paged else None,
+            state_residency=self.state.residency,
+            aot_executables=tuple(sorted(aot)),
+            aot_warning=aot_warning,
+            aot_load_s=aot_load_s,
+            trace_s=trace_s or None,
         )
 
         # serving state — per-slot positions (continuous batching: every
@@ -687,7 +809,9 @@ class InferenceEngine:
 
     @property
     def paged(self) -> bool:
-        return self.page_size is not None
+        """Whether the paged backend serves (a paged bucket with residency
+        off serves the symmetric pytree backend)."""
+        return isinstance(self.state, PagedResidentState)
 
     @property
     def memory_report(self) -> MemoryReport:

@@ -174,7 +174,7 @@ class PagedResidentState(ResidentState):
     retires."""
 
     def __init__(self, model, residency: PagedStateResidency, device):
-        self.residency = residency
+        self.binding = residency
         self.plan = plan = residency.paged_plan
         n = residency.n_slots
         # the host-authoritative table (0 = null page) and its device twin,
@@ -204,7 +204,7 @@ class PagedResidentState(ResidentState):
     def caches(self) -> Any:
         """The cache structure gathered through the table (inspection only;
         the served step never builds it)."""
-        return self.residency.gather(self.buf, self.table)
+        return self.binding.gather(self.buf, self.table)
 
     # ------------------------------------------------- page lifecycle
     @property
@@ -286,7 +286,7 @@ class PagedResidentState(ResidentState):
         leaves). The host table says which pages those are, so only they
         are touched."""
         rows = self._table[~np.asarray(keep, dtype=bool)]
-        self.residency.wipe(self.buf, self.table, rows)
+        self.binding.wipe(self.buf, self.table, rows)
 
     @property
     def live_bytes(self) -> int:

@@ -21,12 +21,21 @@ stride. The decode step writes the new K/V into those views in place,
 so the reference's per-step unpack/pack copy has no counterpart here,
 and slot reset is an in-place masked multiply. Live state bytes equal
 ``StatePlan.total_size`` for the engine's whole lifetime.
+
+:class:`PytreeState` is the pre-residency backend (reference
+``residency.py:500-563``), chosen by ``REPRO_STATE_RESIDENCY=off`` or
+``InferenceEngine(state_residency=False)`` (:func:`residency_enabled`):
+the caches ``model.init_cache`` returns, owned by PyTorch's caching
+allocator, and the model's step run eagerly, neither through the arena
+executor nor captured; the baseline the paper's planner is measured
+against.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -35,6 +44,16 @@ import torch
 from repro_torch.core.unified import StatePlan, dtype_name, iter_leaves
 from repro_torch.runtime import graphs
 from repro_torch.runtime.arena import ArenaLayout, DeviceArena
+
+
+def residency_enabled(override: bool | None = None) -> bool:
+    """The ``REPRO_STATE_RESIDENCY`` knob: on unless explicitly disabled
+    (``off``/``0``/``false``/``no``). An explicit ``override`` (engine
+    kwarg) wins over the environment."""
+    if override is not None:
+        return override
+    val = os.environ.get("REPRO_STATE_RESIDENCY", "on").strip().lower()
+    return val not in ("off", "0", "false", "no")
 
 
 def _slot_axis(path: str) -> int:
@@ -220,6 +239,10 @@ class ResidentState:
     block of K waves is K replays of one graph whatever K is. On the CPU
     the same functions run eagerly."""
 
+    residency = True
+    # the steps are captured as CUDA graphs on the card
+    captured = True
+
     def __init__(self, model, residency: StateResidency, device):
         self.model = model
         self.device = torch.device(device)
@@ -244,7 +267,9 @@ class ResidentState:
     def start(self, executor, params, tables, sampler, *, n_slots: int,
               block_size: int) -> None:
         """Build the static inputs and, on the card, capture the steps.
-        ``tables`` are the model's constant inputs (``rope_tables``)."""
+        ``executor`` runs the decode step (``(params, tables, tokens,
+        caches, pos, active) -> (logits, caches)``), ``tables`` are the
+        model's constant inputs (``rope_tables``)."""
         n, dev = n_slots, self.device
         caches = self.inputs
 
@@ -293,7 +318,7 @@ class ResidentState:
                 w.k.add_(1)
 
             self._wave = wave
-        if dev.type == "cuda":
+        if dev.type == "cuda" and self.captured:
             # every slot inactive: the warm-up run leaves the state as it is
             self.pool = graphs.GraphPool(dev)
             self.graphs["step"] = graphs.CapturedStep(step, self.pool, name="step")
@@ -396,3 +421,43 @@ class ResidentState:
     @property
     def live_bytes(self) -> int:
         return self.buf.numel() * self.buf.element_size()
+
+
+class PytreeState(ResidentState):
+    """The pre-residency backend (``REPRO_STATE_RESIDENCY=off``): the
+    caches ``model.init_cache(n_slots, max_len, device)`` returns, owned
+    by PyTorch's caching allocator, and ``model.decode_step`` run eagerly
+    over them, neither through the arena executor nor captured, so every
+    intermediate of a step is the allocator's. Same interface as
+    :class:`ResidentState` (blocks run the same :func:`_block_wave`), so
+    the engine is oblivious. The step writes the new K/V into the caches
+    in place, as on the resident backend."""
+
+    residency = False
+    captured = False
+
+    def __init__(self, model, *, n_slots: int, max_len: int, device):
+        self.model = model
+        self.device = torch.device(device)
+        self.buf = None
+        self.inputs = model.init_cache(n_slots, max_len, device=self.device)
+        self.graphs: dict[str, Any] = {}
+        self.pool = None
+        self.sync_guard = False
+
+    def start(self, executor, params, tables, sampler, *, n_slots: int,
+              block_size: int) -> None:
+        """``executor`` is None: the model's own step runs."""
+        model = self.model
+
+        def step(p, tb, tokens, caches, pos, active):
+            return model.decode_step(p, tokens, caches, pos, active, **tb)
+
+        super().start(step, params, tables, sampler, n_slots=n_slots,
+                      block_size=block_size)
+
+    @property
+    def live_bytes(self) -> int:
+        """The bytes of the cache leaves."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for _, leaf in iter_leaves(self.inputs))

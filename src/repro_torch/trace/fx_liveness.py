@@ -30,7 +30,8 @@ steps or prefills produces one (``tests/test_torch_executor.py``).
 ``trace_fx`` keeps what the arena executor (``runtime/executor.py``)
 needs beside the Graph: the ``GraphModule``, the fx node → tensor-id
 map, and the tensors each producing node creates (the counterpart of the
-reference's ``graph.var_tid``).
+reference's ``graph.var_tid``). ``trace_from_graph_module`` builds the
+same from a program already made (``runtime/aot.py`` loads one).
 """
 
 from __future__ import annotations
@@ -186,6 +187,13 @@ def trace_fx(fn: Callable, *args, name: str | None = None) -> FxTrace:
     with torch.no_grad():
         gm = make_fx(fn, tracing_mode="fake")(*args)
     TRACE_CALLS += 1
+    return trace_from_graph_module(gm, name=name or getattr(fn, "__name__", "fn"))
+
+
+def trace_from_graph_module(gm: torch.fx.GraphModule, *, name: str) -> FxTrace:
+    """The :class:`FxTrace` of an aten-level program already made, whose
+    nodes carry ``meta["val"]`` (a ``make_fx`` trace, or a program loaded
+    by ``runtime/aot.py``). Nothing is traced: ``TRACE_CALLS`` stays."""
     b = _Builder()
     output = None
     for node in gm.graph.nodes:
@@ -196,8 +204,8 @@ def trace_fx(fn: Callable, *args, name: str | None = None) -> FxTrace:
     if output is not None:
         for t in b.inputs_of(output):
             b.boundary.add(t)
-    g = Graph(name=name or getattr(fn, "__name__", "fn"), ops=b.ops,
-              tensors=b.tensors, boundary_ids=frozenset(b.boundary))
+    g = Graph(name=name, ops=b.ops, tensors=b.tensors,
+              boundary_ids=frozenset(b.boundary))
     g.validate()
     return FxTrace(gm=gm, graph=g, node_tid=b.node_tid, produced=b.produced)
 

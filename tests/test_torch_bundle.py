@@ -2,9 +2,11 @@
 plan-at-construction engine and the JAX engine.
 
 Reduced configs in float32, 2 slots x 48 positions, bundles compiled by
-``repro_torch.launch.compile`` (the decode step traced on ``meta``):
-qwen3 symmetric and paged (pages of 1 KiB), gemma3 paged with its window
-cut to 8 (every ring wraps), mamba2. Each bundle-served engine:
+``repro_torch.launch.compile`` (the decode step traced on ``meta``)
+without their AOT decode program (``aot=False``; the bundles that carry
+one are ``tests/test_torch_aot.py``'s): qwen3 symmetric and paged (pages
+of 1 KiB), gemma3 paged with its window cut to 8 (every ring wraps),
+mamba2. Each bundle-served engine:
 
 * takes both halves from the bundle: ``plan_calls`` 0,
   ``state_plan_calls`` 0, and ``trace_calls`` exactly 1 (the executor's
@@ -100,15 +102,17 @@ def _engine(case, **kw):
 
 @pytest.fixture(scope="module")
 def manifests(tmp_path_factory):
-    """case -> a manifest directory holding the case's one bucket. The
-    window-cut gemma3 is no registry config, so its bundle skips the
-    publish gate's freshness check (its plans are certified below)."""
+    """case -> a manifest directory holding the case's one bucket, with no
+    AOT program (the engine traces its step). The window-cut gemma3 is no
+    registry config, so its bundle skips the publish gate's freshness
+    check (its plans are certified below)."""
     out = {}
     for case, (arch, window, page) in CASES.items():
         d = tmp_path_factory.mktemp(case)
         cfg = _params(arch, window)[2]
         compile_mod.compile_and_publish(cfg, str(d), n_slots=N_SLOTS, max_len=MAX_LEN,
-                                        page_size=page, lint=window is None)
+                                        page_size=page, lint=window is None,
+                                        aot=False)
         out[case] = d
     return out
 

@@ -38,12 +38,14 @@ BUCKETS = [(2, 16), (2, 32), (4, 16)]
 
 @pytest.fixture(scope="module")
 def manifests(tmp_path_factory):
-    """"port" and "jax" -> the same three buckets, published by each."""
+    """"port" and "jax" -> the same three buckets, published by each, both
+    without AOT packs (the port's are held in ``test_torch_aot.py``)."""
     port = tmp_path_factory.mktemp("port")
     jax_dir = tmp_path_factory.mktemp("jax")
     for n_slots, max_len in BUCKETS:
         compile_mod.compile_and_publish(get_reduced(ARCH), str(port),
-                                        n_slots=n_slots, max_len=max_len)
+                                        n_slots=n_slots, max_len=max_len,
+                                        aot=False)
         jax_compile.compile_and_publish(jax_get_reduced(ARCH), str(jax_dir),
                                         n_slots=n_slots, max_len=max_len,
                                         measure_xla=False, aot=False)

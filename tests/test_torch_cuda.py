@@ -976,7 +976,7 @@ def test_a_bundle_compiled_on_meta_has_the_card_engines_records(cuda, tmp_path, 
                                                                  page_size):
     """qwen3-0.6b (reduced fp32, and full width bf16 at 2 slots x 256),
     symmetric and paged: the bundle ``launch/compile`` traces on ``meta``
-    has exactly the usage records and the graph fingerprint of the card
+    (without its AOT program) has exactly the usage records and the graph fingerprint of the card
     engine's executor trace, the engine served from it plans nothing, and
     its tokens are the plan-at-construction engine's."""
     from repro_torch.configs.base import get_config
@@ -987,8 +987,9 @@ def test_a_bundle_compiled_on_meta_has_the_card_engines_records(cuda, tmp_path, 
 
     cfg = get_config("qwen3-0.6b") if full else get_reduced("qwen3-0.6b")
     n_slots, max_len = 2, 256
+    # no AOT program: the engine traces its step, which is what is held
     res = compile_and_publish(cfg, str(tmp_path), n_slots=n_slots, max_len=max_len,
-                              page_size=page_size)
+                              page_size=page_size, aot=False)
     params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
     with counters.capture("trace_calls", "plan_calls", "state_plan_calls") as cap:
         got = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
@@ -1024,3 +1025,105 @@ def test_a_plain_cores_bundle_is_refused_by_a_kernel_engine(cuda, tmp_path):
                             cores="plain", session=PlanSession.from_manifest(tmp_path))
     assert plain.memory_report.plan_source == "bundle"
     assert _serve(kernel, cfg) == _serve(plain, cfg)
+
+
+# ------------------------------------------------------- AOT decode programs
+
+
+def _logits_per_wave(eng, cfg, seed=7):
+    """Serve ``_serve``'s requests wave by wave; each wave's host logits."""
+    rng = np.random.default_rng(seed)
+    for n, m in zip((1, 5, 3, 4), (4, 6, 3, 5)):
+        eng.submit(rng.integers(0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=m)
+    out = []
+    while eng.unfinished_requests():
+        eng.step()
+        out.append(eng.last_logits.copy())
+    return out
+
+
+@pytest.mark.parametrize("page_size", [None, 65536])
+@pytest.mark.parametrize("full", [False, True])
+def test_a_program_saved_on_meta_replays_on_the_card(cuda, tmp_path, full, page_size):
+    """qwen3-0.6b (reduced fp32, and full width bf16 at 2 slots x 256),
+    symmetric and paged: the decode program packed on ``meta`` loads onto
+    the card (nothing traced), and its engine captures as many graphs,
+    with as many launches of each kernel, as the engine that traces its
+    step, and replays logits bit-equal to it, wave by wave."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.unified import PlanSession
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_config("qwen3-0.6b") if full else get_reduced("qwen3-0.6b")
+    n_slots, max_len = 2, 256
+    compile_and_publish(cfg, str(tmp_path), n_slots=n_slots, max_len=max_len,
+                        page_size=page_size)
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    with counters.capture("trace_calls", "plan_calls", "state_plan_calls") as cap:
+        got = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                              device=cuda, page_size=page_size,
+                              session=PlanSession.from_manifest(tmp_path))
+    rep = got.memory_report
+    assert rep.aot_executables, rep.aot_warning
+    assert cap.deltas() == {"trace_calls": 0, "plan_calls": 0, "state_plan_calls": 0}
+    want = InferenceEngine(cfg, params, n_slots=n_slots, max_len=max_len, device=cuda,
+                           page_size=page_size)
+    assert rep.capture_calls == want.memory_report.capture_calls > 0
+    assert {k: dict(g.launches) for k, g in got.state.graphs.items()} == \
+        {k: dict(g.launches) for k, g in want.state.graphs.items()}
+    a, b = _logits_per_wave(got, cfg), _logits_per_wave(want, cfg)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_a_pack_from_another_torch_version_is_refused_on_the_card(cuda, tmp_path):
+    """The pack's torch version is not this process's: refused whole with
+    one warning, the step traced once, the same tokens."""
+    import warnings
+
+    from repro_torch.core.artifact import BundleManifest, save_bundle
+    from repro_torch.core.unified import PlanSession
+    from repro_torch.launch.compile import compile_and_publish
+
+    cfg = get_reduced("qwen3-0.6b")
+    res = compile_and_publish(cfg, str(tmp_path), n_slots=2, max_len=64)
+    stale = dataclasses.replace(res.bundle, executables=dataclasses.replace(
+        res.bundle.executables, torch_version="0.0.0+stale"))
+    f = tmp_path / "stale.json"
+    save_bundle(stale, f)
+    params = DecoderModel(cfg, cuda).init(torch.Generator(cuda).manual_seed(0))
+    with counters.capture("trace_calls") as cap, \
+            warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        eng = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                              session=PlanSession.from_bundle(f))
+    rep = eng.memory_report
+    assert "compiled under torch 0.0.0+stale" in rep.aot_warning
+    assert [str(x.message) for x in w if x.category is RuntimeWarning] == [rep.aot_warning]
+    assert cap.delta("trace_calls") == 1 and rep.aot_executables == ()
+    fresh = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                            session=PlanSession.from_manifest(tmp_path))
+    assert fresh.memory_report.aot_executables
+    assert BundleManifest(tmp_path).buckets()
+    assert _serve(eng, cfg) == _serve(fresh, cfg)
+
+
+def test_residency_off_serves_the_resident_tokens_on_the_card(cuda):
+    """The pytree backend on the card: the model's step eagerly over
+    allocator-owned caches, nothing captured, the resident engine's
+    tokens, and the caches within 1e-6 of the resident engine's after the
+    run (reduced qwen3, fp32; bit for bit expected, as the captured step
+    against the eager one)."""
+    import torch.utils._pytree as pytree
+
+    cfg, params = _qwen(cuda)
+    on = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda)
+    off = InferenceEngine(cfg, params, n_slots=2, max_len=64, device=cuda,
+                          state_residency=False)
+    assert off.memory_report.capture_calls == 0 and off.state.graphs == {}
+    assert not off.memory_report.state_residency and off.activation_arena is None
+    assert _serve(off, cfg) == _serve(on, cfg)
+    for x, y in zip(pytree.tree_leaves(off.caches), pytree.tree_leaves(on.caches),
+                    strict=True):
+        torch.testing.assert_close(x, y, atol=1e-6, rtol=0)

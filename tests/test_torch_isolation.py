@@ -105,7 +105,8 @@ def test_the_moe_modules_are_checked(path):
     ["src/repro_torch/core/artifact.py", "src/repro_torch/core/unified.py",
      "src/repro_torch/launch/compile.py", "src/repro_torch/launch/serve.py",
      "src/repro_torch/analysis/bundle_lint.py", "src/repro_torch/analysis/lint.py",
-     "src/repro_torch/runtime/engine.py"],
+     "src/repro_torch/runtime/engine.py", "src/repro_torch/runtime/aot.py",
+     "src/repro_torch/runtime/residency.py"],
 )
 def test_the_plan_bundle_modules_are_checked(path):
     assert path in SOURCES
