@@ -34,8 +34,13 @@ of 8 handed to a host-loop engine) must fail while the bundles that fit
 still serve. ``aot_key_ignored`` (``runtime/aot.py``) makes the AOT
 loader take a pack whatever torch version its key names: it is run
 through the ``serve_aot`` phase, whose planted stale pack must fail while
-the packs that fit still serve. A fault run through a phase other than
-kernels must fail exactly its ``must_fail`` cases.
+the packs that fit still serve. ``ssd_bwd_drops_state_chain``
+(``ssd_chunk_bwd.cu``) drops exp(total)·dns from the state gradient the
+backward hands the chunk before: it is run through the
+``kernels_ssd_bwd`` and ``train_mamba2`` phases, whose chained cases and
+3-chunk slow-decay gradient check must fail, and nothing else. A fault
+run through a phase other than kernels must fail exactly its
+``must_fail`` cases.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -76,6 +81,12 @@ RING_WRAPPED = ("ring_wrapped_T8_W8", "ring_wrapped_T8_W13", "ring_wrapped_T64_W
 # the paged Mamba2 steps (chip_smoke.py's STATE_PUT_CASES)
 STATE_PUT = tuple(f"state_put_{arch}_P{page}_shuffled"
                   for arch in ("mamba2-2.7b", "zamba2-7b") for page in (16384, 65536))
+# the backward's chained cases: a chunk whose upstream state gradient is
+# not zero (chip_smoke.py's kernels_ssd_bwd), and the 3-chunk fp32 gradient
+# check at the slow decay (train_mamba2)
+SSD_BWD_CHAIN = tuple(f"chain_{arch}_{part}" for arch in ("mamba2", "zamba2")
+                      for part in ("chunk2", "chunk1", "autograd")) + (
+    "train_mamba2_grads_fp32_slow",)
 SSD, FD = "kernels/csrc/ssd_chunk.cu", "kernels/csrc/flash_decode.cu"
 FAULTS = {
     # y without the incoming state's contribution
@@ -152,9 +163,18 @@ FAULTS = {
         ("    if pack.torch_version != torch.__version__:\n",
          "    if False:  # planted: the torch version is ignored\n"),
     ], ("stale",)),
+    # dstate without exp(total)·dns: the state gradient a chunk hands the
+    # one before it loses what came from the chunks after it. A chunk whose
+    # upstream state gradient is zero (the last one) is unchanged, and so
+    # is a chain whose decay leaves exp(total) below fp32 resolution
+    "ssd_bwd_drops_state_chain": ("ssd_chunk_bwd", "kernels/csrc/ssd_chunk_bwd.cu", [
+        ("store(dsb + p * N + n, fmaf(etot, d0, dsa[a][c]));",
+         "store(dsb + p * N + n, dsa[a][c] + 0.f * etot * d0);"),
+    ], SSD_BWD_CHAIN),
 }
 # the phases other than kernels that faults are run through
-PHASE_OF = {"serve_bundle": "serve_bundle", "serve_aot": "serve_aot"}
+PHASE_OF = {"serve_bundle": "serve_bundle", "serve_aot": "serve_aot",
+            "ssd_chunk_bwd": "kernels_ssd_bwd,train_mamba2"}
 
 
 def label(row: dict) -> str:
@@ -244,7 +264,7 @@ def main() -> None:
             if case.split("/")[0] in must_fail:
                 problems.append(f"{name} passed {case}")
         if FAULTS[name][0] in PHASE_OF:
-            extra = sorted(set(row["failed_cases"]) - set(must_fail))
+            extra = sorted({c.split("/")[0] for c in row["failed_cases"]} - set(must_fail))
             if extra:
                 problems.append(f"{name} failed {extra} beside its {list(must_fail)}")
     print(json.dumps({"faults": {n: {"failed": r["failed"], "of": r["cases"]}

@@ -7,8 +7,9 @@ NVIDIA Hopper card.
 Phases, each printing JSON lines (any failed check exits non-zero):
 
 1. device    — the card's name and power limit (nvidia-smi), capability 9.0;
-2. build     — compile every kernel from ``kernels/csrc``, one ``nvcc`` per
-               source, all started together;
+2. build     — compile every kernel from ``kernels/csrc`` (``flash_decode``,
+               ``ssd_chunk``, ``ssd_chunk_bwd``), one ``nvcc`` per source,
+               all started together;
 3. kernels   — hold each kernel against its plain PyTorch version computed
                in fp32 on the same inputs, and time the kernel, the plain
                version and (where one exists) one PyTorch library call with
@@ -151,9 +152,10 @@ Phases, each printing JSON lines (any failed check exits non-zero):
 20. prefill_zamba2 — full-width zamba2-7b prefills 2048 tokens through
                ``ArenaExecutor`` from its certified plan, equal to eager:
                ssd_chunk launched 8 x 81 = 648 times (B/C from 2 groups);
-21. parity_internvl2 — internvl2-1b at full width and depth (24 layers,
-               flash_decode at (64, 7)), fp32, 2 slots, a 300-token prompt
-               and two short ones, served as ``parity`` serves qwen3;
+21. parity_internvl2 — internvl2-1b at full width, its depth cut to 4
+               of 24 layers (for the run's time limit; flash_decode at
+               (64, 7)), fp32, 2 slots, a 300-token prompt and two short
+               ones, served as ``parity`` serves qwen3;
 22. serve_internvl2 — ``serve.run`` on full-width internvl2-1b: 24
                flash_decode launches per replay, the state exactly
                201,326,592 B; 8 steady waves timed and 8 profiled;
@@ -263,7 +265,43 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                memory ``kernels/smem_plan.py`` plans for one CTA beside what
                the kernel requests at launch (its exported ``*_smem_bytes``
                query) and the device's opt-in limit: the plan fits, and plans
-               no more than the kernel requests.
+               no more than the kernel requests;
+32. kernels_ssd_bwd — ``ssd_chunk_bwd`` (the backward of ``ssd_chunk``,
+               ``csrc/ssd_chunk_bwd.cu``) against its plain version in
+               float64 with random upstream gradients: single chunks (the
+               CPU cases in every dtype pair; mamba2-2.7b's and zamba2-7b's
+               prefill chunks in fp32 and bf16) and chains of 2 chunks at
+               the slow decay whose second chunk hands the first its state
+               gradient; the autograd of ``repro_torch::ssd_chunk`` over the
+               chain against autograd of the plain chunk; the kernel timed
+               at both prefill shapes beside its bound and the plain
+               version (``chip_faults.py``'s ``ssd_bwd_drops_state_chain``
+               must fail the chained cases and nothing else);
+33. train     — ``launch/train.run_training`` on full-width qwen3-0.6b
+               (seq_len 512, batch 4, 8 AdamW steps), in a fresh process
+               under ``torch.use_deterministic_algorithms`` (it launches
+               no kernel of the port): while the kernels build, 4 steps
+               that save a checkpoint (restored bitwise) and a resume to
+               step 8; once the build is done, the uninterrupted 8 steps,
+               timed: losses finite and falling, the resumed ones within
+               1e-4 of them, grad_norm and lr per step, steps/s,
+               tokens/s, the allocator's peak beside params + grads +
+               moments;
+34. train_mamba2 — full-width mamba2-2.7b (bf16, seq_len 512 = 2 chunks,
+               batch 2) trained 4 steps through ``ssd_chunk`` and
+               ``ssd_chunk_bwd``: 128 launches of each a step, read from
+               the wrappers' counts; the gradients against the plain
+               cores (fp32 with the depth cut to 8 layers, at the random
+               init's decay and at the slow one over 3 chunks; then the
+               bf16 model itself); the peak beside the reckoning; the same
+               step with ``remat=True`` (the same loss and gradients, 256
+               forward launches);
+35. train_seamless — full-width seamless-m4t-medium (12 + 12 layers,
+               bf16) trained 2 steps by ``run_training`` (seq_len 512,
+               zero frames at 128, batch 2): losses finite, the decoder's
+               parameters updated (zero frames give the encoder and the
+               cross-attention no gradient), every leaf a gradient with
+               random frames, the reference's parameter count.
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
@@ -278,12 +316,15 @@ read; a ring up to its window), its bound on this card, the device time
 measured, their ratio (``roofline_share``) and the model FLOPs
 utilisation (``mfu``).
 
-Every path runs at its full depth (the parity phases cut depth). The
+Every path runs at its full depth (the parity phases and train_mamba2's
+fp32 gradient check cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
 5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26 and
-27, 28, 29 and each of its bundle serves, 30; 7 and 24 for their own
-checks) and read just after it.
+27, 28, 29 and each of its bundle serves, 30, 34's 4 steps; 7, 24 and
+34's gradient checks for their own checks) and read just after it.
+Every phase's row carries ``t_s``, the run's seconds when it was
+printed.
 
 Kernel bounds come from ``launch/roofline.kernel_bound``. The last four
 lines are the run's total seconds, the card's name and power limit, the
@@ -297,6 +338,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -317,6 +359,13 @@ KERNELS = {
     "ssd_chunk": (
         "cuda",
         "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "src/repro/kernels/ssd_chunk.py:49",
+    ),
+    # the backward of ssd_chunk (the reference differentiates its XLA scan;
+    # the port's forward is a kernel, so its gradient is one too)
+    "ssd_chunk_bwd": (
+        "cuda",
+        "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         "src/repro/kernels/ssd_chunk.py:49",
     ),
     # flash_decode reading K/V through a page table (the template flag
@@ -366,6 +415,10 @@ def fail_case(label: str, msg: str) -> None:
 
 
 def emit(obj: dict) -> None:
+    """Print one JSON row; a phase's row carries the run's seconds so far
+    (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -928,6 +981,12 @@ SMEM_CASES = (
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
+    # the backward at mamba2-2.7b's (train_mamba2, bf16; the fp32 cases of
+    # kernels_ssd_bwd) and zamba2-7b's shapes
+    ("ssd_chunk_bwd", {"P": 64, "N": 128, "dtype": "bfloat16",
+                       "state_dtype": "bfloat16"}),
+    ("ssd_chunk_bwd", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
+    ("ssd_chunk_bwd", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
 )
 
 
@@ -948,11 +1007,16 @@ def phase_smem() -> None:
             kp = sp.plan_flash_decode_smem(**shape)
             requested = fd.smem_request_bytes(shape["G"], shape["D"],
                                               getattr(torch, shape["dtype"]))
-        else:
+        elif kernel == "ssd_chunk":
             kp = sp.plan_ssd_chunk_smem(**shape)
             requested = sc.smem_request_bytes(shape["P"], shape["N"],
                                               getattr(torch, shape["dtype"]),
                                               getattr(torch, shape["state_dtype"]))
+        else:
+            kp = sp.plan_ssd_chunk_bwd_smem(**shape)
+            requested = sc.bwd_smem_request_bytes(shape["P"], shape["N"],
+                                                  getattr(torch, shape["dtype"]),
+                                                  getattr(torch, shape["state_dtype"]))
         planned = kp.plan.total_size
         row = {"phase": "smem", "kernel": kernel, **shape, "planned_bytes": planned,
                "requested_bytes": requested, "naive_bytes": kp.plan.naive_size,
@@ -2124,13 +2188,14 @@ def phase_parity_zamba2() -> None:
 
 
 def phase_parity_internvl2() -> None:
-    """internvl2-1b at full width and depth (24 layers, 14/2 heads of 64:
-    flash_decode at (64, 7)), fp32, 2 slots: a 300-token prompt and two
-    short ones, served as ``parity`` serves qwen3 (decode has no image
-    prefix, as in the reference engine)."""
+    """internvl2-1b at full width (14/2 heads of 64: flash_decode at (64,
+    7)), its depth cut to 4 of its 24 layers (to keep the whole run in its
+    time limit; serve_internvl2 runs all 24), fp32, 2 slots: a 300-token
+    prompt and two short ones, served as ``parity`` serves qwen3 (decode
+    has no image prefix, as in the reference engine)."""
     from repro_torch.configs.base import get_config
 
-    cfg = dataclasses.replace(get_config(INTERNVL2), dtype="float32")
+    cfg = dataclasses.replace(get_config(INTERNVL2), n_periods=4, dtype="float32")
     run_parity("parity_internvl2", cfg, [(300, 16), (37, 12), (5, 10)], n_slots=2,
                max_len=512)
 
@@ -3671,16 +3736,42 @@ PAGED_FAMILIES = {
 }
 
 
-def in_fresh_process(phase: str) -> dict:
-    """Run ``phase`` in a child process of this script, so that no
-    torch.profiler session of this process precedes its captures (a graph
-    captured after one runs its copy nodes on the copy engine), and return
-    its row. Its ``plan`` rows count as this run's."""
-    out = subprocess.run(
+def start_fresh_process(phase: str, env: dict | None = None) -> subprocess.Popen:
+    """Start ``phase`` in a child process of this script (with ``env``
+    added to its environment): no torch.profiler session of this process
+    precedes its captures (a graph captured after one runs its copy nodes
+    on the copy engine), and the child sets what must be set before CUDA
+    starts. ``finish_fresh_process`` collects it, and closes its standard
+    input when it does (``wait_for_parent``); the run kills it if it ends
+    first."""
+    import atexit
+
+    proc = subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--phases", phase, "--child"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env={**os.environ, **(env or {})})
+
+    def stop() -> None:
+        proc.kill()
+        proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def finish_fresh_process(phase: str, proc: subprocess.Popen, note: dict | None = None
+                         ) -> dict:
+    """Wait for a child of ``start_fresh_process`` and return its row. Its
+    ``plan`` rows count as this run's. ``note`` is written to its standard
+    input, which is then closed: what the child learns from
+    ``wait_for_parent``."""
+    try:
+        stdout, stderr = proc.communicate(json.dumps(note or {}), timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
     row = None
-    for line in out.stdout.splitlines():
+    for line in stdout.splitlines():
         if not line.startswith("{"):
             continue
         r = json.loads(line)
@@ -3689,11 +3780,21 @@ def in_fresh_process(phase: str) -> dict:
             CERTIFIED.append(r["plan"])
         elif r.get("phase") == phase:
             row = r
-    if out.returncode != 0 or row is None:
-        fail(f"{phase}: its process exited {out.returncode}\n"
-             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    if proc.returncode != 0 or row is None:
+        fail(f"{phase}: its process exited {proc.returncode}\n"
+             f"{stdout[-3000:]}\n{stderr[-3000:]}")
     emit(row)
     return row
+
+
+def wait_for_parent() -> dict:
+    """In a child of ``start_fresh_process``: block until the parent
+    collects it (``finish_fresh_process``), and return the parent's note."""
+    return json.loads(sys.stdin.read() or "{}")
+
+
+def in_fresh_process(phase: str) -> dict:
+    return finish_fresh_process(phase, start_fresh_process(phase))
 
 
 def phase_serve_paged_family(phase: str) -> dict:
@@ -3877,6 +3978,531 @@ def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
     return {**served["plain"], "aot": served["aot"]}
 
 
+# ---------------------------------------------------------------- training
+
+# ssd_chunk_bwd is held to its plain version computed in float64 on the
+# same inputs by ``kernels/ref.ssd_chunk_bwd_tolerance`` (fp32 summation
+# order, one rounding of a bf16 output; ddA's scale is what it sums). The
+# fp32 plain version itself is 1.5-2.2x that bar off float64 on ddA at
+# mamba2's shape with the slow decay, measured against |ddA|, and 0.04x
+# against ddA's scale.
+
+# single chunks of SSD_CASES: the last chunk of a sequence, whose state
+# nothing reads (its upstream state gradient is zero, as autograd passes it)
+SSD_BWD_CASES = ("kernels_2", "ragged_L33", "L1", "slow_L200_P8", "two_groups_L96",
+                 "N13_L130", "ragged_L65_P32_N40")
+# the full-width prefill chunks: (arch, label)
+SSD_BWD_ARCHS = (("mamba2-2.7b", "mamba2"), (ZAMBA2, "zamba2"))
+SSD_BWD_TIMING: dict = {}
+# train_mamba2's gradients, kernel cores against plain cores, per leaf: max
+# |a - b| over max |b|. fp32 (depth cut to 8 layers): the two backwards sum
+# in other orders, and A_log's gradient sums ddA, which cancels (see
+# ssd_chunk_bwd_scale), over the positions: 1.5e-4 between the plain
+# backward and autograd on the CPU (2 layers), where dropping the state
+# chain's decayed term moves a leaf by 0.22 at the slow decay. The fp32
+# cases are the gate. bf16 (the whole 64-layer model): the cores' outputs
+# differ by bf16 roundings (2**-8 of a value) that 64 layers carry into
+# every leaf, 0.058 of a leaf's max on an H100; its bar was set above that
+# measurement, and the planted state-chain fault passes it, so it detects
+# only gross faults (a missing or garbage gradient)
+GRAD_BAR = {"float32": 1e-2, "bfloat16": 0.1}
+# remat: the same arithmetic run again
+REMAT_BAR = 1e-6
+
+
+def _ssd_bwd_row(label, got, want, control, inputs) -> dict:
+    from repro_torch.kernels.ref import ssd_chunk_bwd_tolerance
+
+    x, state = inputs[0], inputs[5]
+    L = x.shape[1]
+    row = {"phase": "kernels_ssd_bwd", "kernel": "ssd_chunk_bwd", "case": label,
+           "shape": list(x.shape) + [inputs[3].shape[-1]],
+           "dtype": str(x.dtype).removeprefix("torch."),
+           "state_dtype": str(state.dtype).removeprefix("torch.")}
+    ok, worst = True, 0.0
+    for name, g, w, c in zip(("dx", "ddt", "ddA", "dB", "dC", "dstate"), got, want,
+                             control):
+        err = (g.double() - w).abs()
+        bar_ratio = ssd_chunk_bwd_tolerance(name, g, w, L)
+        row[name] = {"max_abs_err": float(err.max()),
+                     "control_max_abs_err": float((c.double() - w).abs().max()),
+                     "control_err_over_bar": ssd_chunk_bwd_tolerance(name, c, w, L),
+                     "max_abs_out": float(w.abs().max()), "err_over_bar": bar_ratio}
+        ok = ok and bar_ratio <= 1.0
+        worst = max(worst, float(err.max()))
+    row["ok"] = ok
+    row["max_abs_err"] = worst
+    emit(row)
+    if not ok:
+        fail_case(f"ssd_chunk_bwd/{label}/{row['dtype']}/{row['state_dtype']}",
+                  f"ssd_chunk_bwd {label}: error over its bar ({row})")
+    return row
+
+
+def phase_kernels_ssd_bwd(card_name: str) -> dict:
+    """ssd_chunk_bwd against ssd_chunk_bwd_ref computed in float64 on the
+    same inputs (the plain version in the working dtypes as the control),
+    with random upstream gradients: single chunks (SSD_BWD_CASES in every dtype pair, and the
+    prefill chunks of mamba2-2.7b, one group at head stride 0, and
+    zamba2-7b, two groups repeated over their heads, in fp32 and bf16) and,
+    at those two shapes, chains of 2 chunks at the slow decay with a random
+    gradient of the last state: the second chunk's dstate is the first
+    chunk's upstream state gradient (the chained cases). Then the autograd
+    of repro_torch::ssd_chunk over the chain (fp32) against torch.autograd
+    of ssd_chunk_ref in float64, and the kernel timed beside its bound and
+    the plain version at both prefill shapes."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.ref import ssd_chunk_bwd_ref, ssd_chunk_bwd_tolerance, \
+        ssd_chunk_ref
+    from repro_torch.launch.roofline import kernel_bound
+    from repro_torch.models.ssm import _heads, ssm_dims
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def randn_like(t):
+        return (torch.randn(t.shape, generator=gen, device=DEVICE) * 0.5).to(t.dtype)
+
+    def check(label, inputs, dy, dns):
+        got = sc.ssd_chunk_bwd(*inputs, dy, dns)
+        want = ssd_chunk_bwd_ref(*(t.double() for t in (*inputs, dy, dns)))
+        control = ssd_chunk_bwd_ref(*inputs, dy, dns)
+        torch.cuda.synchronize()
+        return got, _ssd_bwd_row(label, got, want, control, inputs)
+
+    for x_dtype, state_dtype in SSD_DTYPES:
+        for label in SSD_BWD_CASES:
+            shape, decay, groups = SSD_CASES[label]
+            inputs = ssd_inputs(gen, *shape, decay, groups, x_dtype, state_dtype)
+            check(label, inputs, randn_like(inputs[0]), torch.zeros_like(inputs[5]))
+
+    record = {}
+    for arch, name in SSD_BWD_ARCHS:
+        cfg = get_config(arch)
+        _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                           cfg.ssm_groups, cfg.ssm_state)
+        P, N, G, L = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups, 256
+        for dt_name in ("float32", "bfloat16"):
+            inputs = ssd_inputs(gen, 1, L, H, P, N, "original", G, dt_name, dt_name)
+            dy = randn_like(inputs[0])
+            _, row = check(f"{name}_prefill", inputs, dy, torch.zeros_like(inputs[5]))
+            if dt_name == "bfloat16":
+                record[name] = (row, inputs, dy)
+            # the chain: two chunks of one (B, 2L) draw, sliced as the model
+            # slices its conv output
+            x, dt, dA, Bm, Cm, state0 = ssd_inputs(gen, 1, 2 * L, H, P, N, "slow", G,
+                                                   dt_name, dt_name)
+            c1 = [t[:, :L] for t in (x, dt, dA, Bm, Cm)]
+            c2 = [t[:, L:] for t in (x, dt, dA, Bm, Cm)]
+            _, state1 = sc.ssd_chunk(*c1, state0)
+            dy1, dy2 = randn_like(c1[0]), randn_like(c2[0])
+            got2, _ = check(f"chain_{name}_chunk2", (*c2, state1), dy2,
+                            randn_like(state0))
+            check(f"chain_{name}_chunk1", (*c1, state0), dy1, got2[5])
+
+        # autograd of the op over the chain against autograd of the plain
+        # version, fp32; B and C drawn per group and broadcast as the model
+        # does, so their gradients sum over the heads
+        x, dt, dA, Bm, Cm, state0 = (t.detach() for t in ssd_inputs(
+            gen, 1, 2 * L, H, P, N, "slow", G, "float32", "float32"))
+        leaves = [t.clone().requires_grad_() for t in (x, dt, dA, state0)]
+        groups = [t[:, :, ::H // G].clone().requires_grad_() for t in (Bm, Cm)]
+        dys = [randn_like(x[:, :L]), randn_like(x[:, L:])]
+        dns = randn_like(state0)
+
+        def loss(core, dtype=torch.float32):
+            xx, ddt, ddA, st = (t.to(dtype) for t in leaves)
+            Bh, Ch = (_heads(g.to(dtype), H) for g in groups)
+            total, s = 0.0, st
+            for c in range(2):
+                sl = slice(c * L, (c + 1) * L)
+                y, s = core(xx[:, sl], ddt[:, sl], ddA[:, sl], Bh[:, sl], Ch[:, sl], s)
+                total = total + (y * dys[c].to(dtype)).sum()
+            return total + (s * dns.to(dtype)).sum()
+
+        wrt = [*leaves, *groups]
+        got = torch.autograd.grad(loss(sc.ssd_chunk), wrt)
+        want = torch.autograd.grad(loss(ssd_chunk_ref, torch.float64), wrt)
+        torch.cuda.synchronize()
+        row = {"phase": "kernels_ssd_bwd", "kernel": "ssd_chunk_bwd",
+               "case": f"chain_{name}_autograd", "dtype": "float32",
+               "state_dtype": "float32", "groups": G}
+        ok = True
+        for leaf, g, w in zip(("x", "dt", "dA", "state", "B", "C"), got, want):
+            ratio = ssd_chunk_bwd_tolerance(leaf, g, w, L)
+            row[leaf] = {"max_abs_err": float((g.double() - w).abs().max()),
+                         "max_abs_out": float(w.abs().max()), "err_over_bar": ratio}
+            ok = ok and ratio <= 1.0
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            fail_case(f"ssd_chunk_bwd/{row['case']}/float32/float32",
+                      f"ssd_chunk_bwd: autograd over the chain off its bar ({row})")
+
+    # timing at the prefill chunks, bf16, as the training path calls it
+    for arch, name in SSD_BWD_ARCHS:
+        row, inputs, dy = record[name]
+        dns = randn_like(inputs[5])
+        B, L, H, P = inputs[0].shape
+        N = inputs[3].shape[-1]
+        G = get_config(arch).ssm_groups
+        before = sc.BWD_LAUNCHES
+        ms = cuda_time_ms(lambda: sc.ssd_chunk_bwd(*inputs, dy, dns))
+        plain_ms = cuda_time_ms(lambda: ssd_chunk_bwd_ref(*inputs, dy, dns))
+        sc.BWD_LAUNCHES = before  # timing launches are not the main path's
+        # B and C read as the call holds them: one group at head stride 0 is
+        # one group's bytes, repeat_interleave makes a copy per head
+        shape = {"B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "bfloat16",
+                 "state_dtype": "bfloat16"}
+        bound = kernel_bound("ssd_chunk_bwd", {**shape, "groups": 1 if G == 1 else H},
+                             card_name=card_name)
+        timing = {"phase": "kernels_ssd_bwd", "kernel": "ssd_chunk_bwd",
+                  "timing": name, "arch": arch, "shape": [B, L, H, P, N],
+                  "groups": G, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                  "library": "none: no one PyTorch call computes it",
+                  "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+                  "bytes": bound.min_bytes, "flops": bound.flops,
+                  "bytes_ms": bound.bytes_s * 1e3,
+                  "bf16_tensor_core_ms": bound.ops_s * 1e3,
+                  "fp32_cuda_core_ms": kernel_bound("ssd_chunk_bwd", {
+                      "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "float32"},
+                      card_name=card_name).ops_s * 1e3,
+                  "max_abs_err": row["max_abs_err"]}
+        if G > 1:
+            per_group = kernel_bound("ssd_chunk_bwd", {**shape, "groups": G},
+                                     card_name=card_name)
+            timing["bound_ms_if_b_c_read_per_group"] = per_group.bound_s * 1e3
+            timing["bytes_if_b_c_read_per_group"] = per_group.min_bytes
+        emit(timing)
+        SSD_BWD_TIMING[name] = timing
+    return SSD_BWD_TIMING["mamba2"]
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def phase_train(card_name: str) -> dict:
+    """Full-width qwen3-0.6b trained by ``launch/train.run_training``
+    (seq_len 512, batch 4, 8 AdamW steps, weights from
+    ``torch.Generator().manual_seed(0)``), in a fresh process of this
+    script under ``torch.use_deterministic_algorithms`` (cuBLAS's
+    workspace fixed before CUDA starts): the losses finite and the last
+    below the first, grad_norm and lr per step, steps/s and tokens/s, the
+    allocator's peak beside params + grads + moments; and 4 steps that
+    save a checkpoint at step 4 (the restored tensors bitwise equal to the
+    saved ones) and a run resumed from it to step 8, its losses within the
+    reference's 1e-4 of the uninterrupted run's. The resume runs first,
+    beside the parent's kernel build; the uninterrupted, timed run waits
+    until the parent has built (``wait_for_parent``), so no nvcc shares
+    the host with its steps."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.roofline import count_params
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.api import for_config
+    from repro_torch.tree_util import leaves
+
+    torch.use_deterministic_algorithms(True)
+    arch, kw = "qwen3-0.6b", dict(reduced=False, seq_len=512, batch=4, log_every=1)
+    cfg = get_config(arch)
+    n_params = sum(t.numel() for t in leaves(for_config(cfg, "meta").init(None)))
+    path = ROOT / "build" / "train_ckpt" / "qwen3"
+    saved = {}
+    first4 = run_training(arch, steps=4, ckpt_path=str(path), save_every=4, out=saved, **kw)
+    like = (saved["params"], saved["opt_state"])
+    t0 = time.perf_counter()
+    restored, meta = ckpt.restore(str(path), like)
+    restore_s = time.perf_counter() - t0
+    bitwise = all(_bits_equal(a, b) for a, b in zip(leaves(restored), leaves(like)))
+    ckpt_bytes = (path.parent / "qwen3.npz").stat().st_size
+    del saved, like, restored
+    resumed = run_training(arch, steps=8, ckpt_path=str(path), **kw)
+    shutil.rmtree(path.parent, ignore_errors=True)
+    note = wait_for_parent()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = run_training(arch, steps=8, **kw)
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = [h["wall_s"] for h in full]
+    steady = statistics.median(walls[1:])
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(full[4:], resumed)]
+    losses = [h["loss"] for h in full]
+    reckoned = n_params * (2 + 2 + 8)
+    checks = {
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "restored_bitwise": bitwise,
+        "meta_step_4": meta == {"step": 4},
+        "resumed_steps": len(resumed) == 4,
+        "resumed_within_1e-4": bool(diffs) and max(diffs) < 1e-4,
+    }
+    row = {"phase": "train", "arch": arch, "seq_len": 512, "batch": 4, "steps": 8,
+           "card": card_name, "deterministic": True,
+           "loss": losses, "ce": [h["ce"] for h in full],
+           "grad_norm": [h["grad_norm"] for h in full], "lr": [h["lr"] for h in full],
+           "step_wall_s": walls, "steps_per_s": 1.0 / steady,
+           # the kernel build (when this run has one) ended before the
+           # timed steps began; the bucket compiles (no card) still running
+           "timed_after_build": note.get("built_before", False),
+           "background_compiles_at_timing": note.get("background_compiles"),
+           "tokens_per_s": 4 * 512 / steady,
+           "peak_allocated_bytes": peak, "params": n_params,
+           "count_params": count_params(cfg),
+           "reckoned_params_grads_moments_bytes": reckoned,
+           "peak_over_reckoned": peak / reckoned,
+           "checkpoint_bytes": ckpt_bytes, "restore_s": restore_s,
+           "first_four_loss": [h["loss"] for h in first4],
+           "resumed_loss": [h["loss"] for h in resumed],
+           "resume_max_abs_diff": max(diffs) if diffs else None,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        fail(f"train: checks failed: {[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _grad_gap(got, want) -> dict:
+    """Per leaf of two grads trees: max |got - want| over max |want|."""
+    from repro_torch.core.unified import iter_leaves
+
+    gaps = {}
+    for (path, g), (_, w) in zip(iter_leaves(got), iter_leaves(want)):
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        gaps[path] = err / scale if scale > 0 else err
+    return gaps
+
+
+def phase_train_mamba2(card_name: str) -> dict:
+    """Full-width mamba2-2.7b (64 layers, bf16) trained on the card through
+    ``ssd_chunk`` and its hand-written backward: seq_len 512 (2 chunks of
+    256, so the state gradient crosses a chunk), batch 2. First the
+    gradients of one step on the kernel cores against the same model on
+    ``cores="plain"`` (same params and batch), per leaf (``GRAD_BAR``): in
+    fp32 with the depth cut to 8 layers, at the random init's decay and,
+    for a gradient that crosses two chunk boundaries through a decay that
+    keeps it, at the slow decay over 3 chunks (768 tokens, batch 1); then
+    the trained model itself, bf16 and 64 layers. Then 4 AdamW steps with
+    the launches of both kernels
+    read per step from the wrappers' counts (64 layers x 2 chunks = 128
+    forward and 128 backward), losses finite, the allocator's peak beside
+    params + grads + moments; then the same step with ``remat=True`` gives
+    the remat-off loss and gradients (each period's forward run again in
+    the backward: 256 forward launches)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_batch, make_loss_fn, make_train_step, \
+        value_and_grad
+    from repro_torch.models.api import DecoderModel
+    from repro_torch.optim import adamw
+    from repro_torch.tree_util import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2-2.7b")
+    kernel, plain = DecoderModel(cfg, DEVICE), DecoderModel(cfg, DEVICE, cores="plain")
+    params = kernel.init(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(params))
+
+    def batch_of(seq_len, batch, step=0):
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                        global_batch=batch))
+        return make_batch(cfg, pipe.batch_at(step), DEVICE)
+
+    # ---- the gradients, kernel cores against plain cores: the fp32 model
+    # cut to 8 layers at the random init's decay (2 chunks) and at the slow
+    # one (3 chunks: the state gradient crosses two chunk boundaries and
+    # keeps its size), then the trained model itself (bf16, 64 layers)
+    grad_rows = {}
+    cut = dataclasses.replace(cfg, n_periods=8, dtype="float32")
+    for label, seq_len, batch, dtype in (("grads_fp32", 512, 2, "float32"),
+                                         ("grads_fp32_slow", 768, 1, "float32"),
+                                         ("grads_bf16", 512, 2, "bfloat16")):
+        if dtype == "float32":
+            cores = [DecoderModel(cut, DEVICE, cores=c) for c in ("kernel", "plain")]
+            p = cores[0].init(torch.Generator(device=DEVICE).manual_seed(1))
+            if label.endswith("_slow"):
+                slow_decay(p)
+        else:
+            cores, p = [kernel, plain], params
+        b = batch_of(seq_len, batch)
+        reset_launches()
+        loss_k, _, g_k = value_and_grad(make_loss_fn(cores[0], remat=False), p, b)
+        counts = read_launches()
+        loss_p, _, g_p = value_and_grad(make_loss_fn(cores[1], remat=False), p, b)
+        torch.cuda.synchronize()
+        gaps = _grad_gap(g_k, g_p)
+        del g_k, g_p
+        worst = max(gaps, key=gaps.get)
+        want_launches = cores[0].cfg.n_layers * (seq_len // 256)
+        bar = GRAD_BAR[dtype]
+        row = {"phase": "train_mamba2", "kernel": "ssd_chunk_bwd",
+               "case": f"train_mamba2_{label}", "dtype": dtype,
+               "layers": cores[0].cfg.n_layers, "seq_len": seq_len, "batch": batch,
+               "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+               "launches": {"ssd_chunk": counts["ssd_chunk"],
+                            "ssd_chunk_bwd": counts["ssd_chunk_bwd"]},
+               "worst_leaf": worst, "worst_gap": gaps[worst], "bar": bar,
+               "gaps": gaps}
+        row["ok"] = (gaps[worst] <= bar
+                     and counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == want_launches
+                     and math.isfinite(row["loss_kernel"]))
+        emit(row)
+        grad_rows[label] = row
+        if not row["ok"]:
+            fail_case(f"train_mamba2_{label}/{dtype}", f"train_mamba2 {label}: {row}")
+        del p
+        torch.cuda.empty_cache()
+
+    # ---- 4 AdamW steps
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=4)
+    opt_state = adamw.init_state(params)
+    step_fn = make_train_step(kernel, opt_cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = []
+    reset_launches()
+    for step in range(4):
+        b = batch_of(512, 2, step)
+        before = read_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        steps.append({**metrics, "wall_s": wall,
+                      "ssd_chunk": after["ssd_chunk"] - before["ssd_chunk"],
+                      "ssd_chunk_bwd": after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"]})
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # ---- remat: the same loss and gradients
+    b = batch_of(512, 2, 4)
+    loss_off, _, g_off = value_and_grad(make_loss_fn(kernel, remat=False), params, b)
+    before = read_launches()
+    loss_on, _, g_on = value_and_grad(make_loss_fn(kernel, remat=True), params, b)
+    after = read_launches()
+    remat_gap = max(_grad_gap(g_on, g_off).values())
+    del g_on, g_off
+    walls = [s["wall_s"] for s in steps]
+    steady = statistics.median(walls[1:])
+    reckoned = n_params * (2 + 2 + 8)
+    checks = {
+        "losses_finite": all(math.isfinite(s["loss"]) for s in steps),
+        "launches_per_step": all(s["ssd_chunk"] == 128 and s["ssd_chunk_bwd"] == 128
+                                 for s in steps),
+        "remat_loss_equal": float(loss_on) == float(loss_off),
+        "remat_grads": remat_gap <= REMAT_BAR,
+        "remat_launches": (after["ssd_chunk"] - before["ssd_chunk"] == 256
+                           and after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"] == 128),
+    }
+    row = {"phase": "train_mamba2", "arch": "mamba2-2.7b", "seq_len": 512, "batch": 2,
+           "card": card_name, "steps": steps, "step_wall_s": walls,
+           "steps_per_s": 1.0 / steady, "tokens_per_s": 2 * 512 / steady,
+           "launches": {"ssd_chunk": launches["ssd_chunk"],
+                        "ssd_chunk_bwd": launches["ssd_chunk_bwd"]},
+           "peak_allocated_bytes": peak, "allocated_before_steps": base,
+           "params": n_params, "reckoned_params_grads_moments_bytes": reckoned,
+           "peak_over_reckoned": peak / reckoned,
+           "remat": {"loss": float(loss_on), "loss_off": float(loss_off),
+                     "max_grad_gap": remat_gap,
+                     "ssd_chunk": after["ssd_chunk"] - before["ssd_chunk"],
+                     "ssd_chunk_bwd": after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"]},
+           "grad_checks": {k: v["ok"] for k, v in grad_rows.items()},
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        fail(f"train_mamba2: checks failed: {[k for k, v in checks.items() if not v]}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_seamless(card_name: str) -> dict:
+    """Full-width seamless-m4t-medium (12 encoder + 12 decoder layers,
+    bf16) trained 2 steps by ``run_training``: seq_len 512 with zero
+    frames at 512 // 4 = 128, batch 2. Losses finite, every parameter
+    leaf updated but those of the encoder and the cross-attention, which
+    zero frames leave without a gradient; with seeded random frames every
+    leaf gets one; the parameter count against the reference's
+    (``count_params``: 715,339,776; the tree adds its 63,488 norm
+    scales)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.roofline import count_params
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.api import for_config
+    from repro_torch.tree_util import leaves
+
+    from repro_torch.core.unified import iter_leaves
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_batch, make_loss_fn, value_and_grad
+
+    arch = "seamless-m4t-medium"
+    cfg = get_config(arch)
+    first = for_config(cfg, DEVICE).init(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for t in leaves(first))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {}
+    hist = run_training(arch, steps=2, reduced=False, seq_len=512, batch=2,
+                        log_every=1, out=out)
+    peak = torch.cuda.max_memory_allocated() - base
+    # zero frames (the stub frontend's, as the reference feeds them) give
+    # the encoder and the cross-attention no gradient, and bf16 rounds
+    # their weight decay (lr·wd = 2e-5 of a value) away: those leaves may
+    # stay, every other one moves
+    still = [path for (path, a), b in zip(iter_leaves(first), leaves(out["params"]))
+             if torch.equal(a, b)]
+    del first
+    cut = ("['enc']", "['ln_enc']", "['dec']['xattn']", "['dec']['ln_x']")
+    # with seeded random frames every leaf gets a finite, nonzero gradient
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=2))
+    b = make_batch(cfg, pipe.batch_at(0), DEVICE)
+    b["frames"] = torch.randn(b["frames"].shape, device=DEVICE,
+                              generator=torch.Generator(device=DEVICE).manual_seed(0)
+                              ).to(b["frames"].dtype)
+    _, _, grads = value_and_grad(make_loss_fn(for_config(cfg, DEVICE), remat=False),
+                                 out["params"], b)
+    no_grad = [path for path, g in iter_leaves(grads)
+               if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    del grads
+    losses = [h["loss"] for h in hist]
+    checks = {"losses_finite": all(math.isfinite(x) for x in losses),
+              "params_updated": all(p.startswith(cut) for p in still),
+              "every_leaf_has_a_gradient_with_random_frames": no_grad == [],
+              "count_params": count_params(cfg) == 715_339_776}
+    row = {"phase": "train_seamless", "arch": arch, "seq_len": 512, "frames": 128,
+           "batch": 2, "card": card_name, "loss": losses,
+           "grad_norm": [h["grad_norm"] for h in hist], "lr": [h["lr"] for h in hist],
+           "step_wall_s": [h["wall_s"] for h in hist], "params": n_params,
+           "count_params": count_params(cfg),
+           "leaves": len(leaves(out["params"])), "leaves_unchanged": still,
+           "leaves_without_gradient_with_random_frames": no_grad,
+           "peak_allocated_bytes": peak,
+           "reckoned_params_grads_moments_bytes": n_params * 12,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        fail(f"train_seamless: checks failed: {[k for k, v in checks.items() if not v]}")
+    del out
+    torch.cuda.empty_cache()
+    return row
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
@@ -3884,10 +4510,13 @@ PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
           "prefill_internvl2", "parity_paged", "serve_paged", "serve_bundle",
           "serve_aot", "serve_pytree", "serve_paged_gemma3", "serve_paged_zamba2",
-          "smem")
+          "smem", "kernels_ssd_bwd", "train", "train_mamba2", "train_seamless")
 
 
 T0 = time.perf_counter()
+# phases that need no kernel of the port built (a child running only
+# them skips the build)
+NO_KERNEL_PHASES = {"train"}
 
 
 def main() -> None:
@@ -3914,9 +4543,24 @@ def main() -> None:
     smi, card_name = phase_device()
     if phases & set(BUCKET_PHASES):
         start_qwen3_compiles()
+    train = None
+    if "train" in phases and not args.child:
+        # qwen3's training launches no kernel of the port: its fresh
+        # process (cuBLAS's workspace fixed before CUDA starts, as
+        # torch.use_deterministic_algorithms asks) runs its checkpoint
+        # resume while the kernels build, which keeps the card idle, and
+        # its timed steps once the build is done
+        train = start_fresh_process("train", env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
     # every engine built below certifies its unified plan before it serves
     os.environ["REPRO_STARTUP_LINT"] = "1"
-    phase_build()
+    built = bool(phases - {"device", "build"} - NO_KERNEL_PHASES)
+    if built:
+        phase_build()
+    if train is not None:
+        running = sum(QWEN3_COMPILES[page].poll() is None
+                      for page in QWEN3_COMPILES if page != "root")
+        finish_fresh_process("train", train, {"built_before": built,
+                                              "background_compiles": running})
     timing = {}
     if "kernels" in phases:
         timing["flash_decode"] = phase_kernels(card_name)
@@ -3928,6 +4572,9 @@ def main() -> None:
               "failed_cases": FAILED_CASES})
         if FAILED_CASES:
             fail(f"{len(FAILED_CASES)} kernel case(s) over their bars: {FAILED_CASES}")
+    if "kernels_ssd_bwd" in phases:
+        timing["ssd_chunk_bwd"] = phase_kernels_ssd_bwd(card_name)
+        emit({"phase": "kernels_ssd_bwd", "failed_cases": FAILED_CASES})
     # kernel -> path -> its launches in that path's run
     launches: dict[str, dict[str, int]] = {name: {} for name in KERNELS}
     if "parity" in phases:
@@ -4028,6 +4675,16 @@ def main() -> None:
                 row["bundle"]["launches"]["flash_decode_paged"]
             launches["flash_decode_paged"][f"{arch} {phase} bundle aot"] = \
                 row["bundle"]["aot"]["launches"]["flash_decode_paged"]
+    if "train" in phases and args.child:
+        phase_train(card_name)
+    if "train_mamba2" in phases:
+        row = phase_train_mamba2(card_name)
+        for name in ("ssd_chunk", "ssd_chunk_bwd"):
+            launches[name]["mamba2-2.7b train_mamba2"] = row["launches"][name]
+    if "train_seamless" in phases:
+        phase_train_seamless(card_name)
+    if FAILED_CASES:
+        fail(f"{len(FAILED_CASES)} case(s) over their bars: {FAILED_CASES}")
     if "smem" in phases:
         phase_smem()
     if phases != set(PHASES):
@@ -4075,6 +4732,10 @@ def main() -> None:
                     "library_backend", "max_abs_err")}
         elif name == "ssd_chunk":
             row["zamba2_7b"] = {k: ZAMBA2_SSD_TIMING[k] for k in (
+                "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
+        elif name == "ssd_chunk_bwd":
+            row["zamba2_7b"] = {k: SSD_BWD_TIMING["zamba2"][k] for k in (
                 "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
         rows.append(row)

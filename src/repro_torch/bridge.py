@@ -7,8 +7,10 @@ leading ``n_periods`` axis, exactly as the port's own ``init_params`` /
 ``init_cache`` lay them out. ``bfloat16`` arrays (an ml_dtypes type that
 ``torch.from_numpy`` refuses) cross as a ``uint16`` view of the same bits.
 
-The port itself never imports the reference; the tests call these with
-arrays the reference produced.
+``opt_state_from_numpy`` brings the reference's AdamW state over, and
+``tree_to_numpy`` hands a port tree back as numpy arrays. The port
+itself never imports the reference; the tests call these with arrays
+the reference produced.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _convert(tree: Any, device) -> Any:
     return tensor_from_numpy(tree, device)
 
 
-def _check_stacked(cfg: ArchConfig, period: Any, what: str) -> None:
+def _check_stacked(n: int, period: Any, what: str) -> None:
     def leaves(t):
         if isinstance(t, dict):
             for v in t.values():
@@ -51,20 +53,52 @@ def _check_stacked(cfg: ArchConfig, period: Any, what: str) -> None:
             yield t
 
     for leaf in leaves(period):
-        if leaf.shape[0] != cfg.n_periods:
+        if leaf.shape[0] != n:
             raise ValueError(
-                f"{what}: period leaf of shape {tuple(leaf.shape)} is not "
-                f"stacked over n_periods={cfg.n_periods}"
+                f"{what}: leaf of shape {tuple(leaf.shape)} is not "
+                f"stacked over its {n} layers"
             )
 
 
+def _check_params(cfg: ArchConfig, tree: dict) -> None:
+    if cfg.family == "audio":  # enc-dec: layers stacked under enc and dec
+        _check_stacked(cfg.encoder_layers, tree["enc"], "params['enc']")
+        _check_stacked(cfg.n_layers, tree["dec"], "params['dec']")
+    else:
+        _check_stacked(cfg.n_periods, tree["period"], "params")
+
+
 def params_from_numpy(cfg: ArchConfig, tree: dict, device) -> dict:
-    """The reference's params (numpy leaves) as the port's params."""
-    _check_stacked(cfg, tree["period"], "params")
+    """The reference's params (numpy leaves) as the port's params, for
+    the decoder families and the enc-dec one."""
+    _check_params(cfg, tree)
     return _convert(tree, device)
+
+
+def opt_state_from_numpy(cfg: ArchConfig, state: dict, device) -> dict:
+    """The reference's AdamW state ``{"step", "m", "v"}`` (numpy leaves)
+    as the port's (``optim/adamw.py``)."""
+    return {"step": tensor_from_numpy(state["step"], device),
+            "m": params_from_numpy(cfg, state["m"], device),
+            "v": params_from_numpy(cfg, state["v"], device)}
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The reverse of ``_convert``: the same structure with numpy leaves
+    on the host; a bfloat16 leaf comes back as its raw bits (``uint16``,
+    which ``.view(ml_dtypes.bfloat16)`` turns into the reference's
+    type)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def cache_from_numpy(cfg: ArchConfig, tree: dict, device) -> dict:
     """The reference's decode caches (numpy leaves) as the port's."""
-    _check_stacked(cfg, tree["period"], "cache")
+    _check_stacked(cfg.n_periods, tree["period"], "cache")
     return _convert(tree, device)

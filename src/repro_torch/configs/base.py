@@ -1,10 +1,8 @@
 """Architecture config schema (copy of ``repro.configs.base``).
 
 The schema is the reference's, field for field, so a config means the
-same model in both packages. The registry is limited to the archs the
-port serves; every other arch of the reference raises
-``NotImplementedError`` naming the slice of the port that brings it.
-nemotron-4-340b and llama4-maverick-400b-a17b have their reduced
+same model in both packages. The registry holds every arch of the
+reference. nemotron-4-340b and llama4-maverick-400b-a17b have their reduced
 configs only (``get_reduced``): their full widths need more than one
 card. llama4's module keeps its ``CONFIG`` importable, so one period of
 it can be built at full width on one card.
@@ -118,20 +116,19 @@ ARCH_IDS: tuple[str, ...] = (
     "mamba2-2.7b",
 )
 
-# the archs this port serves; the rest wait for the slice named here
+# the archs this port builds at full width (the enc-dec one is trained,
+# not served, as in the reference)
 PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b", "gemma3-4b",
                                     "gemma3-27b", "granite-moe-3b-a800m",
-                                    "zamba2-7b", "internvl2-1b")
+                                    "zamba2-7b", "internvl2-1b",
+                                    "seamless-m4t-medium")
 # archs whose reduced config the port builds and tests, while the full
 # width waits for the slice named here
 _REDUCED_ONLY = {
-    "nemotron-4-340b": "the multi-device slice (ROADMAP A15): 340B parameters "
+    "nemotron-4-340b": "the multi-device slice (ROADMAP A15.2): 340B parameters "
                        "do not fit one card",
-    "llama4-maverick-400b-a17b": "the multi-device slice (ROADMAP A15): 400B "
+    "llama4-maverick-400b-a17b": "the multi-device slice (ROADMAP A15.2): 400B "
                                  "parameters do not fit one card",
-}
-_LATER_SLICE = {
-    "seamless-m4t-medium": "the enc-dec slice (ROADMAP A15)",
 }
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_")
@@ -142,11 +139,6 @@ def _module(arch_id: str):
     if arch_id in _MODULE_FOR:
         return importlib.import_module(
             f"repro_torch.configs.{_MODULE_FOR[arch_id]}"
-        )
-    if arch_id in _LATER_SLICE:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet; it comes with "
-            f"{_LATER_SLICE[arch_id]}"
         )
     raise KeyError(f"unknown arch {arch_id!r}; choose from {ARCH_IDS}")
 

@@ -76,6 +76,12 @@ def flash_decode_paged_ref(
     return flash_decode_ref(q, k, v, lengths)
 
 
+def _work(x: torch.Tensor) -> torch.dtype:
+    """The dtype the SSD chunk computes in: float32, or float64 for
+    float64 inputs (the CPU's gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def ssd_chunk_ref(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) fp32 (already softplus'd)
@@ -92,24 +98,126 @@ def ssd_chunk_ref(
     fp32 prefix sum carries ~1e-5 of error into every decay, as much as
     the whole fp32 tolerance of the comparison. The CUDA kernel sums in
     float64 too, in another order; in float64 the order moves the sum by
-    ~1e-14 of it, far below one float32 rounding."""
+    ~1e-14 of it, far below one float32 rounding. Float64 inputs are
+    computed in float64 throughout."""
     L = x.shape[1]
+    f = _work(x)
     cum = torch.cumsum(dA.double(), dim=1)  # (B,L,H)
     total = cum[:, -1]  # (B,H)
     seg = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Lq,Lk,H)
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    decay = torch.exp(torch.where(causal[None, :, :, None], seg, -torch.inf).float())
-    qk = torch.einsum("blhn,bmhn->blmh", Cm.float(), Bm.float())
+    decay = torch.exp(torch.where(causal[None, :, :, None], seg, -torch.inf).to(f))
+    qk = torch.einsum("blhn,bmhn->blmh", Cm.to(f), Bm.to(f))
     W = qk * decay * dt[:, None, :, :]
-    y_intra = torch.einsum("blmh,bmhp->blhp", W, x.float())
+    y_intra = torch.einsum("blmh,bmhp->blhp", W, x.to(f))
     y_inter = torch.einsum(
         "blhn,bhpn->blhp",
-        Cm.float() * torch.exp(cum.float())[..., None],
-        state.float(),
+        Cm.to(f) * torch.exp(cum.to(f))[..., None],
+        state.to(f),
     )
-    rem = torch.exp((total[:, None, :] - cum).float()) * dt  # (B,L,H)
+    rem = torch.exp((total[:, None, :] - cum).to(f)) * dt  # (B,L,H)
     dBx = torch.einsum(
-        "blhn,blhp->bhpn", Bm.float() * rem[..., None], x.float(),
+        "blhn,blhp->bhpn", Bm.to(f) * rem[..., None], x.to(f),
     )
-    new_state = state.float() * torch.exp(total.float())[..., None, None] + dBx
+    new_state = state.to(f) * torch.exp(total.to(f))[..., None, None] + dBx
     return (y_intra + y_inter).to(x.dtype), new_state.to(state.dtype)
+
+
+def ssd_chunk_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, state: torch.Tensor,
+    dy: torch.Tensor,  # (B, L, H, P) gradient of y
+    dnew_state: torch.Tensor,  # (B, H, P, N) gradient of new_state
+) -> tuple[torch.Tensor, ...]:
+    """The backward of one SSD chunk, the analytic VJP of ``ssd_chunk_ref``
+    written out: (dx, ddt, ddA, dBm, dCm, dstate), each in its input's
+    dtype. With S = C Bᵀ, decay_ij = exp(cum_i - cum_j) for i >= j (0
+    above the diagonal), W = S ⊙ decay ⊙ dt_j, rem_j = exp(total - cum_j)
+    dt_j:
+
+    * dW = dy xᵀ, dS = dW ⊙ decay ⊙ dt_j, H = dW ⊙ S ⊙ decay;
+    * dx = Wᵀ dy + rem ⊙ (B dnsᵀ), dC = dS B + e^{cum} (dy state),
+      dB = dSᵀ C + rem ⊙ (x dns), dstate = e^{total} dns + Σ_i e^{cum_i}
+      dy_iᵀ C_i;
+    * ddt_j = Σ_i H_ij + e^{total - cum_j} drem_j, with drem_j = x_j ·
+      (B_j dnsᵀ);
+    * dcum_i collects the decays (Σ_j H_ij dt_j - Σ_k H_ki dt_i), e^{cum}
+      (dy_i · y_inter_i), e^{total - cum} (-drem_i rem_i) and, at the
+      last position, total's (Σ_j drem_j rem_j + e^{total} Σ state ⊙
+      dns); ddA is its reverse cumulative sum, in float64 as the forward
+      takes its prefix sum. The masked decays are exact zeros, so no
+      0·inf reaches dcum."""
+    L = x.shape[1]
+    f = _work(x)
+    x_, B_, C_, s_ = x.to(f), Bm.to(f), Cm.to(f), state.to(f)
+    dy_, dns = dy.to(f), dnew_state.to(f)
+    dt_ = dt.to(f)
+    cum = torch.cumsum(dA.double(), dim=1)  # (B,L,H)
+    total = cum[:, -1]  # (B,H)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Lq,Lk,H)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(causal[None, :, :, None], seg, -torch.inf).to(f))
+    S = torch.einsum("blhn,bmhn->blmh", C_, B_)
+    W = S * decay * dt_[:, None, :, :]
+    ecum = torch.exp(cum.to(f))  # (B,L,H)
+    erem = torch.exp((total[:, None, :] - cum).to(f))  # (B,L,H)
+    rem = erem * dt_
+    etot = torch.exp(total.to(f))  # (B,H)
+
+    dW = torch.einsum("blhp,bmhp->blmh", dy_, x_)
+    dS = dW * decay * dt_[:, None, :, :]
+    Hm = dW * S * decay  # d(loss)/d(dt_j) through W, per (i, j)
+    Bdns = torch.einsum("bmhn,bhpn->bmhp", B_, dns)  # (B,L,H,P)
+    dx = torch.einsum("blmh,blhp->bmhp", W, dy_) + rem[..., None] * Bdns
+    dC = (torch.einsum("blmh,bmhn->blhn", dS, B_)
+          + ecum[..., None] * torch.einsum("blhp,bhpn->blhn", dy_, s_))
+    dB = (torch.einsum("blmh,blhn->bmhn", dS, C_)
+          + rem[..., None] * torch.einsum("bmhp,bhpn->bmhn", x_, dns))
+    drem = (x_ * Bdns).sum(-1)  # (B,L,H)
+    ddt = Hm.sum(1) + drem * erem
+    G = Hm * dt_[:, None, :, :]  # d(loss)/d(cum_i - cum_j)
+    inter = ecum * (dy_ * torch.einsum("blhn,bhpn->blhp", C_, s_)).sum(-1)
+    dcum = (G.sum(2) - G.sum(1) + inter - drem * rem).double()
+    dtotal = (drem * rem).sum(1) + etot * (s_ * dns).sum((-1, -2))  # (B,H)
+    dcum[:, -1] += dtotal.double()
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [1]), dim=1), [1])
+    dstate = (etot[..., None, None] * dns
+              + torch.einsum("blhp,blhn->bhpn", dy_ * ecum[..., None], C_))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), ddA.to(dA.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), dstate.to(state.dtype))
+
+
+# ssd_chunk_bwd against its plain version computed in float64 on the same
+# inputs, as atol + rtol·scale by the output's dtype: fp32 summation order,
+# and one rounding of a bf16 output (2**-8 of it). The scale is |want|,
+# except for ddA: ddA_k sums dcum_i over i >= k, and dcum_i is itself a
+# difference of the decays' row and column sums, so ddA cancels; its scale
+# is what it sums, sum_{i>=k} |dcum_i| (``ssd_chunk_bwd_scale``).
+SSD_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-4 + 2.0**-8)}
+
+
+def ssd_chunk_bwd_scale(name: str, want: torch.Tensor, L: int) -> torch.Tensor:
+    """The scale of the summation error of the gradient ``name`` (dx, ddt,
+    ddA, dB, dC, dstate; dA for ddA): |want|, and for ddA, within each
+    chunk of L positions (axis 1), sum_{i>=k} |dcum_i| with dcum_i =
+    ddA_i - ddA_{i+1} (at a chunk's last position ddA itself)."""
+    if name not in ("ddA", "dA"):
+        return want.abs()
+    parts = []
+    for c in want.split(L, dim=1):
+        d = c.clone()
+        d[:, :-1] -= c[:, 1:]
+        parts.append(torch.flip(torch.cumsum(torch.flip(d.abs(), [1]), 1), [1]))
+    return torch.cat(parts, dim=1)
+
+
+def ssd_chunk_bwd_tolerance(name: str, got: torch.Tensor, want: torch.Tensor, L: int,
+                            tol: tuple[float, float] | None = None) -> float:
+    """max |got - want| / (atol + rtol·scale) over the elements of the
+    gradient ``name``: at most 1 is within the bar. ``tol`` is (atol, rtol),
+    ``SSD_BWD_TOL`` of got's dtype unless given; ``want`` is the plain
+    backward's in float64."""
+    atol, rtol = SSD_BWD_TOL[got.dtype] if tol is None else tol
+    want = want.double()
+    err = (got.detach().double() - want).abs()
+    return float((err / (atol + rtol * ssd_chunk_bwd_scale(name, want, L))).max())

@@ -68,6 +68,13 @@ SSD_FP32_WARPS = 8
 SSD_FP32_TILE = 64
 SSD_FP32_LDW = SSD_FP32_TILE + 4
 
+# csrc/ssd_chunk_bwd.cu: 8 warps (one chunk position per thread in the
+# scans), 64-row tiles in fp32 whatever the input dtypes, the W, dS and H
+# tiles with rows of kTile + 1 floats
+SSD_BWD_WARPS = 8
+SSD_BWD_TILE = 64
+SSD_BWD_LDT = SSD_BWD_TILE + 1
+
 _ITEMSIZE = {"float32": 4, "bfloat16": 2}
 
 
@@ -212,3 +219,54 @@ def plan_ssd_chunk_smem(
         r.add(1, 1, 4 * T * SSD_FP32_LDW)    # the W tile
         r.add(2, 2, 4 * P * ldn)             # the incoming state
     return r.plan(f"ssd_chunk[P={P},N={N},{dtype},state={state_dtype}]")
+
+
+def _fp32_row_stride(n: int) -> int:
+    """``row_stride`` of the fp32 SSD kernels: n padded to a multiple of 4
+    floats, then to an odd number of float4s."""
+    n4 = -(-n // 4) * 4
+    return n4 if (n4 // 4) % 2 else n4 + 4
+
+
+def plan_ssd_chunk_bwd_smem(
+    *, P: int, N: int, dtype: str = "bfloat16", state_dtype: str | None = None
+) -> KernelSmemPlan:
+    """One CTA of ``ssd_chunk_bwd`` at head dim ``P`` and ``N`` state
+    columns. Its tiles are fp32 whatever ``dtype`` and ``state_dtype``,
+    so every dtype pair plans the same bytes.
+
+    Stages (ops): 0 the float64 prefix sum and the per-position arrays |
+    1 pass 1's row loop (key tile B, x; row tile C, dy; W, dS, H) | 2 pass
+    1's tail (dns and dnsᵀ in the row tile's place) | 3 pass 2's key loop
+    (row tile C, dy; key tile; dS, H) | 4 pass 2's tail (the state in the
+    key tile's place) | 5 dtotal and the float64 reverse sum."""
+    _check_dtype(dtype)
+    _check_dtype(dtype if state_dtype is None else state_dtype)
+    if P not in SSD_HEAD_DIMS or not 1 <= N <= SSD_MAX_N:
+        raise ValueError(f"ssd_chunk_bwd is built for P in {SSD_HEAD_DIMS}, "
+                         f"1 <= N <= {SSD_MAX_N}; got P={P}, N={N}")
+    L, T = SSD_MAX_L, SSD_BWD_TILE
+    ldn, ldp = _fp32_row_stride(N), _fp32_row_stride(P)
+    r = _Records()
+    r.add(0, 4, 8 * L)                 # cum, float64
+    r.add(0, 5, 8 * SSD_BWD_WARPS)     # the warps' scan totals
+    r.add(0, 4, 4 * L)                 # dt
+    r.add(0, 4, 4 * L)                 # exp(cum)
+    r.add(2, 5, 8 * L)                 # dcum, float64
+    r.add(2, 5, 4 * L)                 # drem_j rem_j, summed into dtotal
+    r.add(2, 2, 4 * T)                 # drem of the key tile
+    r.add(4, 4, 4 * T)                 # exp(cum_i) dy_i . (C_i stateᵀ) of the row tile
+    r.add(1, 3, 4 * T * ldn)           # B rows of the key tile
+    r.add(1, 3, 4 * T * ldp)           # x rows of the key tile
+    # pass 1: the row tile's C rows, then dns in their place; its dy rows
+    # and the W, dS and H tiles, then dnsᵀ in their place
+    r.add(1, 2, 4 * T * ldn)
+    r.add(1, 2, 4 * max(T * ldp + 3 * T * SSD_BWD_LDT, N * ldp))
+    # pass 2: C and dy rows of the row tile, its dS and H tiles
+    r.add(3, 4, 4 * T * ldn)
+    r.add(3, 4, 4 * T * ldp)
+    r.add(3, 3, 4 * T * SSD_BWD_LDT)
+    r.add(3, 3, 4 * T * SSD_BWD_LDT)
+    r.add(4, 4, 4 * P * ldn)           # the incoming state
+    return r.plan(f"ssd_chunk_bwd[P={P},N={N},{dtype},"
+                  f"state={dtype if state_dtype is None else state_dtype}]")

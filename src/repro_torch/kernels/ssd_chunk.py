@@ -23,6 +23,17 @@ bfloat16). Returns y ``(B, L, H, P)`` in x's dtype and the new state
 ``LAUNCHES`` counts kernel launches (the CUDA path only). A call under
 CUDA graph capture launches nothing: ``runtime/graphs.py`` takes it off
 the count and adds the graph's launches at each replay.
+
+The gradient: ``repro_torch::ssd_chunk_bwd`` takes the six inputs and the
+upstream gradients of y and the new state and returns (dx, ddt, ddA, dBm,
+dCm, dstate) in the inputs' dtypes. CUDA: the hand-written kernel
+``csrc/ssd_chunk_bwd.cu`` (counted in ``BWD_LAUNCHES``); CPU: the plain
+``kernels/ref.ssd_chunk_bwd_ref``. ``torch.library.register_autograd``
+makes it the backward of ``repro_torch::ssd_chunk``, so a model trains
+through two hand-written kernels on the card. The backward kernel reads
+every input through its strides as the forward does; its outputs are
+contiguous, and autograd sums dBm and dCm back over the heads a group's
+``expand`` or ``repeat_interleave`` reached.
 """
 
 from __future__ import annotations
@@ -32,9 +43,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ssd_chunk_ref
+from repro_torch.kernels.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 HEAD_DIMS = (8, 32, 64)
 MAX_STATE = 128
@@ -42,6 +54,7 @@ MAX_CHUNK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _FN = None
+_BWD_FN = None
 
 
 def smem_request_bytes(P: int, N: int, dtype: torch.dtype,
@@ -60,6 +73,20 @@ def smem_request_bytes(P: int, N: int, dtype: torch.dtype,
     return n
 
 
+def bwd_smem_request_bytes(P: int, N: int, dtype: torch.dtype,
+                           state_dtype: torch.dtype) -> int:
+    """``smem_request_bytes`` of the backward kernel
+    (``ssd_chunk_bwd_smem_bytes``); builds its library."""
+    fn = build.load("ssd_chunk_bwd").ssd_chunk_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int64
+    n = fn(_DTYPE_CODE[dtype], _DTYPE_CODE[state_dtype], P, N)
+    if n <= 0:
+        raise ValueError(f"ssd_chunk_bwd has no instantiation for {dtype}/"
+                         f"{state_dtype}, P={P}, N={N}")
+    return n
+
+
 def _kernel():
     global _FN
     if _FN is None:
@@ -74,8 +101,24 @@ def _kernel():
     return _FN
 
 
-def check_inputs(x, dt, dA, Bm, Cm, state) -> None:
-    """What the kernel takes; raises ``ValueError`` on anything else."""
+def _bwd_kernel():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = build.load("ssd_chunk_bwd").ssd_chunk_bwd_launch
+        fn.argtypes = (
+            [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+               ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
+
+
+def check_inputs(x, dt, dA, Bm, Cm, state, *, plain: bool = False) -> None:
+    """What the kernel takes; raises ``ValueError`` on anything else. The
+    plain version (``plain=True``) also takes all six in float64, which
+    the CPU's gradient checks need."""
     if x.dim() != 4 or Bm.dim() != 4 or Cm.dim() != 4 or state.dim() != 4:
         raise ValueError(
             f"ssd_chunk: x {tuple(x.shape)} must be (B,L,H,P), B/C "
@@ -94,21 +137,34 @@ def check_inputs(x, dt, dA, Bm, Cm, state) -> None:
             f"{tuple(dA.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}, "
             f"state {tuple(state.shape)} do not agree"
         )
-    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPE_CODE:
-        raise ValueError(
-            f"ssd_chunk: x/B/C dtypes {x.dtype}/{Bm.dtype}/{Cm.dtype}; one of "
-            f"float32, bfloat16 expected"
-        )
-    if state.dtype not in _DTYPE_CODE:
-        raise ValueError(f"ssd_chunk: state dtype {state.dtype}; float32 or bfloat16")
-    if dt.dtype != torch.float32 or dA.dtype != torch.float32:
-        raise ValueError("ssd_chunk: dt and dA must be float32")
+    if not (plain and all(t.dtype == torch.float64 for t in (x, dt, dA, Bm, Cm, state))):
+        if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPE_CODE:
+            raise ValueError(
+                f"ssd_chunk: x/B/C dtypes {x.dtype}/{Bm.dtype}/{Cm.dtype}; one of "
+                f"float32, bfloat16 expected"
+            )
+        if state.dtype not in _DTYPE_CODE:
+            raise ValueError(f"ssd_chunk: state dtype {state.dtype}; float32 or bfloat16")
+        if dt.dtype != torch.float32 or dA.dtype != torch.float32:
+            raise ValueError("ssd_chunk: dt and dA must be float32")
     if not 1 <= L <= MAX_CHUNK or P not in HEAD_DIMS or not 1 <= N <= MAX_STATE:
         raise ValueError(
             f"ssd_chunk: chunk length {L} (1..{MAX_CHUNK}), head dim {P} (of "
             f"{HEAD_DIMS}) and state dim {N} (1..{MAX_STATE}) are what the "
             f"kernel is built for"
         )
+
+
+def check_grads(x, state, dy, dnew_state) -> None:
+    """The upstream gradients the backward takes: dy like y (x's shape and
+    dtype), dnew_state like the new state."""
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_chunk_bwd: dy {tuple(dy.shape)} {dy.dtype}; "
+                         f"{tuple(x.shape)} {x.dtype} expected")
+    if dnew_state.shape != state.shape or dnew_state.dtype != state.dtype:
+        raise ValueError(f"ssd_chunk_bwd: dnew_state {tuple(dnew_state.shape)} "
+                         f"{dnew_state.dtype}; {tuple(state.shape)} {state.dtype} "
+                         f"expected")
 
 
 def _ssd_chunk_cuda(x, dt, dA, Bm, Cm, state):
@@ -138,16 +194,57 @@ def _ssd_chunk_cuda(x, dt, dA, Bm, Cm, state):
 
 
 def _ssd_chunk_cpu(x, dt, dA, Bm, Cm, state):
-    check_inputs(x, dt, dA, Bm, Cm, state)
+    check_inputs(x, dt, dA, Bm, Cm, state, plain=True)
     return ssd_chunk_ref(x, dt, dA, Bm, Cm, state)
 
 
 def _ssd_chunk_fake(x, dt, dA, Bm, Cm, state):
-    check_inputs(x, dt, dA, Bm, Cm, state)
+    check_inputs(x, dt, dA, Bm, Cm, state, plain=True)
     return (
         torch.empty(x.shape, dtype=x.dtype, device=x.device),
         torch.empty(state.shape, dtype=state.dtype, device=state.device),
     )
+
+
+def _ssd_chunk_bwd_cuda(x, dt, dA, Bm, Cm, state, dy, dnew_state):
+    global BWD_LAUNCHES
+    check_inputs(x, dt, dA, Bm, Cm, state)
+    check_grads(x, state, dy, dnew_state)
+    dev = x.device
+    if any(t.device != dev for t in (dt, dA, Bm, Cm, state, dy, dnew_state)):
+        raise ValueError("ssd_chunk_bwd: all inputs must be on one device")
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    outs = _bwd_empty(x, dt, dA, Bm, Cm, state)
+    ins = (x, dt, dA, Bm, Cm, state, dy, dnew_state)
+    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in (*ins, *outs)))
+    strides = (ctypes.c_int64 * 30)(*(s for t in ins for s in t.stride()))
+    err = _bwd_kernel()(
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[state.dtype], B, L, H, P, N, ptrs,
+        strides, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd: kernel launch failed (cudaError {err})")
+    BWD_LAUNCHES += 1
+    return outs
+
+
+def _bwd_empty(x, dt, dA, Bm, Cm, state):
+    """(dx, ddt, ddA, dBm, dCm, dstate), contiguous, in the inputs' dtypes."""
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (x, dt, dA, Bm, Cm, state))
+
+
+def _ssd_chunk_bwd_cpu(x, dt, dA, Bm, Cm, state, dy, dnew_state):
+    check_inputs(x, dt, dA, Bm, Cm, state, plain=True)
+    check_grads(x, state, dy, dnew_state)
+    return ssd_chunk_bwd_ref(x, dt, dA, Bm, Cm, state, dy, dnew_state)
+
+
+def _ssd_chunk_bwd_fake(x, dt, dA, Bm, Cm, state, dy, dnew_state):
+    check_inputs(x, dt, dA, Bm, Cm, state, plain=True)
+    check_grads(x, state, dy, dnew_state)
+    return _bwd_empty(x, dt, dA, Bm, Cm, state)
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
@@ -158,8 +255,40 @@ _LIB.define(
 _LIB.impl("ssd_chunk", _ssd_chunk_cuda, "CUDA")
 _LIB.impl("ssd_chunk", _ssd_chunk_cpu, "CPU")
 torch.library.register_fake("repro_torch::ssd_chunk")(_ssd_chunk_fake)
+_LIB.define(
+    "ssd_chunk_bwd(Tensor x, Tensor dt, Tensor dA, Tensor Bm, Tensor Cm, "
+    "Tensor state, Tensor dy, Tensor dnew_state) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"
+)
+_LIB.impl("ssd_chunk_bwd", _ssd_chunk_bwd_cuda, "CUDA")
+_LIB.impl("ssd_chunk_bwd", _ssd_chunk_bwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::ssd_chunk_bwd")(_ssd_chunk_bwd_fake)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy, dnew_state):
+    x, dt, dA, Bm, Cm, state = ctx.saved_tensors
+    if dy is None:  # y unused downstream
+        dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    if dnew_state is None:  # the last chunk's state, when nothing reads it
+        dnew_state = torch.zeros(state.shape, dtype=state.dtype, device=state.device)
+    return ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy, dnew_state)
+
+
+torch.library.register_autograd("repro_torch::ssd_chunk", _backward,
+                                setup_context=_setup_context)
 
 
 def ssd_chunk(x, dt, dA, Bm, Cm, state) -> tuple[torch.Tensor, torch.Tensor]:
     """(y (B, L, H, P) in x's dtype, new_state (B, H, P, N) in the state's)."""
     return torch.ops.repro_torch.ssd_chunk(x, dt, dA, Bm, Cm, state)
+
+
+def ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy, dnew_state) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, ddA, dBm, dCm, dstate) of ``ssd_chunk`` for the upstream
+    gradients ``dy`` (of y) and ``dnew_state``, in the inputs' dtypes."""
+    return torch.ops.repro_torch.ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy,
+                                               dnew_state)

@@ -112,6 +112,16 @@ def ssd_chunk_flops(x_shape, state_shape) -> int:
     return B * H * 2 * ((N + P) * pairs + 2 * L * P * N)
 
 
+def ssd_chunk_bwd_flops(x_shape, state_shape) -> int:
+    """The causal half of the backward's five L x L products (S = C·Bᵀ,
+    dW = dy·xᵀ, Wᵀ·dy, dS·B, dSᵀ·C) plus its four L x P x N ones (B·dnsᵀ,
+    x·dns, dy·state, dyᵀ·C), 2 FLOPs per multiply-add."""
+    B, L, H, P = x_shape
+    N = state_shape[-1]
+    pairs = L * (L + 1) // 2
+    return B * H * 2 * ((3 * N + 2 * P) * pairs + 4 * L * P * N)
+
+
 def _register() -> None:
     fd = torch.ops.repro_torch.flash_decode
     sc = torch.ops.repro_torch.ssd_chunk
@@ -168,7 +178,9 @@ def kernel_bound(kernel: str, shape: dict, *, card_name: str) -> Bound:
     arithmetic runs on the fp32 CUDA cores. ``ssd_chunk``: B, L, H, P, N,
     dtype, state_dtype and ``groups`` (B and C are read once per group;
     default H); bf16 x/B/C run on the tensor cores, fp32 on the CUDA
-    cores."""
+    cores. ``ssd_chunk_bwd``: the same keys; it reads x, dt, dA, B, C
+    (per group), the state, dy and dns once and writes dx, ddt, ddA, dB
+    and dC (per head) and dstate once."""
     spec = card(card_name)
     if kernel == "flash_decode":
         B, KV, G, D, T = (shape[k] for k in ("B", "KV", "G", "D", "T"))
@@ -189,6 +201,19 @@ def kernel_bound(kernel: str, shape: dict, *, card_name: str) -> Bound:
                   + 2 * B * L * groups * N * item  # B, C
                   + 2 * B * H * P * N * s_item)  # state in, new state out
         flops = ssd_chunk_flops((B, L, H, P), (B, H, P, N))
+        rate = spec.bf16_flops if shape["dtype"] == "bfloat16" else spec.fp32_flops
+        return Bound(flops, nbytes, rate, spec.hbm_bytes_per_s)
+    if kernel == "ssd_chunk_bwd":
+        B, L, H, P, N = (shape[k] for k in ("B", "L", "H", "P", "N"))
+        item = _ITEMSIZE[shape["dtype"]]
+        s_item = _ITEMSIZE[shape.get("state_dtype", shape["dtype"])]
+        groups = shape.get("groups", H)
+        nbytes = (3 * B * L * H * P * item       # x, dy in, dx out
+                  + 4 * B * L * H * 4            # dt, dA in, ddt, ddA out
+                  + 2 * B * L * groups * N * item  # B, C in
+                  + 2 * B * L * H * N * item     # dB, dC out, per head
+                  + 3 * B * H * P * N * s_item)  # state, dns in, dstate out
+        flops = ssd_chunk_bwd_flops((B, L, H, P), (B, H, P, N))
         rate = spec.bf16_flops if shape["dtype"] == "bfloat16" else spec.fp32_flops
         return Bound(flops, nbytes, rate, spec.hbm_bytes_per_s)
     raise ValueError(f"no bound for kernel {kernel!r}")

@@ -1,5 +1,6 @@
 """Model API of the port (counterpart of ``repro.models.api``).
 
+``for_config(cfg, device)`` builds the model of ``cfg``'s family.
 ``DecoderModel(cfg, device)`` offers ``init``, ``forward``, ``prefill``,
 ``decode_step``, ``init_cache`` and ``reset_slots`` for every decoder
 family of the reference: dense (global and sliding-window attention),
@@ -9,6 +10,8 @@ VLM (a dense decoder whose prefill takes ``batch["prefix_embeds"]``, the
 stub frontend's image embeddings, in front of the tokens; decode has no
 prefix). ``grow_caches`` stays a function of ``models/transformer.py``,
 as in the reference, whose ``Model`` does not expose it.
+``EncDecModel`` offers the same calls for the enc-dec family, whose
+batches carry ``batch["frames"]``.
 
 The model holds its constant tables on its device, computed once so the
 decode step never copies from the host: the RoPE frequencies at the
@@ -30,12 +33,14 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import rope_freqs
 
 
-# the families the port builds; the rest come with later slices
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the families the port builds: the decoder ones (DecoderModel) and the
+# enc-dec one (EncDecModel)
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+FAMILIES = (*DECODER_FAMILIES, "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +61,10 @@ INPUT_SHAPES: dict[str, ShapeSpec] = {
 
 class DecoderModel:
     def __init__(self, cfg: ArchConfig, device, *, cores: str = "kernel"):
-        if cfg.family not in FAMILIES:
+        if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} comes with a later slice "
-                f"of the port (ROADMAP A15); the port builds {FAMILIES}"
+                f"{cfg.name}: family {cfg.family!r} is not a decoder family "
+                f"{DECODER_FAMILIES}; for_config builds its model"
             )
         if cores not in transformer.CORES:
             raise ValueError(f"cores {cores!r}: one of {transformer.CORES}")
@@ -91,13 +96,15 @@ class DecoderModel:
     def init(self, generator: torch.Generator) -> dict:
         return transformer.init_params(self.cfg, generator, self.device)
 
-    def forward(self, params, batch: dict, rope_freqs=None, shared_freqs=None):
+    def forward(self, params, batch: dict, rope_freqs=None, shared_freqs=None,
+                remat: bool = False):
         """(logits (B, P + S, vocab), aux) over ``batch["prefix_embeds"]``
         (B, P, d_model), if given, and ``batch["tokens"]`` (B, S). The
-        tables default to the model's (``rope_tables``)."""
+        tables default to the model's (``rope_tables``); ``remat``
+        recomputes each period in the backward pass."""
         return transformer.forward(
             params, self.cfg, batch["tokens"], batch.get("prefix_embeds"),
-            cores=self.cores, **self._tables(rope_freqs, shared_freqs))
+            cores=self.cores, remat=remat, **self._tables(rope_freqs, shared_freqs))
 
     def prefill(self, params, batch: dict, rope_freqs=None, shared_freqs=None):
         """(last-position logits (B, vocab), caches) over the batch, as in
@@ -119,3 +126,54 @@ class DecoderModel:
 
     def reset_slots(self, caches, keep):
         return transformer.reset_slots(caches, keep)
+
+
+class EncDecModel:
+    """The enc-dec family (``models/encdec.py``; reference ``api.py:110-157``):
+    ``batch["frames"]`` (B, S_enc, d_model) are the stub frontend's frame
+    embeddings. Trained and run through the model API; the engine serves
+    decoder-only archs, as the reference's does."""
+
+    def __init__(self, cfg: ArchConfig, device, *, cores: str = "kernel"):
+        if cfg.family != "audio":
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not enc-dec")
+        if cores not in transformer.CORES:
+            raise ValueError(f"cores {cores!r}: one of {transformer.CORES}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.cores = cores
+        self.rope_freqs = torch.from_numpy(
+            rope_freqs(cfg.resolved_head_dim, cfg.rope_theta)).to(self.device)
+
+    def init(self, generator: torch.Generator) -> dict:
+        return encdec.init_params(self.cfg, generator, self.device)
+
+    def forward(self, params, batch: dict, rope_freqs=None, remat: bool = False):
+        return encdec.forward(
+            params, self.cfg, batch["tokens"], batch["frames"], remat=remat,
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+
+    def prefill(self, params, batch: dict, rope_freqs=None):
+        return encdec.prefill(
+            params, self.cfg, batch["tokens"], batch["frames"],
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+
+    def decode_step(self, params, token, caches, pos, active=None, rope_freqs=None):
+        return encdec.decode_step(
+            params, self.cfg, token, caches, pos, active, cores=self.cores,
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+
+    def init_cache(self, batch: int, cache_len: int, device=None):
+        enc_len = max(cache_len // self.cfg.enc_len_ratio, 1)
+        return encdec.init_cache(self.cfg, batch, cache_len, enc_len,
+                                 self.device if device is None else device)
+
+    def reset_slots(self, caches, keep):
+        return encdec.reset_slots(caches, keep)
+
+
+def for_config(cfg: ArchConfig, device, *, cores: str = "kernel"):
+    """The model of ``cfg``'s family (reference ``Model.for_config``)."""
+    if cfg.family == "audio":
+        return EncDecModel(cfg, device, cores=cores)
+    return DecoderModel(cfg, device, cores=cores)

@@ -12,6 +12,8 @@ Port of the reference's ``models/attention.py``:
 * ``attn_decode`` — the plain attention, kept for parity tests
   (``attention.py:192-242``). A window layer writes its ring at
   ``pos % T`` and masks each slot by the position it holds;
+* ``cross_attn`` and ``encode_kv`` — the enc-dec family's attention over
+  the encoder output (``attention.py:292-320``);
 * ``attn_decode_kernel`` — the counterpart of the reference's
   ``attn_decode_kernel`` (``attention.py:245-289``): the same K/V write,
   then the ``repro_torch::flash_decode`` op as the attention core. This
@@ -343,3 +345,35 @@ def attn_decode_kernel(
         o = flash_decode(q_k, k_cache, v_cache, lengths)
     out = o.reshape(B, 1, n_heads * head_dim)
     return out @ p["wo"], (k_cache, v_cache)
+
+
+def cross_attn_init(generator, lead: tuple[int, ...], d_model: int, n_heads: int,
+                    n_kv: int, head_dim: int, dtype, device) -> dict:
+    return attn_init(generator, lead, d_model, n_heads, n_kv, head_dim, False,
+                     dtype, device)
+
+
+def cross_attn(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D) decoder side
+    enc_kv: tuple[torch.Tensor, torch.Tensor],  # precomputed (B, T, KV, hd) x2
+    *,
+    n_heads: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """Attention of the decoder's positions over the encoder's K/V, no
+    mask and no RoPE (reference ``attention.py:296-312``)."""
+    B, S, _ = x.shape
+    k, v = enc_kv
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    s = _gqa_scores(q, k).float() / np.sqrt(head_dim)
+    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    return _gqa_out(probs, v) @ p["wo"]
+
+
+def encode_kv(p: dict, enc_out: torch.Tensor, n_kv: int, head_dim: int):
+    """Project the encoder output once into cross-attention K/V."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, T, n_kv, head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, T, n_kv, head_dim)
+    return k, v

@@ -10,8 +10,8 @@ Mamba2 with no FFN, each with prefill, forward and decode; a layer may
 first apply zamba2's shared attention block (``_apply_shared_attn``:
 one set of params at 2·d_model, read at every insertion, with its own
 RoPE table at its own head dim). ``forward`` and ``prefill`` put a VLM's
-``prefix_embeds`` in front of the token embeddings. Enc-dec comes with
-a later slice.
+``prefix_embeds`` in front of the token embeddings. The enc-dec family
+is ``models/encdec.py``.
 
 The layer program is ``period × n_periods + remainder``. Period params
 and caches are stacked on a leading ``n_periods`` axis, as in the
@@ -39,6 +39,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn
@@ -341,23 +342,41 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
+def _period(params, cfg: ArchConfig, i: int, h, rope_freqs, cores: str, shared):
+    """Period ``i`` of the stack over a full sequence: (h, the layers'
+    caches, their aux losses summed or None)."""
+    caches, total = [], None
+    for j, spec in enumerate(cfg.period):
+        h, c, aux = _block(_layer(params["period"][j], i), spec, cfg, h,
+                           rope_freqs=rope_freqs, cores=cores, decode=False,
+                           shared=shared)
+        caches.append(c)
+        total = _add_aux(total, aux)
+    return h, caches, total
+
+
 def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
-               shared_freqs=None):
+               shared_freqs=None, remat: bool = False):
     """The whole stack over a full sequence (no caches in); returns (h,
     caches, aux) with the caches in the reference's stacked structure
     and aux the MoE layers' aux losses summed in layer order (None
     without a MoE layer). The shared block's ``emb0`` is ``h`` as it
-    enters the stack."""
+    enters the stack. ``remat`` recomputes each period in the backward
+    pass (``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint(period_body)``); the remainder is not wrapped, as in
+    the reference."""
     shared = (params.get("shared_attn"), h, shared_freqs)
     per_layer: list[list] = [[] for _ in cfg.period]
     total = None
     for i in range(cfg.n_periods):
-        for j, spec in enumerate(cfg.period):
-            h, c, aux = _block(_layer(params["period"][j], i), spec, cfg, h,
-                               rope_freqs=rope_freqs, cores=cores, decode=False,
-                               shared=shared)
+        if remat:
+            h, cs, aux = checkpoint(_period, params, cfg, i, h, rope_freqs, cores,
+                                    shared, use_reentrant=False)
+        else:
+            h, cs, aux = _period(params, cfg, i, h, rope_freqs, cores, shared)
+        for j, c in enumerate(cs):
             per_layer[j].append(c)
-            total = _add_aux(total, aux)
+        total = _add_aux(total, aux)
     period = tuple(_stack(cs) for cs in per_layer) if cfg.n_periods else ()
     remainder = []
     for j, spec in enumerate(cfg.remainder):
@@ -381,12 +400,13 @@ def _embed(params, tokens, prefix_embeds):
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None, *, cores: str = "kernel",
             rope_freqs: torch.Tensor | None = None,
-            shared_freqs: torch.Tensor | None = None
+            shared_freqs: torch.Tensor | None = None, remat: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, P + S, vocab) and the aux loss: the MoE
-    layers' Switch losses summed, a fp32 zero without a MoE layer."""
+    layers' Switch losses summed, a fp32 zero without a MoE layer.
+    ``remat`` recomputes each period in the backward pass."""
     h, _, aux = _run_stack(params, cfg, _embed(params, tokens, prefix_embeds),
-                           cores, rope_freqs, shared_freqs)
+                           cores, rope_freqs, shared_freqs, remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _logits(params, cfg, h), aux

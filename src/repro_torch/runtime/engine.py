@@ -494,6 +494,8 @@ class InferenceEngine:
         plan_bundle: "PlanBundle | str | Path | None" = None,
         verify_bundle: bool | None = None,
     ):
+        if cfg.family == "audio":
+            raise NotImplementedError("engine drives decoder-only archs")
         session = _session_from_legacy_kwargs(
             session,
             plan_strategy=plan_strategy,

@@ -40,7 +40,8 @@ CAPTURE_CALLS = 0
 # kernel -> (its wrapper's module, the module's count of its launches)
 _COUNTS = {"flash_decode": (flash_decode, "LAUNCHES"),
            "flash_decode_paged": (flash_decode, "PAGED_LAUNCHES"),
-           "ssd_chunk": (ssd_chunk, "LAUNCHES")}
+           "ssd_chunk": (ssd_chunk, "LAUNCHES"),
+           "ssd_chunk_bwd": (ssd_chunk, "BWD_LAUNCHES")}
 # kernel -> its launches made by replays of captured graphs
 REPLAYED_LAUNCHES: dict[str, int] = {k: 0 for k in _COUNTS}
 

@@ -14,7 +14,10 @@ held against the same engine with the plain attention. The CUDA
 against prefill through the plain version. The engine's captured steps
 are held against the eager decode step, its blocks against its host
 loop, and ``flash_decode`` inside captured graphs against its plain
-version.
+version. The CUDA ``ssd_chunk_bwd`` is held against its plain version in
+float64, the op's autograd against autograd of the plain chunk, and a
+train step through both SSD kernels against the plain cores;
+``run_training`` trains and resumes on the card.
 """
 
 import dataclasses
@@ -28,7 +31,8 @@ from repro_torch.configs.base import get_reduced  # noqa: E402
 from repro_torch.core.unified import plan_state, state_records_from_cache  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
-from repro_torch.kernels.ref import flash_decode_ref, ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels.ref import (flash_decode_ref, ssd_chunk_bwd_ref,  # noqa: E402
+                                     ssd_chunk_bwd_tolerance, ssd_chunk_ref)
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.api import DecoderModel  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
@@ -678,6 +682,7 @@ def _smem_instantiations():
             for P in sp.SSD_HEAD_DIMS:
                 for N in (4, 13, 16, 40, 64, 128):
                     yield "ssd_chunk", dict(P=P, N=N, dtype=dtype, state_dtype=state)
+                    yield "ssd_chunk_bwd", dict(P=P, N=N, dtype=dtype, state_dtype=state)
 
 
 @pytest.mark.parametrize("kernel,shape", list(_smem_instantiations()))
@@ -695,6 +700,14 @@ def test_smem_plan_against_the_kernels_request(cuda, kernel, shape):
         requested = fd.smem_request_bytes(shape["G"], shape["D"],
                                           getattr(torch, shape["dtype"]))
         gap = 0
+    elif kernel == "ssd_chunk_bwd":
+        kp = sp.plan_ssd_chunk_bwd_smem(**shape)
+        requested = sc.bwd_smem_request_bytes(shape["P"], shape["N"],
+                                              getattr(torch, shape["dtype"]),
+                                              getattr(torch, shape["state_dtype"]))
+        # a plan no larger than the source's Layout
+        assert kp.fits and requested <= limit and kp.plan.total_size <= requested
+        return
     else:
         kp = sp.plan_ssd_chunk_smem(**shape)
         requested = sc.smem_request_bytes(shape["P"], shape["N"],
@@ -1127,3 +1140,121 @@ def test_residency_off_serves_the_resident_tokens_on_the_card(cuda):
     for x, y in zip(pytree.tree_leaves(off.caches), pytree.tree_leaves(on.caches),
                     strict=True):
         torch.testing.assert_close(x, y, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------------------- training
+
+
+def _bwd_close(name, got, want, L):
+    assert ssd_chunk_bwd_tolerance(name, got, want, L) <= 1, (
+        name, float((got.double() - want).abs().max()))
+
+
+@pytest.mark.parametrize("x_dtype,state_dtype",
+                         [("float32", "float32"), ("bfloat16", "float32"),
+                          ("bfloat16", "bfloat16"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_chunk_bwd_kernel_matches_plain(cuda, case, x_dtype, state_dtype):
+    shape, decay, groups = SSD_CASES[case]
+    rng = np.random.default_rng(18)
+    x, dt, dA, Bm, Cm, state = _ssd_inputs(rng, cuda, *shape, decay, groups, x_dtype,
+                                           state_dtype)
+    dy = _rand(rng, x.shape, x_dtype, cuda)
+    dns = _rand(rng, state.shape, state_dtype, cuda)
+    before = sc.BWD_LAUNCHES
+    got = sc.ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy, dns)
+    torch.cuda.synchronize()
+    assert sc.BWD_LAUNCHES == before + 1
+    want = ssd_chunk_bwd_ref(*(t.double() for t in (x, dt, dA, Bm, Cm, state, dy, dns)))
+    names = ("dx", "ddt", "ddA", "dB", "dC", "dstate")
+    for name, g, w, t in zip(names, got, want, (x, dt, dA, Bm, Cm, state)):
+        assert g.dtype == t.dtype and g.is_contiguous()
+        _bwd_close(name, g, w, shape[1])
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_chunk_autograd_on_the_card_matches_the_plain_autograd(cuda, groups):
+    """The op's backward (the kernel) over a chain of 3 chunks at the slow
+    decay, B and C from one or two groups, against autograd of the plain
+    chunk in float64."""
+    L, H, P, N = 64, 4, 32, 16
+    rng = np.random.default_rng(19)
+    x, dt, dA, _, _, state = _ssd_inputs(rng, cuda, 1, 3 * L, H, P, N, "slow", None,
+                                         "float32", "float32")
+    Bg = _rand(rng, (1, 3 * L, groups, N), "float32", cuda)
+    Cg = _rand(rng, (1, 3 * L, groups, N), "float32", cuda)
+    dy = _rand(rng, x.shape, "float32", cuda)
+    dns = _rand(rng, state.shape, "float32", cuda)
+
+    def grads(core, dtype):
+        leaves = [t.to(dtype).requires_grad_() for t in (x, dt, dA, state, Bg, Cg)]
+        xx, tt, aa, s, bg, cg = leaves
+        Bh, Ch = ssm._heads(bg, H), ssm._heads(cg, H)
+        total = 0.0
+        for c in range(3):
+            sl = slice(c * L, (c + 1) * L)
+            y, s = core(xx[:, sl], tt[:, sl], aa[:, sl], Bh[:, sl], Ch[:, sl], s)
+            total = total + (y * dy[:, sl].to(dtype)).sum()
+        return torch.autograd.grad(total + (s * dns.to(dtype)).sum(), leaves)
+
+    before = sc.BWD_LAUNCHES
+    got = grads(sc.ssd_chunk, torch.float32)
+    assert sc.BWD_LAUNCHES == before + 3
+    want = grads(ssd_chunk_ref, torch.float64)
+    for name, g, w in zip(("dx", "ddt", "ddA", "dstate", "dB", "dC"), got, want):
+        _bwd_close(name, g, w, L)
+
+
+def test_ssd_chunk_bwd_on_the_card_never_reaches_the_plain_version(cuda):
+    """float64, which the plain version takes, raises on the card."""
+    x, dt, dA, Bm, Cm, state = _ssd_inputs(np.random.default_rng(20), cuda, 1, 16, 2,
+                                           8, 4, "original", None, "float32", "float32")
+    args = [t.double() for t in (x, dt, dA, Bm, Cm, state, x, state)]
+    ssd_chunk_bwd_ref(*args)
+    with pytest.raises(ValueError):
+        sc.ssd_chunk_bwd(*args)
+
+
+def test_a_train_step_on_the_card_goes_through_both_ssd_kernels(cuda):
+    """Reduced mamba2 (fp32) at 300 tokens, 2 chunks: one forward and one
+    backward launch per layer and chunk, and every gradient leaf within
+    1e-3 of its largest entry of the plain cores' (the summation order of
+    ``ssd_chunk_bwd_tolerance``, through a layer)."""
+    from repro_torch.launch.train import make_loss_fn, value_and_grad
+    from repro_torch.tree_util import leaves
+
+    cfg = get_reduced("mamba2-2.7b")
+    kernel, plain = DecoderModel(cfg, cuda), DecoderModel(cfg, cuda, cores="plain")
+    params = kernel.init(torch.Generator(device=cuda).manual_seed(0))
+    _slow_decay(params)
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 301)).astype(np.int32)).to(cuda)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    graphs.reset_kernel_launches()
+    loss, _, got = value_and_grad(make_loss_fn(kernel, remat=False), params, batch)
+    counts = graphs.kernel_launches()
+    assert counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == cfg.n_layers * 2
+    want_loss, _, want = value_and_grad(make_loss_fn(plain, remat=False), params, batch)
+    assert abs(float(loss) - float(want_loss)) < 1e-5
+    for g, w in zip(leaves(got), leaves(want)):
+        assert float((g - w).abs().max()) <= 1e-3 * max(float(w.abs().max()), 1e-12)
+
+
+def test_run_training_trains_and_resumes_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.train import run_training
+    from repro_torch.tree_util import leaves
+
+    kw = dict(seq_len=32, batch=2, device=cuda)
+    full = run_training("qwen3-0.6b", steps=8, **kw)
+    assert full[-1]["loss"] < full[0]["loss"]
+    path = str(tmp_path / "ck")
+    saved = {}
+    run_training("qwen3-0.6b", steps=4, ckpt_path=path, save_every=4, out=saved, **kw)
+    like = (saved["params"], saved["opt_state"])
+    restored, meta = ckpt.restore(path, like)
+    assert meta == {"step": 4}
+    assert all(torch.equal(a, b) for a, b in zip(leaves(restored), leaves(like)))
+    resumed = run_training("qwen3-0.6b", steps=8, ckpt_path=path, **kw)
+    assert [abs(a["loss"] - b["loss"]) < 1e-4 for a, b in zip(full[4:], resumed)] == [True] * 4
+

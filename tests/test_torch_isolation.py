@@ -121,7 +121,7 @@ def test_no_source_imports_ml_dtypes():
 @pytest.mark.parametrize("name", ["gemma3_4b.py", "gemma3_27b.py", "nemotron_4_340b.py",
                                   "granite_moe_3b_a800m.py",
                                   "llama4_maverick_400b_a17b.py", "zamba2_7b.py",
-                                  "internvl2_1b.py"])
+                                  "internvl2_1b.py", "seamless_m4t_medium.py"])
 def test_the_copied_configs_are_the_references_byte_for_byte(name):
     """Copied with only the import path changed."""
     want = (ROOT / "src" / "repro" / "configs" / name).read_text().replace(
@@ -129,3 +129,22 @@ def test_the_copied_configs_are_the_references_byte_for_byte(name):
     got = (PORT / "configs" / name).read_text()
     assert got == want
     assert f"src/repro_torch/configs/{name}" in SOURCES
+
+
+def test_the_copied_pipeline_is_the_references_byte_for_byte():
+    """``data/pipeline.py`` is pure numpy, copied whole (it imports nothing
+    of the reference, so not even an import path changes)."""
+    want = (ROOT / "src" / "repro" / "data" / "pipeline.py").read_text()
+    assert (PORT / "data" / "pipeline.py").read_text() == want
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/launch/train.py", "src/repro_torch/optim/adamw.py",
+     "src/repro_torch/checkpoint/ckpt.py", "src/repro_torch/data/pipeline.py",
+     "src/repro_torch/models/encdec.py", "src/repro_torch/tree_util.py",
+     "src/repro_torch/configs/seamless_m4t_medium.py"],
+)
+def test_the_training_modules_are_checked(path):
+    assert path in SOURCES
+
