@@ -18,7 +18,9 @@ control.
 ``ssd_chunk.cu`` holds two kernels, the tensor-core one (bf16 x/B/C) and
 the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
 ``drop_lo`` is planted in both (``b_c_one_group`` in the host entry both
-share). ``flash_decode.cu`` builds ``flash_decode`` and
+share). ``drop_lo`` is planted in ``ssd_tc.cuh``'s ``split3``, which the
+tensor-core kernels of the forward and the backward share; it is judged
+on the forward's rows (the kernels phase runs no backward). ``flash_decode.cu`` builds ``flash_decode`` and
 ``flash_decode_paged`` from one kernel: a ``flash_decode`` fault's run
 lists the cases of both, and ``paged_table_ignored`` is planted in the
 paged address only. ``ring_clamped`` (``models/attention.py``) writes a
@@ -34,13 +36,18 @@ of 8 handed to a host-loop engine) must fail while the bundles that fit
 still serve. ``aot_key_ignored`` (``runtime/aot.py``) makes the AOT
 loader take a pack whatever torch version its key names: it is run
 through the ``serve_aot`` phase, whose planted stale pack must fail while
-the packs that fit still serve. ``ssd_bwd_drops_state_chain``
-(``ssd_chunk_bwd.cu``) drops exp(total)·dns from the state gradient the
-backward hands the chunk before: it is run through the
-``kernels_ssd_bwd`` and ``train_mamba2`` phases, whose chained cases and
-3-chunk slow-decay gradient check must fail, and nothing else. A fault
-run through a phase other than kernels must fail exactly its
-``must_fail`` cases.
+the packs that fit still serve. ``ssd_bwd_tc_drops_state_chain``
+and ``ssd_bwd_drops_state_chain`` (``ssd_chunk_bwd.cu``) drop
+exp(total)·dns from the state gradient the backward hands the chunk
+before, in its tensor-core kernel (bf16 x/B/C) and in its CUDA-core one
+(fp32): each is run through the ``kernels_ssd_bwd`` and ``train_mamba2``
+phases, where the first must fail the bf16 chained cases and nothing
+else (train_mamba2's bf16 gradient bar lets it pass), the second the
+fp32 chained cases, the fp32 autograd over the chain and the 3-chunk
+slow-decay gradient check, and nothing else. A fault run through a phase
+other than kernels must fail exactly its ``must_fail`` cases; a
+``must_fail`` entry with a ``/`` names one dtype's case
+(``case/dtype[/state_dtype]``), one without it the case in every dtype.
 
 Prints one JSON line per run, then a summary line; exits non-zero if the
 control fails a case, a fault fails no case, or a fault passes one of its
@@ -81,13 +88,19 @@ RING_WRAPPED = ("ring_wrapped_T8_W8", "ring_wrapped_T8_W13", "ring_wrapped_T64_W
 # the paged Mamba2 steps (chip_smoke.py's STATE_PUT_CASES)
 STATE_PUT = tuple(f"state_put_{arch}_P{page}_shuffled"
                   for arch in ("mamba2-2.7b", "zamba2-7b") for page in (16384, 65536))
-# the backward's chained cases: a chunk whose upstream state gradient is
-# not zero (chip_smoke.py's kernels_ssd_bwd), and the 3-chunk fp32 gradient
-# check at the slow decay (train_mamba2)
-SSD_BWD_CHAIN = tuple(f"chain_{arch}_{part}" for arch in ("mamba2", "zamba2")
-                      for part in ("chunk2", "chunk1", "autograd")) + (
-    "train_mamba2_grads_fp32_slow",)
+# the backward's chained cases, a chunk whose upstream state gradient is
+# not zero (chip_smoke.py's kernels_ssd_bwd), by the kernel that runs them:
+# bf16 x/B/C the tensor-core kernel; fp32 the CUDA-core one, with the fp32
+# autograd over the chain and the 3-chunk fp32 gradient check at the slow
+# decay (train_mamba2)
+SSD_BWD_CHAIN_BF16 = tuple(f"chain_{arch}_{part}/bfloat16/bfloat16"
+                           for arch in ("mamba2", "zamba2") for part in ("chunk2", "chunk1"))
+SSD_BWD_CHAIN_FP32 = tuple(f"chain_{arch}_{part}/float32/float32"
+                           for arch in ("mamba2", "zamba2")
+                           for part in ("chunk2", "chunk1", "autograd")) + (
+    "train_mamba2_grads_fp32_slow/float32",)
 SSD, FD = "kernels/csrc/ssd_chunk.cu", "kernels/csrc/flash_decode.cu"
+SSD_TC, SSD_BWD = "kernels/csrc/ssd_tc.cuh", "kernels/csrc/ssd_chunk_bwd.cu"
 FAULTS = {
     # y without the incoming state's contribution
     "drop_y_inter": ("ssd_chunk", SSD, [
@@ -117,7 +130,7 @@ FAULTS = {
          "for (int i = 0; i < kStrides; ++i) st.v[i] = i == 12 || i == 16 ? 0 : strides[i];"),
     ], ("two_groups_L96", "zamba2_prefill")),
     # W, the decayed x and an fp32 state fed as hi + mid only (tensor cores)
-    "drop_lo": ("ssd_chunk", SSD, [
+    "drop_lo": ("ssd_chunk", SSD_TC, [
         ("const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);",
          "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f, 0.f);"),
     ], ()),
@@ -166,15 +179,27 @@ FAULTS = {
     # dstate without exp(total)·dns: the state gradient a chunk hands the
     # one before it loses what came from the chunks after it. A chunk whose
     # upstream state gradient is zero (the last one) is unchanged, and so
-    # is a chain whose decay leaves exp(total) below fp32 resolution
-    "ssd_bwd_drops_state_chain": ("ssd_chunk_bwd", "kernels/csrc/ssd_chunk_bwd.cu", [
+    # is a chain whose decay leaves exp(total) below fp32 resolution. In the
+    # tensor-core kernel (bf16 x/B/C), then in the CUDA-core one (fp32)
+    "ssd_bwd_tc_drops_state_chain": ("ssd_chunk_bwd", SSD_BWD, [
+        ("store(dsb + pp * N + n, fmaf(etot, d0, acc[u][e]));",
+         "store(dsb + pp * N + n, acc[u][e] + 0.f * etot * d0);"),
+    ], SSD_BWD_CHAIN_BF16),
+    "ssd_bwd_drops_state_chain": ("ssd_chunk_bwd", SSD_BWD, [
         ("store(dsb + p * N + n, fmaf(etot, d0, dsa[a][c]));",
          "store(dsb + p * N + n, dsa[a][c] + 0.f * etot * d0);"),
-    ], SSD_BWD_CHAIN),
+    ], SSD_BWD_CHAIN_FP32),
 }
 # the phases other than kernels that faults are run through
 PHASE_OF = {"serve_bundle": "serve_bundle", "serve_aot": "serve_aot",
             "ssd_chunk_bwd": "kernels_ssd_bwd,train_mamba2"}
+
+
+def named(label: str, entries) -> bool:
+    """Whether a case label (``case/dtype[/state_dtype]``) is among
+    ``must_fail`` entries: an entry with a ``/`` names that label, one
+    without it the case in every dtype."""
+    return any(label == e or label.split("/")[0] == e for e in entries)
 
 
 def label(row: dict) -> str:
@@ -261,10 +286,10 @@ def main() -> None:
             problems.append(f"{name} failed no case")
         must_fail = FAULTS[name][3]
         for case in row["passed_cases"]:
-            if case.split("/")[0] in must_fail:
+            if named(case, must_fail):
                 problems.append(f"{name} passed {case}")
         if FAULTS[name][0] in PHASE_OF:
-            extra = sorted({c.split("/")[0] for c in row["failed_cases"]} - set(must_fail))
+            extra = sorted(c for c in row["failed_cases"] if not named(c, must_fail))
             if extra:
                 problems.append(f"{name} failed {extra} beside its {list(must_fail)}")
     print(json.dumps({"faults": {n: {"failed": r["failed"], "of": r["cases"]}

@@ -267,16 +267,20 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                query) and the device's opt-in limit: the plan fits, and plans
                no more than the kernel requests;
 32. kernels_ssd_bwd — ``ssd_chunk_bwd`` (the backward of ``ssd_chunk``,
-               ``csrc/ssd_chunk_bwd.cu``) against its plain version in
-               float64 with random upstream gradients: single chunks (the
+               ``csrc/ssd_chunk_bwd.cu``: bf16 x/B/C on the tensor-core
+               kernel, fp32 on the CUDA-core one) against its plain version
+               in float64 with random upstream gradients: single chunks (the
                CPU cases in every dtype pair; mamba2-2.7b's and zamba2-7b's
-               prefill chunks in fp32 and bf16) and chains of 2 chunks at
-               the slow decay whose second chunk hands the first its state
-               gradient; the autograd of ``repro_torch::ssd_chunk`` over the
-               chain against autograd of the plain chunk; the kernel timed
-               at both prefill shapes beside its bound and the plain
-               version (``chip_faults.py``'s ``ssd_bwd_drops_state_chain``
-               must fail the chained cases and nothing else);
+               prefill chunks in fp32 and bf16, mamba2's at batch 2 in
+               bf16) and chains of 2 chunks at the slow decay whose second
+               chunk hands the first its state gradient; the autograd of
+               ``repro_torch::ssd_chunk`` over the chain against autograd of
+               the plain chunk; the kernel timed at both prefill shapes and
+               at train_mamba2's call (batch 2) beside its bound, the plain
+               version and its CTAs per SM (``chip_faults.py``'s
+               ``ssd_bwd_tc_drops_state_chain`` must fail the bf16 chained
+               cases and nothing else, ``ssd_bwd_drops_state_chain`` the
+               fp32 ones);
 33. train     — ``launch/train.run_training`` on full-width qwen3-0.6b
                (seq_len 512, batch 4, 8 AdamW steps), in a fresh process
                under ``torch.use_deterministic_algorithms`` (it launches
@@ -293,9 +297,11 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                the wrappers' counts; the gradients against the plain
                cores (fp32 with the depth cut to 8 layers, at the random
                init's decay and at the slow one over 3 chunks; then the
-               bf16 model itself); the peak beside the reckoning; the same
-               step with ``remat=True`` (the same loss and gradients, 256
-               forward launches);
+               bf16 model itself); the peak beside the reckoning; one step
+               under ``torch.profiler`` (after every phase that captures a
+               graph): device time by kernel, ``ssd_chunk_bwd``'s share of
+               the step, the idle share; the same step with ``remat=True``
+               (the same loss and gradients, 256 forward launches);
 35. train_seamless — full-width seamless-m4t-medium (12 + 12 layers,
                bf16) trained 2 steps by ``run_training`` (seq_len 512,
                zero frames at 128, batch 2): losses finite, the decoder's
@@ -494,7 +500,9 @@ def phase_build() -> None:
                        "spill_store_bytes_max": max(spills, default=0)}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
           "flash_decode_by_instantiation": flash_decode_ptxas(
-              paths["flash_decode"].with_suffix(".log"))})
+              paths["flash_decode"].with_suffix(".log")),
+          "ssd_chunk_bwd_by_instantiation": ssd_bwd_ptxas(
+              paths["ssd_chunk_bwd"].with_suffix(".log"))})
 
 
 def flash_decode_ptxas(log_path) -> dict:
@@ -514,6 +522,30 @@ def flash_decode_ptxas(log_path) -> dict:
         out[f"{dtype}/{m.group(2)}/{m.group(3)}{paged}"] = {
             "registers": int(regs.group(1)),
             "spill_store_bytes": int(spill.group(1)) if spill else 0}
+    return out
+
+
+def ssd_bwd_ptxas(log_path) -> dict:
+    """``-Xptxas -v``'s registers, spill stores and stack frame of each
+    ssd_chunk_bwd instantiation, keyed ``tc|cuda_core/x dtype/state
+    dtype/P`` (from the kernel's mangled name)."""
+    log = log_path.read_text() if log_path.exists() else ""
+    dtype = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    t = "(f|13__nv_bfloat16)"
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        tc = re.search(rf"ssd_chunk_bwd_tc_kernelI{t}Li(\d+)E", chunk)
+        cc = re.search(rf"ssd_chunk_bwd_kernelI{t}{t}Li(\d+)E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        if regs is None or (tc is None and cc is None):
+            continue
+        key = (f"tc/bfloat16/{dtype[tc.group(1)]}/{tc.group(2)}" if tc else
+               f"cuda_core/{dtype[cc.group(1)]}/{dtype[cc.group(2)]}/{cc.group(3)}")
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        stack = re.search(r"(\d+) bytes stack frame", chunk)
+        out[key] = {"registers": int(regs.group(1)),
+                    "spill_store_bytes": int(spill.group(1)) if spill else 0,
+                    "stack_frame_bytes": int(stack.group(1)) if stack else 0}
     return out
 
 
@@ -981,10 +1013,13 @@ SMEM_CASES = (
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
-    # the backward at mamba2-2.7b's (train_mamba2, bf16; the fp32 cases of
-    # kernels_ssd_bwd) and zamba2-7b's shapes
+    # the backward at mamba2-2.7b's (train_mamba2, bf16: the tensor-core
+    # kernel; the fp32 cases of kernels_ssd_bwd and train_mamba2's fp32
+    # gradient check: the CUDA-core kernel; a bf16 x with an fp32 state:
+    # the tensor-core kernel's fp32 state tile) and zamba2-7b's shapes
     ("ssd_chunk_bwd", {"P": 64, "N": 128, "dtype": "bfloat16",
                        "state_dtype": "bfloat16"}),
+    ("ssd_chunk_bwd", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "float32"}),
     ("ssd_chunk_bwd", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
     ("ssd_chunk_bwd", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
 )
@@ -1023,6 +1058,10 @@ def phase_smem() -> None:
                "optin_limit_bytes": limit, "model_budget_bytes": kp.budget,
                "fits": kp.fits and requested <= limit,
                "planned_minus_requested": planned - requested}
+        if kernel == "ssd_chunk_bwd":
+            row["ctas_per_sm"] = sc.bwd_ctas_per_sm(shape["P"], shape["N"],
+                                                    getattr(torch, shape["dtype"]),
+                                                    getattr(torch, shape["state_dtype"]))
         emit(row)
         if not row["fits"]:
             fail(f"smem: {kernel} {shape} does not fit ({row})")
@@ -3993,6 +4032,9 @@ SSD_BWD_CASES = ("kernels_2", "ragged_L33", "L1", "slow_L200_P8", "two_groups_L9
                  "N13_L130", "ragged_L65_P32_N40")
 # the full-width prefill chunks: (arch, label)
 SSD_BWD_ARCHS = (("mamba2-2.7b", "mamba2"), (ZAMBA2, "zamba2"))
+# the kernel's timings, (arch, label): both prefill chunks (batch 1), and
+# mamba2-2.7b's chunk as train_mamba2 calls it (batch 2)
+SSD_BWD_TIMED = (*SSD_BWD_ARCHS, ("mamba2-2.7b", "mamba2_train"))
 SSD_BWD_TIMING: dict = {}
 # train_mamba2's gradients, kernel cores against plain cores, per leaf: max
 # |a - b| over max |b|. fp32 (depth cut to 8 layers): the two backwards sum
@@ -4049,8 +4091,9 @@ def phase_kernels_ssd_bwd(card_name: str) -> dict:
     gradient of the last state: the second chunk's dstate is the first
     chunk's upstream state gradient (the chained cases). Then the autograd
     of repro_torch::ssd_chunk over the chain (fp32) against torch.autograd
-    of ssd_chunk_ref in float64, and the kernel timed beside its bound and
-    the plain version at both prefill shapes."""
+    of ssd_chunk_ref in float64, and the kernel timed beside its bound, the
+    plain version and its CTAs per SM at both prefill shapes and at
+    train_mamba2's call (mamba2's chunk at batch 2, checked first)."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4142,8 +4185,19 @@ def phase_kernels_ssd_bwd(card_name: str) -> dict:
             fail_case(f"ssd_chunk_bwd/{row['case']}/float32/float32",
                       f"ssd_chunk_bwd: autograd over the chain off its bar ({row})")
 
-    # timing at the prefill chunks, bf16, as the training path calls it
-    for arch, name in SSD_BWD_ARCHS:
+    # train_mamba2's call: mamba2's chunk at batch 2
+    cfg = get_config("mamba2-2.7b")
+    _, H, _ = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                       cfg.ssm_groups, cfg.ssm_state)
+    inputs = ssd_inputs(gen, 2, 256, H, cfg.ssm_head_dim, cfg.ssm_state, "original",
+                        cfg.ssm_groups, "bfloat16", "bfloat16")
+    dy = randn_like(inputs[0])
+    _, row = check("mamba2_train", inputs, dy, torch.zeros_like(inputs[5]))
+    record["mamba2_train"] = (row, inputs, dy)
+
+    # timing at the prefill chunks and the training call, bf16, as the
+    # training path calls it
+    for arch, name in SSD_BWD_TIMED:
         row, inputs, dy = record[name]
         dns = randn_like(inputs[5])
         B, L, H, P = inputs[0].shape
@@ -4170,7 +4224,10 @@ def phase_kernels_ssd_bwd(card_name: str) -> dict:
                   "fp32_cuda_core_ms": kernel_bound("ssd_chunk_bwd", {
                       "B": B, "L": L, "H": H, "P": P, "N": N, "dtype": "float32"},
                       card_name=card_name).ops_s * 1e3,
-                  "max_abs_err": row["max_abs_err"]}
+                  "max_abs_err": row["max_abs_err"],
+                  "ctas": B * H * (2 * (((L + 63) // 64 + 1) // 2) + (2 if P == 64 else 1)),
+                  "ctas_per_sm": sc.bwd_ctas_per_sm(P, N, torch.bfloat16, torch.bfloat16),
+                  "workspace_bytes": sc.bwd_workspace_bytes(B, H, torch.bfloat16)}
         if G > 1:
             per_group = kernel_bound("ssd_chunk_bwd", {**shape, "groups": G},
                                      card_name=card_name)
@@ -4284,6 +4341,48 @@ def _grad_gap(got, want) -> dict:
     return gaps
 
 
+def profile_train_step(step_fn, params, opt_state, batch, steady_s: float
+                       ) -> tuple[dict, object, object]:
+    """One train step under ``torch.profiler`` (host clock around it,
+    synchronised): device time by kernel name, ``ssd_chunk_bwd``'s and
+    ``ssd_chunk``'s device time, launches and shares, and the idle share,
+    1 - device time over the profiled step's wall and over ``steady_s``,
+    the unprofiled steps' median. One stream, so the device times do not
+    overlap. Returns the summary and the stepped params and state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+
+    def of(pred):
+        chosen = [e for e in events if pred(e.key)]
+        return (sum(e.self_device_time_total for e in chosen) / 1e3,
+                sum(e.count for e in chosen))
+
+    bwd_ms, bwd_n = of(lambda k: "ssd_chunk_bwd" in k)
+    fwd_ms, fwd_n = of(lambda k: "ssd_chunk_" in k and "bwd" not in k)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    return {"loss": loss, "wall_s": wall, "steady_wall_s": steady_s,
+            "device_ms": device_us / 1e3, "device_events": sum(e.count for e in events),
+            "idle_share": 1 - device_us / 1e6 / wall,
+            "idle_share_of_steady_step": 1 - device_us / 1e6 / steady_s,
+            "ssd_chunk_bwd_ms": bwd_ms, "ssd_chunk_bwd_launches": bwd_n,
+            "ssd_chunk_bwd_share_of_device": bwd_ms * 1e3 / device_us,
+            "ssd_chunk_bwd_share_of_step": bwd_ms / 1e3 / wall,
+            "ssd_chunk_ms": fwd_ms, "ssd_chunk_launches": fwd_n,
+            "top_kernels_ms": {e.key[:100]: e.self_device_time_total / 1e3 for e in top},
+            "top_kernels_count": {e.key[:100]: e.count for e in top}}, params, opt_state
+
+
 def phase_train_mamba2(card_name: str) -> dict:
     """Full-width mamba2-2.7b (64 layers, bf16) trained on the card through
     ``ssd_chunk`` and its hand-written backward: seq_len 512 (2 chunks of
@@ -4388,6 +4487,12 @@ def phase_train_mamba2(card_name: str) -> dict:
                       "ssd_chunk_bwd": after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"]})
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    # ---- one step under torch.profiler; no phase after this one captures a
+    # graph, whose copies a profiler session would move onto the copy engine
+    walls = [s["wall_s"] for s in steps]
+    steady = statistics.median(walls[1:])
+    profiled, params, opt_state = profile_train_step(step_fn, params, opt_state,
+                                                     batch_of(512, 2, 5), steady)
     # ---- remat: the same loss and gradients
     b = batch_of(512, 2, 4)
     loss_off, _, g_off = value_and_grad(make_loss_fn(kernel, remat=False), params, b)
@@ -4396,8 +4501,6 @@ def phase_train_mamba2(card_name: str) -> dict:
     after = read_launches()
     remat_gap = max(_grad_gap(g_on, g_off).values())
     del g_on, g_off
-    walls = [s["wall_s"] for s in steps]
-    steady = statistics.median(walls[1:])
     reckoned = n_params * (2 + 2 + 8)
     checks = {
         "losses_finite": all(math.isfinite(s["loss"]) for s in steps),
@@ -4421,7 +4524,7 @@ def phase_train_mamba2(card_name: str) -> dict:
                      "ssd_chunk": after["ssd_chunk"] - before["ssd_chunk"],
                      "ssd_chunk_bwd": after["ssd_chunk_bwd"] - before["ssd_chunk_bwd"]},
            "grad_checks": {k: v["ok"] for k, v in grad_rows.items()},
-           "checks": checks, "ok": all(checks.values())}
+           "profile": profiled, "checks": checks, "ok": all(checks.values())}
     emit(row)
     if not row["ok"]:
         fail(f"train_mamba2: checks failed: {[k for k, v in checks.items() if not v]}")
@@ -4735,9 +4838,11 @@ def main() -> None:
                 "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")}
         elif name == "ssd_chunk_bwd":
-            row["zamba2_7b"] = {k: SSD_BWD_TIMING["zamba2"][k] for k in (
-                "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "max_abs_err")}
+            row["ctas_per_sm"] = timing[name]["ctas_per_sm"]
+            for arch, label in (("zamba2_7b", "zamba2"), ("train_mamba2_call", "mamba2_train")):
+                row[arch] = {k: SSD_BWD_TIMING[label][k] for k in (
+                    "shape", "groups", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err", "ctas_per_sm")}
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` straight into ``build/torch_ext/lib<name>-<hash>.so`` at the
 repository root (no PyTorch headers, so a build takes seconds, not
-minutes), then loaded with ``ctypes``. The hash covers the source and
-the flags, so an edited source never loads a stale library. Sources are
+minutes), then loaded with ``ctypes``. The hash covers the source, the
+headers beside it and the flags, so an edited source or header never
+loads a stale library. Sources are
 compiled in parallel, one ``nvcc`` each. A build failure raises; nothing
 falls back to a plain version.
 """
@@ -46,8 +47,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built: the digest covers the source,
+    every header beside it (``*.cuh``, which the sources include) and the
+    flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -68,9 +68,10 @@ SSD_FP32_WARPS = 8
 SSD_FP32_TILE = 64
 SSD_FP32_LDW = SSD_FP32_TILE + 4
 
-# csrc/ssd_chunk_bwd.cu: 8 warps (one chunk position per thread in the
-# scans), 64-row tiles in fp32 whatever the input dtypes, the W, dS and H
-# tiles with rows of kTile + 1 floats
+# csrc/ssd_chunk_bwd.cu: the tensor-core kernel (bf16 x/B/C) has 4 warps
+# and bf16 64-row tiles as the forward's; the CUDA-core kernel (fp32
+# x/B/C) 8 warps (one chunk position per thread in the scans), 64-row
+# fp32 tiles, the W, dS and H tiles with rows of kTile + 1 floats
 SSD_BWD_WARPS = 8
 SSD_BWD_TILE = 64
 SSD_BWD_LDT = SSD_BWD_TILE + 1
@@ -232,22 +233,50 @@ def plan_ssd_chunk_bwd_smem(
     *, P: int, N: int, dtype: str = "bfloat16", state_dtype: str | None = None
 ) -> KernelSmemPlan:
     """One CTA of ``ssd_chunk_bwd`` at head dim ``P`` and ``N`` state
-    columns. Its tiles are fp32 whatever ``dtype`` and ``state_dtype``,
-    so every dtype pair plans the same bytes.
+    columns, for x/B/C of ``dtype`` (bf16: the tensor-core kernel, fp32:
+    the CUDA-core kernel) and a state and dns of ``state_dtype`` (default
+    ``dtype``).
 
-    Stages (ops): 0 the float64 prefix sum and the per-position arrays |
-    1 pass 1's row loop (key tile B, x; row tile C, dy; W, dS, H) | 2 pass
-    1's tail (dns and dnsᵀ in the row tile's place) | 3 pass 2's key loop
-    (row tile C, dy; key tile; dS, H) | 4 pass 2's tail (the state in the
-    key tile's place) | 5 dtotal and the float64 reverse sum."""
+    Tensor-core kernel (one layout for its key, row and dstate CTAs; the
+    working set is a key or row CTA's), stages (ops): 0 the prologue (the
+    first copies fly while the float64 prefix sum runs) | 1 the loop over
+    the ring | 2 the tails (the dns terms, the outputs) | 3 the last CTA's
+    reduction (dcum over cum's place, the reverse sum).
+
+    CUDA-core kernel (its tiles fp32 whatever the state's dtype): 0 the
+    float64 prefix sum and the per-position arrays | 1 pass 1's row loop
+    (key tile B, x; row tile C, dy; W, dS, H) | 2 pass 1's tail (dns and
+    dnsᵀ in the row tile's place) | 3 pass 2's key loop (row tile C, dy;
+    key tile; dS, H) | 4 pass 2's tail (the state in the key tile's place)
+    | 5 dtotal and the float64 reverse sum."""
     _check_dtype(dtype)
-    _check_dtype(dtype if state_dtype is None else state_dtype)
+    state_dtype = dtype if state_dtype is None else state_dtype
+    _check_dtype(state_dtype)
     if P not in SSD_HEAD_DIMS or not 1 <= N <= SSD_MAX_N:
         raise ValueError(f"ssd_chunk_bwd is built for P in {SSD_HEAD_DIMS}, "
                          f"1 <= N <= {SSD_MAX_N}; got P={P}, N={N}")
     L, T = SSD_MAX_L, SSD_BWD_TILE
-    ldn, ldp = _fp32_row_stride(N), _fp32_row_stride(P)
     r = _Records()
+    if dtype == "bfloat16":
+        npad = -(-N // 16) * 16
+        pp = -(-P // 16) * 16
+        ldc, ldx = npad + 8, pp + 8  # bf16 rows padded by 8 elements
+        pair = 2 * T * ldc + 2 * T * ldx  # a tile of B or C rows and one of x or dy
+        r.add(0, 3, 8 * L)                 # cum, float64, then dcum
+        r.add(0, 3, 8 * SSD_TC_WARPS)      # the warps' scan and reduction totals
+        r.add(0, 2, 4 * L)                 # dt
+        r.add(0, 2, 4 * L)                 # exp(cum_l - cum_l0), l0 the first row of l's tile
+        r.add(1, 2, 4 * L)                 # a row CTA's exp(cum_I0 - cum_j) dt_j
+        r.add(3, 3, 4)                     # the arrival flag
+        r.add(0, 2, pair)                  # the CTA's own tile pair
+        r.add(0, 1, pair)                  # the ring's first stage
+        r.add(1, 1, pair)                  # its second stage
+        if state_dtype == "bfloat16":
+            r.add(0, 2, 2 * T * ldc)       # the state or dns, bf16 [64][ldc]
+        else:
+            r.add(0, 2, 4 * pp * (npad + 4))  # the state or dns, fp32 [pad16(P)][npad + 4]
+        return r.plan(f"ssd_chunk_bwd[P={P},N={N},{dtype},state={state_dtype}]")
+    ldn, ldp = _fp32_row_stride(N), _fp32_row_stride(P)
     r.add(0, 4, 8 * L)                 # cum, float64
     r.add(0, 5, 8 * SSD_BWD_WARPS)     # the warps' scan totals
     r.add(0, 4, 4 * L)                 # dt
@@ -268,5 +297,4 @@ def plan_ssd_chunk_bwd_smem(
     r.add(3, 3, 4 * T * SSD_BWD_LDT)
     r.add(3, 3, 4 * T * SSD_BWD_LDT)
     r.add(4, 4, 4 * P * ldn)           # the incoming state
-    return r.plan(f"ssd_chunk_bwd[P={P},N={N},{dtype},"
-                  f"state={dtype if state_dtype is None else state_dtype}]")
+    return r.plan(f"ssd_chunk_bwd[P={P},N={N},{dtype},state={state_dtype}]")

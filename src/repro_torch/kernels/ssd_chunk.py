@@ -26,19 +26,23 @@ the count and adds the graph's launches at each replay.
 
 The gradient: ``repro_torch::ssd_chunk_bwd`` takes the six inputs and the
 upstream gradients of y and the new state and returns (dx, ddt, ddA, dBm,
-dCm, dstate) in the inputs' dtypes. CUDA: the hand-written kernel
-``csrc/ssd_chunk_bwd.cu`` (counted in ``BWD_LAUNCHES``); CPU: the plain
-``kernels/ref.ssd_chunk_bwd_ref``. ``torch.library.register_autograd``
-makes it the backward of ``repro_torch::ssd_chunk``, so a model trains
-through two hand-written kernels on the card. The backward kernel reads
-every input through its strides as the forward does; its outputs are
-contiguous, and autograd sums dBm and dCm back over the heads a group's
-``expand`` or ``repeat_interleave`` reached.
+dCm, dstate) in the inputs' dtypes. CUDA: the hand-written kernels of
+``csrc/ssd_chunk_bwd.cu``, by the dtype of x/B/C as the forward: bf16 on
+the tensor cores, a (b, h) split over several CTAs; fp32 on the CUDA
+cores, one CTA per (b, h). ``BWD_LAUNCHES`` counts the calls that launch
+either. CPU: the plain ``kernels/ref.ssd_chunk_bwd_ref``.
+``torch.library.register_autograd`` makes it the backward of
+``repro_torch::ssd_chunk``, so a model trains through two hand-written
+kernels on the card. The backward kernels read every input through its
+strides as the forward does; their outputs are contiguous, and autograd
+sums dBm and dCm back over the heads a group's ``expand`` or
+``repeat_interleave`` reached.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,6 +50,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 LAUNCHES = 0
+# Calls that launched a backward kernel. A bf16 call also takes a workspace
+# from the caching allocator (``bwd_workspace_bytes``: one int32 count and
+# 770 float64 partial sums per (b, h), 986,240 B at train_mamba2's
+# (2, 256, 80, 64, 128)), freed when the call returns.
 BWD_LAUNCHES = 0
 
 HEAD_DIMS = (8, 32, 64)
@@ -84,6 +92,37 @@ def bwd_smem_request_bytes(P: int, N: int, dtype: torch.dtype,
     if n <= 0:
         raise ValueError(f"ssd_chunk_bwd has no instantiation for {dtype}/"
                          f"{state_dtype}, P={P}, N={N}")
+    return n
+
+
+def bwd_workspace_bytes(B: int, H: int, dtype: torch.dtype) -> int:
+    """Bytes of the workspace one backward call of ``B`` x ``H`` (b, h)
+    pairs with x/B/C in ``dtype`` takes (0 for float32), as
+    ``ssd_chunk_bwd_workspace_bytes`` of the source gives them; builds
+    the library."""
+    return _bwd_workspace_fn()(_DTYPE_CODE[dtype], B, H)
+
+
+@functools.cache
+def _bwd_workspace_fn():
+    fn = build.load("ssd_chunk_bwd").ssd_chunk_bwd_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def bwd_ctas_per_sm(P: int, N: int, dtype: torch.dtype,
+                    state_dtype: torch.dtype) -> int:
+    """CTAs of the backward instantiation ``(dtype, state_dtype, P)`` that
+    one SM holds at once for ``N`` state columns (the occupancy API on its
+    registers, shared memory and threads); needs the card."""
+    fn = build.load("ssd_chunk_bwd").ssd_chunk_bwd_ctas_per_sm
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = fn(_DTYPE_CODE[dtype], _DTYPE_CODE[state_dtype], P, N)
+    if n <= 0:
+        raise RuntimeError(f"ssd_chunk_bwd: no occupancy for {dtype}/{state_dtype}, "
+                           f"P={P}, N={N} ({n})")
     return n
 
 
@@ -217,7 +256,10 @@ def _ssd_chunk_bwd_cuda(x, dt, dA, Bm, Cm, state, dy, dnew_state):
     N = Bm.shape[-1]
     outs = _bwd_empty(x, dt, dA, Bm, Cm, state)
     ins = (x, dt, dA, Bm, Cm, state, dy, dnew_state)
-    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in (*ins, *outs)))
+    ws_bytes = bwd_workspace_bytes(B, H, x.dtype)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
+    ptrs = (ctypes.c_void_p * 15)(*(t.data_ptr() for t in (*ins, *outs)),
+                                  None if ws is None else ws.data_ptr())
     strides = (ctypes.c_int64 * 30)(*(s for t in ins for s in t.stride()))
     err = _bwd_kernel()(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[state.dtype], B, L, H, P, N, ptrs,

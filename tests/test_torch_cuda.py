@@ -15,8 +15,9 @@ against prefill through the plain version. The engine's captured steps
 are held against the eager decode step, its blocks against its host
 loop, and ``flash_decode`` inside captured graphs against its plain
 version. The CUDA ``ssd_chunk_bwd`` is held against its plain version in
-float64, the op's autograd against autograd of the plain chunk, and a
-train step through both SSD kernels against the plain cores;
+float64 (its tensor-core kernel also against itself, bit for bit), the
+op's autograd against autograd of the plain chunk, and a train step
+through both SSD kernels against the plain cores;
 ``run_training`` trains and resumes on the card.
 """
 
@@ -1170,6 +1171,27 @@ def test_ssd_chunk_bwd_kernel_matches_plain(cuda, case, x_dtype, state_dtype):
     for name, g, w, t in zip(names, got, want, (x, dt, dA, Bm, Cm, state)):
         assert g.dtype == t.dtype and g.is_contiguous()
         _bwd_close(name, g, w, shape[1])
+
+
+@pytest.mark.parametrize("state_dtype", ["bfloat16", "float32"])
+def test_ssd_chunk_bwd_tensor_core_kernel_gives_the_same_bits_twice(cuda, state_dtype):
+    """The tensor-core backward splits a (b, h) over several CTAs and the
+    last to arrive sums their parts in a fixed order: two calls on the same
+    inputs give the same bits, at mamba2's chunk shape cut to 8 heads and
+    batch 2; two CTAs of the bf16-state instantiation share an SM."""
+    rng = np.random.default_rng(22)
+    x, dt, dA, Bm, Cm, state = _ssd_inputs(rng, cuda, 2, 256, 8, 64, 128, "slow", 1,
+                                           "bfloat16", state_dtype)
+    dy = _rand(rng, x.shape, "bfloat16", cuda)
+    dns = _rand(rng, state.shape, state_dtype, cuda)
+    first = sc.ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy, dns)
+    second = sc.ssd_chunk_bwd(x, dt, dA, Bm, Cm, state, dy, dns)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+    ctas = sc.bwd_ctas_per_sm(64, 128, torch.bfloat16, getattr(torch, state_dtype))
+    assert ctas >= (2 if state_dtype == "bfloat16" else 1)
 
 
 @pytest.mark.parametrize("groups", [1, 2])
