@@ -308,6 +308,38 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                parameters updated (zero frames give the encoder and the
                cross-attention no gradient), every leaf a gradient with
                random frames, the reference's parameter count.
+36. dryrun    — (ROADMAP A15.2) ``launch/dryrun.run_one`` with the
+               activation plan at (data=16, model=16), in a child
+               process that sees no card and starts first (it traces
+               beside the other phases): nemotron-4-340b and
+               llama4-maverick-400b-a17b decode_32k, qwen3-0.6b train_4k;
+               each row ok without a planner error, collective bytes above
+               0, its per-device param bytes the sum this script takes of
+               each leaf's local shard under the reference's specs (frozen
+               in tests/data, held against the reference by
+               tests/test_torch_mesh.py); each decode row's planned
+               activations and peak under 80 GB. The train row is marked
+               not representative (heads gathered, no remat: A15.4).
+37. sharded   — ``build_step``'s steps on DTensors on the card (a child
+               process: NCCL, world 1, a (1, 1) mesh), after every timed
+               phase: full-width qwen3-0.6b, 4 decode steps at 8 slots x
+               2048 (28 ``flash_decode`` launches a step through the op's
+               sharding rule), and full-width mamba2-2.7b, one 2048-token
+               prefill (512 ``ssd_chunk`` launches); each bit-equal to the
+               unsharded eager step (else within 1e-6), the eager twins'
+               launches counted apart.
+38. rank_of_256 — rank 0's local program of full-width nemotron-4-340b
+               decode_32k over the fake group of 256 ranks on the card (a
+               child process): 2.64 GB of local params from a seed, 9.66
+               GB of local K/V, one decode step, whose 96 layers each run
+               ``flash_decode_lse`` on this rank's span of T (context
+               parallel; the kernel at that span first held against its
+               plain version, output and log-sum-exp, and timed); its
+               output's local shape and 96 launches, the allocator's peak
+               beside the dry run's ``arg_gb`` and ``planned_act_gb``, the
+               step's kernel time (torch.profiler) and CUDA-event time,
+               the attention cores. The fake group's collectives move
+               nothing, so the step's values are not checked.
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
@@ -327,8 +359,9 @@ fp32 gradient check cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
 5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26 and
-27, 28, 29 and each of its bundle serves, 30, 34's 4 steps; 7, 24 and
-34's gradient checks for their own checks) and read just after it.
+27, 28, 29 and each of its bundle serves, 30, 34's 4 steps, 37's two
+sharded runs; 7, 24 and 34's gradient checks and 37's eager twins for
+their own checks) and read just after it.
 Every phase's row carries ``t_s``, the run's seconds when it was
 printed.
 
@@ -4606,6 +4639,351 @@ def phase_train_seamless(card_name: str) -> dict:
     return row
 
 
+# the multi-device phases (ROADMAP A15.2): each in a child process of its
+# own, since a process has one default process group
+DRYRUN_ROWS = (("nemotron-4-340b", "decode_32k"),
+               ("llama4-maverick-400b-a17b", "decode_32k"),
+               ("qwen3-0.6b", "train_4k"))
+MESH_PHASES = ("dryrun", "sharded", "rank_of_256")
+
+
+# the reference's per-leaf param specs at (data=16, model=16) of the
+# DRYRUN_ROWS archs, frozen as data (tests/test_torch_mesh.py holds the
+# file against the JAX reference's own rules)
+REFERENCE_SPECS = ROOT / "tests" / "data" / "reference_param_specs_16x16.json"
+ITEMSIZE = {"bfloat16": 2, "float32": 4, "int32": 4}
+# a decode row's planned activations and peak must fit one 80 GB card
+DECODE_ROW_LIMIT_GB = 80.0
+
+
+def reference_param_bytes(arch: str, sizes: dict) -> int:
+    """One rank's param bytes at full width under the reference's specs
+    (``REFERENCE_SPECS``), summed leaf by leaf here: rank 0's shard of
+    each leaf (a dim split k ways keeps ceil(n / k)) times its item size.
+    Nothing of the port's rules enters it."""
+    total = 0
+    for _path, shape, dtype, spec in json.loads(REFERENCE_SPECS.read_text())[arch]:
+        n = 1
+        for dim, e in zip(shape, spec):
+            axes = [] if e is None else [e] if isinstance(e, str) else e
+            n *= -(-dim // math.prod(sizes[a] for a in axes))
+        total += n * ITEMSIZE[dtype]
+    return total
+
+
+def phase_dryrun() -> dict:
+    """``launch/dryrun.run_one`` at (data=16, model=16) with the activation
+    plan, in a child process that sees no card (``CUDA_VISIBLE_DEVICES``
+    empty; the fake group stands for the 256 ranks): nemotron-4-340b and
+    llama4-maverick-400b-a17b decode_32k, qwen3-0.6b train_4k. Each row
+    must be ``ok`` without a planner error, with collective bytes above 0
+    and its per-device param bytes equal to ``reference_param_bytes`` (the
+    reference's specs, frozen in the checkout); a decode row's planned
+    activations and peak must each stay under ``DECODE_ROW_LIMIT_GB``.
+    The train row is recorded and marked not representative: between the
+    hooks DTensor gathers qwen3's heads where its 8 K/V heads do not
+    divide model = 16, and the sharded train step runs without remat
+    (ROADMAP A15.4), so its plan is no device's real need."""
+    from repro_torch.launch.dryrun import run_one
+
+    rows, ok = [], True
+    for arch, shape in DRYRUN_ROWS:
+        row = run_one(arch, shape, activation_plan=True)
+        want = reference_param_bytes(arch, {"data": 16, "model": 16})
+        checks = {"status_ok": row.get("status") == "ok",
+                  "no_planner_error": "planner_error" not in row,
+                  "param_bytes_are_the_references": row.get("param_bytes") == want,
+                  "collectives": row.get("coll_gb", 0) > 0}
+        if shape.startswith("decode"):
+            checks["planned_act_under_limit"] = \
+                row.get("planned_act_gb", math.inf) < DECODE_ROW_LIMIT_GB
+            checks["peak_under_limit"] = \
+                row.get("peak_mem_gb", math.inf) < DECODE_ROW_LIMIT_GB
+        ok &= all(checks.values())
+        rows.append({**{k: row.get(k) for k in (
+            "arch", "shape", "mesh", "status", "error", "wall_s", "param_bytes",
+            "param_gb", "opt_gb", "cache_gb", "batch_gb", "arg_gb", "planned_act_gb",
+            "peak_mem_gb", "attention_core", "hlo_gflops", "hbm_gb", "coll_gb",
+            "collective_counts", "collective_bytes_by_kind", "compute_s", "memory_s",
+            "collective_s", "dominant", "model_flops_ratio", "graph_nodes",
+            "planner_total_gb", "planner_lb_gb", "planner_naive_gb", "planner_strategy",
+            "state_total_gb", "state_live_gb", "planner_error")},
+            "param_bytes_reference": want, "checks": checks,
+            "representative": not shape.startswith("train")})
+    row = {"phase": "dryrun", "mesh": "16x16", "rows": rows, "ok": ok}
+    emit(row)
+    if not ok:
+        fail(f"dryrun: {[(r['arch'], r['checks']) for r in rows]}")
+    return row
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _parity(got, want) -> dict:
+    """PERF.md §2's parity rule: bit for bit expected, else within 1e-6."""
+    import torch
+
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    return {"bit_equal": equal, "max_abs_err": err, "ok": equal or err <= 1e-6}
+
+
+def phase_sharded(card_name: str) -> dict:
+    """The sharded steps of ``launch/dryrun.build_step`` on the card: NCCL,
+    world 1, a (data=1, model=1) mesh, DTensors over real full-width
+    tensors from a seed. qwen3-0.6b, 8 slots x 2048 positions (a cache
+    filled from the seed, the slots at their own positions, one inactive):
+    4 decode steps, each 28 ``flash_decode`` launches through the op's
+    sharding rule (its 8 K/V heads divide model = 1, so the kernel runs);
+    mamba2-2.7b: one 2048-token prefill, 512 ``ssd_chunk`` launches (64
+    layers x 8 chunks). Each against the unsharded eager step on the same
+    inputs by PERF.md §2's parity rule; the eager twin's launches are
+    counted apart."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import build_step, cores_taken
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import attention
+    from repro_torch.models.api import ShapeSpec, for_config
+    from repro_torch.tree_util import leaves
+
+    mesh = init_mesh((1, 1), ("data", "model"), "cuda",
+                     init_method=f"tcp://localhost:{_free_port()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"phase": "sharded", "card": card_name, "mesh": "1x1 (nccl)"}
+    # ---- qwen3-0.6b: 4 decode steps
+    arch, B, T, N = "qwen3-0.6b", 8, 2048, 4
+    cfg = get_config(arch)
+    model = for_config(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    cache = model.init_cache(B, T)
+    for leaf in leaves(cache):
+        leaf.normal_(0.0, 0.5, generator=gen)
+    pos = torch.tensor([16, 300, 511, 1024, 1500, 1800, 2000, 2040], dtype=torch.int32,
+                       device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+    active[2] = False
+    tokens = torch.randint(0, cfg.vocab, (N, B, 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    step, _ = build_step(arch, "decode", mesh, cfg=cfg,
+                         shape=ShapeSpec("decode", T, B, "decode"), device="cuda")
+    # the shards are copies: the eager twin steps on ``cache`` itself
+    local = list(step.shard((params, tokens[0], cache, pos, active, model.rope_tables)))
+    reset_launches()
+    want = []
+    for i in range(N):
+        logits, _ = model.decode_step(params, tokens[i], cache, pos + i, active)
+        want.append(logits)
+    torch.cuda.synchronize()
+    eager = read_launches()["flash_decode"]
+    reset_launches()
+    attention.CORES.clear()
+    got = []
+    for i in range(N):
+        if i:
+            local[1] = step.shard_input(1, tokens[i])
+            local[3] = step.shard_input(3, pos + i)
+        got.append(step.gather(step.fn(*local)))
+    torch.cuda.synchronize()
+    n = read_launches()["flash_decode"]
+    core = cores_taken(attention.CORES)
+    par = _parity(got, want)
+    cache_par = _parity(leaves(local[2]), leaves(cache))
+    per_step = flash_decode_per_step(cfg)
+    out["qwen3_decode"] = {
+        "slots": B, "max_len": T, "steps": N, "attention_core": core,
+        "flash_decode_launches": n, "expected": N * per_step,
+        "eager_twin_launches": eager, "logits": par, "cache": cache_par,
+        "ok": par["ok"] and cache_par["ok"] and n == N * per_step
+        and core == "kernel"}
+    del params, cache, local, got, want
+    torch.cuda.empty_cache()
+    # ---- mamba2-2.7b: one 2048-token prefill
+    arch, S = "mamba2-2.7b", 2048
+    cfg = get_config(arch)
+    model = for_config(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    reset_launches()
+    want_logits, want_caches = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    eager = read_launches()["ssd_chunk"]
+    step, _ = build_step(arch, "prefill", mesh, cfg=cfg,
+                         shape=ShapeSpec("prefill", S, 1, "prefill"), device="cuda")
+    local = step.shard((params, batch, model.rope_tables))
+    del params
+    reset_launches()
+    logits, caches = step.gather(step.fn(*local))
+    torch.cuda.synchronize()
+    n = read_launches()["ssd_chunk"]
+    par = _parity([logits], [want_logits])
+    cache_par = _parity(leaves(caches), leaves(want_caches))
+    out["mamba2_prefill"] = {
+        "tokens": S, "ssd_chunk_launches": n, "expected": cfg.n_layers * (S // 256),
+        "eager_twin_launches": eager, "logits": par, "caches": cache_par,
+        "ok": par["ok"] and cache_par["ok"] and n == cfg.n_layers * (S // 256)}
+    out["launches"] = {"flash_decode": out["qwen3_decode"]["flash_decode_launches"],
+                       "ssd_chunk": n}
+    out["ok"] = out["qwen3_decode"]["ok"] and out["mamba2_prefill"]["ok"]
+    emit(out)
+    if not out["ok"]:
+        fail(f"sharded: {out}")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return out
+
+
+def phase_rank_of_256(card_name: str, note: dict) -> dict:
+    """Rank 0's local program of full-width nemotron-4-340b decode_32k on
+    (data=16, model=16), run on the card over the fake group of 256 ranks
+    (a collective there returns without moving data, so the values are
+    not checked): its local params drawn from a seed (2.64 GB), its local
+    K/V (9.66 GB) and one decode step. Its 8 K/V heads do not divide
+    model = 16, so the cache's T is split and each of the 96 layers runs
+    ``flash_decode_lse`` on this rank's span of 2,048 positions
+    (``models/attention.flash_decode_context_parallel``). First the kernel
+    at that shape is held against its plain version on the same inputs
+    (the output at the bf16 bar, the log-sum-exp within 1e-4 + 1e-5·|want|;
+    rows of length 0 included) and timed beside its bound. Checks the
+    step completes with the output's local shape and launches the kernel
+    once a layer; records the allocator's peak over the step beside the
+    dry run's ``arg_gb`` and ``planned_act_gb`` for the same row
+    (``note``, from the dryrun phase), the step's device time (the
+    kernels' sum under torch.profiler, and CUDA events around it) and the
+    attention cores taken."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import flash_decode_lse_ref
+    from repro_torch.launch.dryrun import build_step, cores_taken
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.launch.roofline import kernel_bound
+    from repro_torch.models import attention
+    from repro_torch.models.api import INPUT_SHAPES, for_config
+    from repro_torch.tree_util import tree_map
+
+    mesh = init_mesh((16, 16), ("data", "model"), "cuda", backend="fake")
+    step, _ = build_step("nemotron-4-340b", "decode_32k", mesh, device="cuda")
+    cfg = step.ctx.cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(meta):
+        t = torch.empty(meta.shape, dtype=meta.dtype, device="cuda")
+        if t.is_floating_point():
+            return t.normal_(0.0, 0.02, generator=gen)
+        return t
+
+    params_l, token_l, cache_l, pos_l, active_l, tables_l = step.inputs
+    # the kernel at one rank's span: (8 slots, 8 K/V heads, 12, 192) over
+    # 2,048 positions, bf16
+    B, KV = token_l.shape[0], cfg.n_kv_heads
+    G, D = cfg.n_heads // KV, cfg.resolved_head_dim
+    T = INPUT_SHAPES["decode_32k"].seq_len // mesh.size(1)
+    q = (torch.randn((B, KV, G, D), generator=gen, device="cuda") * Q_STD
+         ).to(torch.bfloat16)
+    k, v = ((torch.randn((B, T, KV, D), generator=gen, device="cuda") * 0.5
+             ).to(torch.bfloat16) for _ in range(2))
+    mix = torch.tensor([0, 1, 129, 700, 1500, 2047, T, 0][:B], dtype=torch.int32,
+                       device="cuda")
+    before = fd.LAUNCHES
+    out, lse = fd.flash_decode_lse(q, k, v, mix)
+    want_out, want_lse = flash_decode_lse_ref(q.float(), k.float(), v.float(), mix)
+    torch.cuda.synchronize()
+    err = (out.float() - want_out).abs()
+    lse_err = (lse - want_lse).abs()
+    kernel_ok = bool((err <= 1e-3 + 1e-2 * want_out.abs()).all()) and bool(
+        (lse_err <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    ms = cuda_time_ms(lambda: fd.flash_decode_lse(q, k, v, full))
+    plain_ms = cuda_time_ms(lambda: flash_decode_lse_ref(q, k, v, full))
+    fd.LAUNCHES = before  # the check's and the timing's launches are not the step's
+    bound = kernel_bound("flash_decode", {"B": B, "KV": KV, "G": G, "D": D, "T": T,
+                                          "dtype": "bfloat16"}, card_name=card_name)
+    kernel = {"kernel": "flash_decode_lse", "shape": [B, KV, G, D, T],
+              "lengths_checked": mix.tolist(), "max_abs_err": float(err.max()),
+              "lse_max_abs_err": float(lse_err.max()), "ms": ms, "plain_ms": plain_ms,
+              "library_ms": None,
+              "library": "none: no public PyTorch call returns the log-sum-exp",
+              "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
+              "ok": kernel_ok}
+    del q, k, v, out, want_out, full
+    torch.cuda.empty_cache()
+
+    vocab = step.shapes[0]["embed"].shape[0]
+    inputs = [tree_map(draw, params_l), None, tree_map(draw, cache_l), None, None, None]
+    inputs[1] = torch.randint(0, vocab, tuple(token_l.shape), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    inputs[3] = torch.randint(0, 32767, tuple(pos_l.shape), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    inputs[4] = torch.ones(tuple(active_l.shape), dtype=torch.bool, device="cuda")
+    inputs[5] = for_config(cfg, "cuda").rope_tables
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    attention.CORES.clear()
+    logits = step.fn(*inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()["flash_decode"]
+    core = cores_taken(attention.CORES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        logits = step.fn(*inputs)
+        end.record()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.self_device_time_total for e in prof.key_averages())
+    want_shape = (8, vocab // 16)
+    per_step = flash_decode_per_step(cfg)
+    row = {"phase": "rank_of_256", "card": card_name, "arch": "nemotron-4-340b",
+           "shape": "decode_32k", "mesh": "16x16 (fake group, rank 0)",
+           "values_checked": False,
+           "why_not_values": "the fake group's collectives leave their outputs unwritten",
+           "local_logits_shape": list(logits.shape), "want_shape": list(want_shape),
+           "inputs_gb": args_bytes / 1e9, "peak_gb": peak / 1e9,
+           "peak_over_inputs_gb": (peak - args_bytes) / 1e9,
+           "dryrun_arg_gb": note.get("arg_gb"),
+           "dryrun_planned_act_gb": note.get("planned_act_gb"),
+           "dryrun_peak_mem_gb": note.get("peak_mem_gb"),
+           "device_kernel_ms": kernel_us / 1e3, "event_ms": start.elapsed_time(end),
+           "attention_core": core, "launches": launches,
+           "expected_launches": per_step, "kernel_at_span": kernel,
+           "ok": tuple(logits.shape) == want_shape and launches == per_step
+           and core == "kernel: context-parallel" and kernel_ok}
+    emit(row)
+    if not row["ok"]:
+        fail(f"rank_of_256: local logits {tuple(logits.shape)} (want {want_shape}), "
+             f"{launches} flash_decode launches (want {per_step}), core {core!r}, "
+             f"kernel at the span {kernel}")
+    return row
+
+
+def run_mesh_child(phases: set) -> None:
+    """A child of ``start_fresh_process`` running one multi-device phase:
+    ``dryrun`` sees no card; ``sharded`` and ``rank_of_256`` wait until the
+    parent collects them (its kernels built, its timed phases done)."""
+    if "dryrun" in phases:
+        phase_dryrun()
+        return
+    note = wait_for_parent()
+    smi, card_name = phase_device()
+    phase_build()
+    if "sharded" in phases:
+        phase_sharded(card_name)
+    else:
+        phase_rank_of_256(card_name, note)
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
@@ -4613,13 +4991,14 @@ PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_zamba2", "prefill_zamba2", "parity_internvl2", "serve_internvl2",
           "prefill_internvl2", "parity_paged", "serve_paged", "serve_bundle",
           "serve_aot", "serve_pytree", "serve_paged_gemma3", "serve_paged_zamba2",
-          "smem", "kernels_ssd_bwd", "train", "train_mamba2", "train_seamless")
+          "smem", "kernels_ssd_bwd", "train", "train_mamba2", "train_seamless",
+          "dryrun", "sharded", "rank_of_256")
 
 
 T0 = time.perf_counter()
 # phases that need no kernel of the port built (a child running only
 # them skips the build)
-NO_KERNEL_PHASES = {"train"}
+NO_KERNEL_PHASES = {"train", "dryrun"}
 
 
 def main() -> None:
@@ -4643,7 +5022,17 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (no src/repro_torch)")
     sys.path.insert(0, str(ROOT / "src"))
+    if args.child and phases & set(MESH_PHASES):
+        run_mesh_child(phases)
+        return
     smi, card_name = phase_device()
+    # the multi-device phases' children: the dry run traces on the host
+    # beside everything else; the sharded runs import now and touch the
+    # card only when collected, after every timed phase
+    mesh_children = {
+        phase: start_fresh_process(phase, env={"CUDA_VISIBLE_DEVICES": ""}
+                                   if phase == "dryrun" else None)
+        for phase in MESH_PHASES if phase in phases and not args.child}
     if phases & set(BUCKET_PHASES):
         start_qwen3_compiles()
     train = None
@@ -4786,6 +5175,20 @@ def main() -> None:
             launches[name]["mamba2-2.7b train_mamba2"] = row["launches"][name]
     if "train_seamless" in phases:
         phase_train_seamless(card_name)
+    if "dryrun" in mesh_children:
+        dry = finish_fresh_process("dryrun", mesh_children["dryrun"])
+        note = next(r for r in dry["rows"] if r["arch"] == "nemotron-4-340b")
+    else:
+        note = {}
+    if "sharded" in mesh_children:
+        row = finish_fresh_process("sharded", mesh_children["sharded"])
+        launches["flash_decode"]["qwen3-0.6b sharded decode"] = \
+            row["launches"]["flash_decode"]
+        launches["ssd_chunk"]["mamba2-2.7b sharded prefill"] = row["launches"]["ssd_chunk"]
+    if "rank_of_256" in mesh_children:
+        row = finish_fresh_process("rank_of_256", mesh_children["rank_of_256"], note)
+        launches["flash_decode"]["nemotron-4-340b rank 0 of 256 decode (T split)"] = \
+            row["launches"]
     if FAILED_CASES:
         fail(f"{len(FAILED_CASES)} case(s) over their bars: {FAILED_CASES}")
     if "smem" in phases:

@@ -2,10 +2,11 @@
 
 The schema is the reference's, field for field, so a config means the
 same model in both packages. The registry holds every arch of the
-reference. nemotron-4-340b and llama4-maverick-400b-a17b have their reduced
-configs only (``get_reduced``): their full widths need more than one
-card. llama4's module keeps its ``CONFIG`` importable, so one period of
-it can be built at full width on one card.
+reference, each with its full config (``get_config``) and its reduced
+one (``get_reduced``). nemotron-4-340b and llama4-maverick-400b-a17b are
+not in ``PORTED_ARCH_IDS``: their full widths need more than one card,
+and run sharded (``launch/mesh.py``, ``launch/dryrun.py``); one period of
+llama4 is built at full width on one card.
 """
 
 from __future__ import annotations
@@ -116,23 +117,13 @@ ARCH_IDS: tuple[str, ...] = (
     "mamba2-2.7b",
 )
 
-# the archs this port builds at full width (the enc-dec one is trained,
-# not served, as in the reference)
+# the archs one card builds whole at full width (the enc-dec one is
+# trained, not served, as in the reference)
 PORTED_ARCH_IDS: tuple[str, ...] = ("qwen3-0.6b", "mamba2-2.7b", "gemma3-4b",
                                     "gemma3-27b", "granite-moe-3b-a800m",
                                     "zamba2-7b", "internvl2-1b",
                                     "seamless-m4t-medium")
-# archs whose reduced config the port builds and tests, while the full
-# width waits for the slice named here
-_REDUCED_ONLY = {
-    "nemotron-4-340b": "the multi-device slice (ROADMAP A15.2): 340B parameters "
-                       "do not fit one card",
-    "llama4-maverick-400b-a17b": "the multi-device slice (ROADMAP A15.2): 400B "
-                                 "parameters do not fit one card",
-}
-
-_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_")
-               for a in (*PORTED_ARCH_IDS, *_REDUCED_ONLY)}
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def _module(arch_id: str):
@@ -144,11 +135,6 @@ def _module(arch_id: str):
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _REDUCED_ONLY:
-        raise NotImplementedError(
-            f"arch {arch_id!r}: the port builds its reduced config only "
-            f"(get_reduced); the full width comes with {_REDUCED_ONLY[arch_id]}"
-        )
     return _module(arch_id).CONFIG
 
 

@@ -53,6 +53,12 @@
 // cache. The page arithmetic is int64: a page index times the page size
 // passes 2^31 elements in a pool over 4 GiB of bf16.
 //
+// With `lse` given (flash_decode_lse), the merging CTA also writes each query
+// head's log-sum-exp of its scores over [0, lengths[b]), m + log(l), in fp32,
+// and -1e30 for a row with no position: a cache whose T is split over ranks
+// (context parallel) is attended span by span, each rank on its own span, and
+// the ranks' outputs merge with weights exp(lse_r - max_r lse_r).
+//
 // Not done here (left for later work): TMA loads and wgmma.
 //
 // Plain C interface; the Python wrapper (kernels/flash_decode.py) loads the
@@ -175,11 +181,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // (b, h) that every call leaves at 0.) The (m, l) of every partial go to
 // shared memory `sm` (2 * kMaxSplits * G + G floats) and each query head's
 // weights exp(m_s - max m) are taken once; then every thread sums its
-// elements' n_split partials with the loads unrolled.
+// elements' n_split partials with the loads unrolled. `lse` (may be null)
+// takes each query head's max m + log(sum l), or -1e30 where sum l is 0.
 template <typename T, int D, int G>
 __device__ __forceinline__ void merge_if_last(const float* part_acc,
                                               const float* part_ml, T* out,
-                                              int* counters, int bh,
+                                              float* lse, int* counters, int bh,
                                               int n_split, float* sm) {
   __shared__ int last;
   __threadfence();  // this thread's partial is visible to the whole card
@@ -213,6 +220,7 @@ __device__ __forceinline__ void merge_if_last(const float* part_acc,
       lsum += sm_l[s * G + g] * weight;
     }
     sm_inv[g] = 1.f / fmaxf(lsum, 1e-30f);
+    if (lse != nullptr) lse[bh * G + g] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
@@ -235,7 +243,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ lengths,
                           float* __restrict__ part_acc, float* __restrict__ part_ml,
-                          T* __restrict__ out, int* __restrict__ counters,
+                          T* __restrict__ out, float* __restrict__ lse,
+                          int* __restrict__ counters,
                           int n_kv, int t_len, int n_split, int span, int64_t k_sb,
                           int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
                           int64_t v_sh, float scale, const int* __restrict__ table,
@@ -269,7 +278,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pml[2 * threadIdx.x] = kNegInf;
       pml[2 * threadIdx.x + 1] = 0.f;
     }
-    merge_if_last<T, D, G>(part_acc, part_ml, out, counters, bh, n_split,
+    merge_if_last<T, D, G>(part_acc, part_ml, out, lse, counters, bh, n_split,
                            reinterpret_cast<float*>(smem));
     return;
   }
@@ -504,7 +513,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pml[2 * g + 1] = lsum;
     }
   }
-  merge_if_last<T, D, G>(part_acc, part_ml, out, counters, bh, n_split,
+  merge_if_last<T, D, G>(part_acc, part_ml, out, lse, counters, bh, n_split,
                          reinterpret_cast<float*>(smem));
 }
 
@@ -513,6 +522,7 @@ struct Args {
   int batch, n_kv, t_len, n_split;
   const void *q, *k, *v, *lengths;
   void* out;
+  float* lse;  // null unless flash_decode_lse
   float* part;
   int* counters;
   int64_t k_sb, k_st, k_sh, v_sb, v_st, v_sh;
@@ -542,7 +552,8 @@ cudaError_t launch(const Args& a) {
   kernel<<<parts, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.lengths), part_acc,
-      part_ml, static_cast<T*>(a.out), a.counters, a.n_kv, a.t_len, a.n_split,
+      part_ml, static_cast<T*>(a.out), a.lse, a.counters, a.n_kv, a.t_len,
+      a.n_split,
       span, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.scale, a.table,
       a.pps, a.page_elems);
   return cudaGetLastError();
@@ -584,18 +595,20 @@ int smem_bytes(int d, int g) {
 // head dimension; lengths is int32 (B,) on the device. `part` is fp32
 // scratch of B * KV * n_split * G * (D + 2) floats for the partials of the
 // n_split spans; `counters` is int32 (B * KV,), all 0 before the call and
-// left at 0 after it. Returns a cudaError_t.
+// left at 0 after it. `lse` is null, or fp32 (B, KV, G) for each query
+// head's log-sum-exp (flash_decode_lse). Returns a cudaError_t.
 extern "C" int flash_decode_launch(int dtype, int batch, int n_kv, int g,
                                    int d, int t_len, int n_split,
                                    const void* q, const void* k, const void* v,
-                                   const void* lengths, void* out, void* part,
-                                   void* counters, int64_t k_sb, int64_t k_st,
-                                   int64_t k_sh, int64_t v_sb, int64_t v_st,
-                                   int64_t v_sh, float scale, void* stream) {
+                                   const void* lengths, void* out, void* lse,
+                                   void* part, void* counters, int64_t k_sb,
+                                   int64_t k_st, int64_t k_sh, int64_t v_sb,
+                                   int64_t v_st, int64_t v_sh, float scale,
+                                   void* stream) {
   if (batch * n_kv == 0) return cudaSuccess;
   if (n_split < 1 || n_split > kMaxSplits) return cudaErrorInvalidValue;
   const Args a{batch, n_kv, t_len, n_split, q, k, v, lengths, out,
-               static_cast<float*>(part), static_cast<int*>(counters), k_sb,
+               static_cast<float*>(lse), static_cast<float*>(part), static_cast<int*>(counters), k_sb,
                k_st, k_sh, v_sb, v_st, v_sh, scale,
                static_cast<cudaStream_t>(stream), nullptr, 0, 0};
   switch (dtype) {
@@ -628,7 +641,7 @@ extern "C" int flash_decode_paged_launch(int dtype, int batch, int n_kv, int g,
   if (n_split < 1 || n_split > kMaxSplits || page_elems < 1) {
     return cudaErrorInvalidValue;
   }
-  const Args a{batch, n_kv, t_len, n_split, q, buf, buf, lengths, out,
+  const Args a{batch, n_kv, t_len, n_split, q, buf, buf, lengths, out, nullptr,
                static_cast<float*>(part), static_cast<int*>(counters), k_off,
                t_st, h_st, v_off, t_st, h_st, scale,
                static_cast<cudaStream_t>(stream), static_cast<const int*>(table),

@@ -43,8 +43,25 @@ with its loads translated through the table (the template flag
 ``kernels/ref.flash_decode_paged_ref``, which gathers and calls
 ``flash_decode_ref``.
 
+``repro_torch::flash_decode_lse`` is the same kernel returning, beside
+the output, each query head's log-sum-exp of its scores over ``[0,
+lengths[b])`` in fp32 ``(B, KV, G)`` (the merging CTA writes it from its
+(m, l)); a row with no position gives the output 0 and -1e30, so
+``lengths`` may be 0 there. On the CPU it is
+``kernels/ref.flash_decode_lse_ref``.
+
+Under sharding (a step on DTensors, ``launch/mesh.py``) ``flash_decode``
+has a sharding rule of its own (``_sharding``): batch on the batch axes,
+the KV heads on ``model``, or every input replicated; each rank launches
+the kernel on its shard. A cache whose T is split over ranks (context
+parallel) needs the ranks' softmaxes merged, which no placement of one
+op gives: there the model calls ``flash_decode_lse`` on each rank's span
+and merges the ranks' outputs by their log-sum-exps
+(``models/attention.flash_decode_context_parallel``).
+
 ``LAUNCHES`` and ``PAGED_LAUNCHES`` count kernel launches (the CUDA path
-only), one per call of each op. A call under CUDA graph capture
+only), one per call of each op (``flash_decode_lse`` counts in
+``LAUNCHES``: it is the same kernel). A call under CUDA graph capture
 launches nothing: ``runtime/graphs.py`` takes it off the count and adds
 the graph's launches at each replay.
 """
@@ -56,7 +73,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
+from repro_torch.kernels.ref import (flash_decode_lse_ref, flash_decode_paged_ref,
+                                     flash_decode_ref)
 
 LAUNCHES = 0
 PAGED_LAUNCHES = 0
@@ -103,7 +121,7 @@ def _kernel():
         fn = build.load("flash_decode").flash_decode_launch
         fn.argtypes = (
             [ctypes.c_int] * 7
-            + [ctypes.c_void_p] * 7
+            + [ctypes.c_void_p] * 8
             + [ctypes.c_int64] * 6
             + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -257,6 +275,15 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _flash_decode_cuda(q, k_cache, v_cache, lengths):
+    return _launch(q, k_cache, v_cache, lengths, None)
+
+
+def _flash_decode_lse_cuda(q, k_cache, v_cache, lengths):
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k_cache, v_cache, lengths, lse), lse
+
+
+def _launch(q, k_cache, v_cache, lengths, lse):
     global LAUNCHES
     check_inputs(q, k_cache, v_cache, lengths)
     _check_cuda_layout(q, k_cache, v_cache, lengths)
@@ -270,7 +297,8 @@ def _flash_decode_cuda(q, k_cache, v_cache, lengths):
     err = _kernel()(
         _DTYPE_CODE[q.dtype], B, KV, G, D, T, n_split,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), part.data_ptr(),
         _counters(q.device, stream, B * KV).data_ptr(),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -330,6 +358,16 @@ def _flash_decode_fake(q, k_cache, v_cache, lengths):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
+def _flash_decode_lse_cpu(q, k_cache, v_cache, lengths):
+    check_inputs(q, k_cache, v_cache, lengths)
+    return flash_decode_lse_ref(q, k_cache, v_cache, lengths)
+
+
+def _flash_decode_lse_fake(q, k_cache, v_cache, lengths):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 def _flash_decode_paged_cpu(q, buf, table, *args):
     check_paged_inputs(q, buf, table, *args)
     return flash_decode_paged_ref(q, buf, table, *args)
@@ -348,6 +386,13 @@ _LIB.impl("flash_decode", _flash_decode_cuda, "CUDA")
 _LIB.impl("flash_decode", _flash_decode_cpu, "CPU")
 torch.library.register_fake("repro_torch::flash_decode")(_flash_decode_fake)
 _LIB.define(
+    "flash_decode_lse(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths)"
+    " -> (Tensor, Tensor)"
+)
+_LIB.impl("flash_decode_lse", _flash_decode_lse_cuda, "CUDA")
+_LIB.impl("flash_decode_lse", _flash_decode_lse_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_decode_lse")(_flash_decode_lse_fake)
+_LIB.define(
     "flash_decode_paged(Tensor q, Tensor buf, Tensor table, int k_offset, "
     "int v_offset, int pos_stride, int head_stride, int t_len, int page_elems, "
     "Tensor lengths) -> Tensor"
@@ -358,9 +403,33 @@ torch.library.register_fake("repro_torch::flash_decode_paged")(
     _flash_decode_paged_fake)
 
 
+def _sharding(q, k_cache, v_cache, lengths):
+    """Acceptable placements of one mesh dim, (output, inputs): all
+    replicated, the batch split, or the KV heads split (lengths whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    return [([R], [R, R, R, R]),
+            ([Shard(0)], [Shard(0), Shard(0), Shard(0), Shard(0)]),
+            ([Shard(1)], [Shard(1), Shard(2), Shard(2), R])]
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.flash_decode.default)(_sharding)
+
+
 def flash_decode(q, k_cache, v_cache, lengths) -> torch.Tensor:
     """(B, KV, G, D) attention output in q's dtype."""
     return torch.ops.repro_torch.flash_decode(q, k_cache, v_cache, lengths)
+
+
+def flash_decode_lse(q, k_cache, v_cache, lengths
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_decode``'s output and each query head's log-sum-exp of its
+    scores, fp32 ``(B, KV, G)``; ``lengths`` may be 0 (output 0, -1e30)."""
+    return torch.ops.repro_torch.flash_decode_lse(q, k_cache, v_cache, lengths)
 
 
 def flash_decode_paged(q, buf, table, k_offset: int, v_offset: int,

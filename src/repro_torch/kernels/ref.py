@@ -29,6 +29,26 @@ def flash_decode_ref(
     return o.to(q.dtype)
 
 
+def flash_decode_lse_ref(q, k_cache, v_cache, lengths
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_decode_ref``'s output and each query head's log-sum-exp
+    ``m + log(l)`` of its scores (fp32 ``(B, KV, G)``), as the kernel
+    merges them: a row with no position (``lengths`` 0) gives the output
+    0 and the log-sum-exp -1e30."""
+    D = q.shape[-1]
+    T = k_cache.shape[1]
+    s = torch.einsum("bkgd,btkd->bkgt", q.float() * (1.0 / D ** 0.5), k_cache.float())
+    mask = torch.arange(T, device=q.device) < lengths[:, None, None, None]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), 0.0)
+    l = e.sum(dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", e, v_cache.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)), -1e30)
+    return o.to(q.dtype), lse
+
+
 def paged_index(table: torch.Tensor, offset, strides: tuple[int, ...],
                 shape: tuple[int, ...], page_elems: int) -> torch.Tensor:
     """Physical element indices of a paged cache into the buffer viewed as

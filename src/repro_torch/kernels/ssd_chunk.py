@@ -37,6 +37,11 @@ kernels on the card. The backward kernels read every input through its
 strides as the forward does; their outputs are contiguous, and autograd
 sums dBm and dCm back over the heads a group's ``expand`` or
 ``repeat_interleave`` reached.
+
+Under sharding (a step on DTensors, ``launch/mesh.py``) both ops have
+sharding rules of their own (``_sharding``, ``_bwd_sharding``): batch on
+the batch axes, heads on ``model``, or every input replicated; each rank
+launches the kernel on its shard.
 """
 
 from __future__ import annotations
@@ -322,6 +327,33 @@ def _backward(ctx, dy, dnew_state):
 
 torch.library.register_autograd("repro_torch::ssd_chunk", _backward,
                                 setup_context=_setup_context)
+
+
+def _sharding(x, dt, dA, Bm, Cm, state):
+    """Acceptable placements of one mesh dim for ``ssd_chunk``, (outputs,
+    inputs): all replicated, the batch split, or the heads split (dim 2
+    of the per-position inputs, dim 1 of the state)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R, b, h, hs = Replicate(), Shard(0), Shard(2), Shard(1)
+    return [([R, R], [R] * 6), ([b, b], [b] * 6), ([h, hs], [h] * 5 + [hs])]
+
+
+def _bwd_sharding(x, dt, dA, Bm, Cm, state, dy, dnew_state):
+    """``_sharding`` for the backward: dy follows x and dnew_state the
+    state; each gradient follows its input."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R, b, h, hs = Replicate(), Shard(0), Shard(2), Shard(1)
+    return [([R] * 6, [R] * 8), ([b] * 6, [b] * 8),
+            ([h] * 5 + [hs], [h] * 5 + [hs, h, hs])]
+
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.ssd_chunk.default)(_sharding)
+    register_sharding(torch.ops.repro_torch.ssd_chunk_bwd.default)(_bwd_sharding)
 
 
 def ssd_chunk(x, dt, dA, Bm, Cm, state) -> tuple[torch.Tensor, torch.Tensor]:

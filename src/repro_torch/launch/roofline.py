@@ -25,6 +25,13 @@ Two counts read one model:
   call (each input read once, each output written once; operations at
   the rate of the units the kernel computes on), from the same formulas.
 
+``Roofline`` is the reference's row of one sharded step
+(``launch/dryrun.py``): per-device FLOPs, bytes and collective bytes
+(``launch/fx_analysis.py``) over the card's peaks, with the collective
+term at NVLink's published rate each way, a lower bound on the time: an
+axis of 16 cards spans two 8-card NVLink nodes, whose link between them
+is slower.
+
 ``count_params``, ``active_params`` and ``model_flops`` are the
 reference's, for the model FLOPs utilisation (``mfu``); ``expert_bytes``
 sizes a MoE layer's expert weights, all of them (what the one-hot
@@ -363,6 +370,61 @@ def step_count(
 # ------------------------------------------------- the reference's counts
 
 
+@dataclasses.dataclass
+class Roofline:
+    """One sharded step on one device (reference ``roofline.py:105-157``):
+    its terms at ``card_name``'s peaks, dense bf16 for the compute."""
+
+    arch: str
+    shape: str
+    mesh: str
+    flops: float  # per device
+    bytes_accessed: float  # per device
+    collective_bytes: float  # per device
+    collectives: Any  # fx_analysis.GraphCost
+    model_flops: float  # 6·N·D (or active-N) whole-step, per device share
+    peak_memory_bytes: float  # per device: arguments + planned activations
+    card_name: str = "H100 SXM"
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / card(self.card_name).peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_accessed / card(self.card_name).hbm_bytes_per_s
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / card(self.card_name).nvlink_bytes_per_s
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch,
+            "shape": self.shape,
+            "mesh": self.mesh,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "hlo_gflops": self.flops / 1e9,
+            "hbm_gb": self.bytes_accessed / 1e9,
+            "coll_gb": self.collective_bytes / 1e9,
+            "model_flops_ratio": self.useful_flops_ratio,
+            "peak_mem_gb": self.peak_memory_bytes / 1e9,
+        }
+
+
 def count_params(cfg) -> int:
     """Parameter count from the config (analytic, no allocation)."""
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
@@ -471,7 +533,7 @@ def mfu(model_flops_: float, device_s: float, card_name: str) -> float:
 
 
 __all__ = [
-    "Bound", "Card", "StepCount", "active_params", "card", "count_params",
+    "Bound", "Card", "Roofline", "StepCount", "active_params", "card", "count_params",
     "expert_bytes",
     "flash_decode_flops", "kernel_bound", "mfu", "model_flops", "peak_bandwidth",
     "peak_flops", "ring_windows", "shared_insertions", "shared_reread_bytes",

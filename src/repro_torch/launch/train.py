@@ -44,9 +44,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def make_loss_fn(model, remat: bool = True):
+def make_loss_fn(model, remat: bool = True, constrain=None, **tables):
+    """The reference's loss: cross-entropy over the text positions plus
+    0.01 × the MoE aux loss. ``constrain`` goes to the forward (a sharded
+    step); ``tables`` are the model's RoPE tables when the caller passes
+    its own (a sharded step passes them replicated)."""
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch, remat=remat)
+        logits, aux = model.forward(params, batch, remat=remat, constrain=constrain,
+                                    **tables)
         labels = batch["labels"]
         # VLM prefix positions have no labels: forward prepends
         # n_prefix_tokens embeddings, so logits is longer than tokens
@@ -69,8 +74,9 @@ def value_and_grad(loss_fn, params: Any, batch: dict):
             from_leaves(params, grads))
 
 
-def make_train_step(model, opt_cfg: adamw.AdamWConfig, remat: bool = True):
-    loss_fn = make_loss_fn(model, remat)
+def make_train_step(model, opt_cfg: adamw.AdamWConfig, remat: bool = True,
+                    constrain=None):
+    loss_fn = make_loss_fn(model, remat, constrain)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(loss_fn, params, batch)

@@ -21,6 +21,13 @@ layers' head dim (``rope_freqs``) and, with a shared block, at its own
 dict as an input (a tensor the traced function closes over is not a
 fake tensor) and unpacks it into the call.
 
+``forward``, ``prefill`` and ``decode_step`` take ``constrain(x, tag)``
+(default None), called at the reference's sharding sites
+(``launch/mesh.ShardingCtx.constrain`` in a sharded step; with None each
+traced step is what it was without the hook). ``supports_shape`` and
+``input_specs`` are the reference's; the specs are ``meta`` tensors,
+the counterpart of its ``ShapeDtypeStruct``.
+
 ``cores`` picks the attention core of the decode step and the SSD core
 of Mamba2 prefill together (attention prefill has one core): ``"kernel"`` (the served path, the
 ``repro_torch`` ops) or ``"plain"`` (parity checks on the card).
@@ -57,6 +64,16 @@ INPUT_SHAPES: dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+def supports_shape(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch; long_500k needs sub-quadratic"
+    return True, ""
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 class DecoderModel:
@@ -96,28 +113,53 @@ class DecoderModel:
     def init(self, generator: torch.Generator) -> dict:
         return transformer.init_params(self.cfg, generator, self.device)
 
+    def supports_shape(self, shape: ShapeSpec) -> tuple[bool, str]:
+        return supports_shape(self.cfg, shape)
+
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """The step's batch as ``meta`` tensors (reference ``api.py:89``):
+        decode takes one token a slot; a VLM's text is shortened by its
+        prefix, whose embeddings it takes; train adds the labels."""
+        cfg = self.cfg
+        B = shape.global_batch
+        if shape.kind == "decode":
+            return {"tokens": _spec((B, 1), torch.int32)}
+        S = shape.seq_len
+        specs: dict = {}
+        if cfg.n_prefix_tokens:
+            S = max(S - cfg.n_prefix_tokens, 1)
+            specs["prefix_embeds"] = _spec((B, cfg.n_prefix_tokens, cfg.d_model),
+                                           getattr(torch, cfg.dtype))
+        specs["tokens"] = _spec((B, S), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = _spec((B, S), torch.int32)
+        return specs
+
     def forward(self, params, batch: dict, rope_freqs=None, shared_freqs=None,
-                remat: bool = False):
+                remat: bool = False, constrain=None):
         """(logits (B, P + S, vocab), aux) over ``batch["prefix_embeds"]``
         (B, P, d_model), if given, and ``batch["tokens"]`` (B, S). The
         tables default to the model's (``rope_tables``); ``remat``
         recomputes each period in the backward pass."""
         return transformer.forward(
             params, self.cfg, batch["tokens"], batch.get("prefix_embeds"),
-            cores=self.cores, remat=remat, **self._tables(rope_freqs, shared_freqs))
+            cores=self.cores, remat=remat, constrain=constrain,
+            **self._tables(rope_freqs, shared_freqs))
 
-    def prefill(self, params, batch: dict, rope_freqs=None, shared_freqs=None):
+    def prefill(self, params, batch: dict, rope_freqs=None, shared_freqs=None,
+                constrain=None):
         """(last-position logits (B, vocab), caches) over the batch, as in
         ``forward``."""
         return transformer.prefill(
             params, self.cfg, batch["tokens"], batch.get("prefix_embeds"),
-            cores=self.cores, **self._tables(rope_freqs, shared_freqs))
+            cores=self.cores, constrain=constrain,
+            **self._tables(rope_freqs, shared_freqs))
 
     def decode_step(self, params, token, caches, pos, active=None, rope_freqs=None,
-                    shared_freqs=None):
+                    shared_freqs=None, constrain=None):
         return transformer.decode_step(
             params, self.cfg, token, caches, pos, active, cores=self.cores,
-            **self._tables(rope_freqs, shared_freqs))
+            constrain=constrain, **self._tables(rope_freqs, shared_freqs))
 
     def init_cache(self, batch: int, cache_len: int, device=None):
         return transformer.init_cache(
@@ -148,20 +190,48 @@ class EncDecModel:
     def init(self, generator: torch.Generator) -> dict:
         return encdec.init_params(self.cfg, generator, self.device)
 
-    def forward(self, params, batch: dict, rope_freqs=None, remat: bool = False):
+    @property
+    def rope_tables(self) -> dict:
+        return {"rope_freqs": self.rope_freqs}
+
+    def supports_shape(self, shape: ShapeSpec) -> tuple[bool, str]:
+        return supports_shape(self.cfg, shape)
+
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """The step's batch as ``meta`` tensors (reference ``api.py:143``):
+        the stub frontend's frames at ``seq_len // enc_len_ratio``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _spec((B, 1), torch.int32)}
+        specs = {
+            "tokens": _spec((B, S), torch.int32),
+            "frames": _spec((B, max(S // cfg.enc_len_ratio, 1), cfg.d_model),
+                            getattr(torch, cfg.dtype)),
+        }
+        if shape.kind == "train":
+            specs["labels"] = _spec((B, S), torch.int32)
+        return specs
+
+    def forward(self, params, batch: dict, rope_freqs=None, remat: bool = False,
+                constrain=None):
         return encdec.forward(
             params, self.cfg, batch["tokens"], batch["frames"], remat=remat,
-            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs,
+            constrain=constrain)
 
-    def prefill(self, params, batch: dict, rope_freqs=None):
+    def prefill(self, params, batch: dict, rope_freqs=None, constrain=None):
         return encdec.prefill(
             params, self.cfg, batch["tokens"], batch["frames"],
-            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs,
+            constrain=constrain)
 
-    def decode_step(self, params, token, caches, pos, active=None, rope_freqs=None):
+    def decode_step(self, params, token, caches, pos, active=None, rope_freqs=None,
+                    constrain=None):
         return encdec.decode_step(
             params, self.cfg, token, caches, pos, active, cores=self.cores,
-            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs)
+            rope_freqs=self.rope_freqs if rope_freqs is None else rope_freqs,
+            constrain=constrain)
 
     def init_cache(self, batch: int, cache_len: int, device=None):
         enc_len = max(cache_len // self.cfg.enc_len_ratio, 1)

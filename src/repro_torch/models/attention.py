@@ -23,7 +23,10 @@ Port of the reference's ``models/attention.py``:
   min(pos + 1, T)``, which is the ring mask: slot i holds position
   ``pos - ((pos - i) mod T)``, which lies in ``(pos - T, pos]``, so it is
   within the window whenever it is ``>= 0``, and it is ``>= 0`` exactly
-  when ``i < min(pos + 1, T)``.
+  when ``i < min(pos + 1, T)``. In a sharded step whose cache has its T
+  split over ranks (the ``kv_heads`` rule where K/V heads do not divide
+  ``model``), each rank runs the kernel on its span and the ranks'
+  outputs merge by their log-sum-exps (``flash_decode_context_parallel``).
 
 Cast points are the reference's: scores come out of the einsum in the
 working dtype and are scaled in fp32 (the reference's scale is a numpy
@@ -51,15 +54,24 @@ rows gathered through the table.
 
 from __future__ import annotations
 
+import collections
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.flash_decode import (flash_decode, flash_decode_lse,
+                                              flash_decode_paged)
 from repro_torch.models.layers import init_linear, init_rms, rms_norm, rope
 from repro_torch.models.paged import PagedLeaf, kv_rows
 
 NEG_INF = -1e30
+# the attention cores taken, one per layer call: "kernel" (flash_decode,
+# also on a shard), "kernel: context-parallel" (flash_decode_lse on each
+# rank's span of T, merged across the ranks) or "plain" (attn_prefill,
+# attn_decode); a sharded step's report reads them (launch/dryrun)
+CORES: collections.Counter = collections.Counter()
 
 
 def attn_init(generator, lead: tuple[int, ...], d_model: int, n_heads: int,
@@ -92,6 +104,9 @@ def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta, eps, rope_freq
 def _write_kv(k_cache, v_cache, k, v, slot_b, active):
     """Write this token's K/V row in place at each row's ``slot_b``;
     rows with ``active == False`` write back what is there."""
+    if is_dtensor(k_cache):
+        _write_kv_sharded(k_cache, v_cache, k, v, slot_b, active)
+        return
     B = k_cache.shape[0]
     rows = torch.arange(B, device=k_cache.device)
     k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
@@ -101,6 +116,115 @@ def _write_kv(k_cache, v_cache, k, v, slot_b, active):
         v_new = torch.where(keep, v_new, v_cache[rows, slot_b])
     k_cache[rows, slot_b] = k_new
     v_cache[rows, slot_b] = v_new
+
+
+def _write_kv_sharded(k_cache, v_cache, k, v, slot_b, active):
+    """``_write_kv`` on DTensor caches (a sharded step), in place on each
+    rank's shard. The new rows, their slots and the active mask are
+    brought to the cache's batch and head shards; a cache whose T is
+    split over ``model`` (context parallel) takes a row only on the rank
+    whose span holds its slot, and the other ranks write back what they
+    hold."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = k_cache.device_mesh, k_cache.placements
+    # a cache dim's shard on the (B, KV, hd) rows: batch, heads, head dim
+    row_dim = {0: 0, 2: 1, 3: 2}
+    row_pl = tuple(Shard(row_dim[p.dim]) if p.is_shard() and p.dim in row_dim
+                   else Replicate() for p in pl)
+    vec_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    slots = local(slot_b, vec_pl)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    Tl = kl.shape[1]
+    slots = slots - _t_span(mesh, pl) * Tl
+    mine = (slots >= 0) & (slots < Tl)
+    if active is not None:
+        mine = mine & local(active, vec_pl)
+    slots = torch.clamp(slots, 0, Tl - 1)
+    rows = torch.arange(kl.shape[0], device=kl.device)
+    keep = mine[:, None, None]
+    for cache_l, new in ((kl, k), (vl, v)):
+        new_l = local(new[:, 0].to(cache_l.dtype), row_pl)
+        cache_l[rows, slots] = torch.where(keep, new_l, cache_l[rows, slots])
+
+
+def _t_span(mesh, placements) -> int:
+    """Which span of a cache's T this rank holds: its coordinates on the
+    mesh dims that split T (dim 1), in mesh order; 0 where none does."""
+    span, coord = 0, mesh.get_coordinate()
+    for m, p in enumerate(placements):
+        if p.is_shard(1):
+            span = span * mesh.size(m) + coord[m]
+    return span
+
+
+def flash_decode_context_parallel(q, k_cache, v_cache, lengths):
+    """``flash_decode`` over DTensor caches whose T is split over mesh
+    dims (context parallel). Each rank runs ``flash_decode_lse`` on its
+    own span of positions, its lengths cut to the span (0 where the row
+    has not reached it), and the ranks' outputs merge by their
+    log-sum-exps: an all-reduce max of the lse over the dims that split
+    T, then one all-reduce sum of ``o · exp(lse - max)`` with the weights
+    beside it, and the quotient. q ``(B, KV, G, D)`` and lengths come to
+    the cache's batch and head shards. Returns a DTensor in q's dtype."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = k_cache.device_mesh, k_cache.placements
+    q_pl = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+                 else Replicate() for p in pl)
+    len_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    t_dims = [m for m, p in enumerate(pl) if p.is_shard(1)]
+
+    def local(t, placements):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    Tl = kl.shape[1]
+    ql = local(q, q_pl).contiguous()
+    start = _t_span(mesh, pl) * Tl
+    len_l = torch.clamp(local(lengths, len_pl) - start, 0, Tl).to(torch.int32)
+    o, lse = flash_decode_lse(ql, kl, vl, len_l)
+    top = lse
+    for m in t_dims:
+        top = funcol.all_reduce(top, "max", (mesh, m))
+    w = torch.exp(lse - top)[..., None]
+    part = torch.cat([o.float() * w, w], dim=-1)
+    for m in t_dims:
+        part = funcol.all_reduce(part, "sum", (mesh, m))
+    out = (part[..., :-1] / part[..., -1:]).to(ql.dtype)
+    shape = tuple(q.shape)
+    stride = tuple(int(math.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (a sharded step's tensor); the import
+    waits until a DTensor can exist."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def context_parallel(cache: torch.Tensor) -> bool:
+    """Whether a DTensor K/V cache has its T dim split over a mesh dim
+    (the ``kv_heads`` rule's context parallelism): no rank holds a whole
+    row of positions, so the ranks' partial softmaxes must be merged
+    (``flash_decode_context_parallel``)."""
+    return is_dtensor(cache) and any(p.is_shard(1) for p in cache.placements)
 
 
 def _write_kv_paged(k_cache: PagedLeaf, v_cache: PagedLeaf, k, v, slot_b, active):
@@ -153,6 +277,7 @@ def attn_prefill(
     q_chunk: int = 512,
     positions: torch.Tensor | None = None,
     rope_freqs: torch.Tensor | None = None,
+    constrain=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Causal (optionally windowed) attention over the full sequence.
     Returns (out (B,S,D), (k_cache, v_cache)): the whole K/V for a global
@@ -169,6 +294,11 @@ def attn_prefill(
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
                            eps, rope_freqs)
+    if constrain is not None:
+        q = constrain(q, "heads")
+        k = constrain(k, "kv_heads")
+        v = constrain(v, "kv_heads")
+    CORES["plain"] += 1
     scale = 1.0 / np.sqrt(head_dim)
     causal_unroll = window is None and S <= 8192
     if causal_unroll:
@@ -255,6 +385,7 @@ def attn_decode(
     eps: float = 1e-6,
     active: torch.Tensor | None = None,  # (B,) bool — continuous batching mask
     rope_freqs: torch.Tensor | None = None,
+    constrain=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode with the plain attention; returns (out (B,1,D),
     cache). A window layer's cache is a ring of T slots: it writes slot
@@ -274,7 +405,11 @@ def attn_decode(
     else:
         _write_kv(k_cache, v_cache, k, v, slot_b, active)
         k_read, v_read = k_cache, v_cache
+    if constrain is not None:
+        k_read = constrain(k_read, "kv_heads")
+        v_read = constrain(v_read, "kv_heads")
     out = decode_attention(q, k_read, v_read, pos_b, window)  # (B,1,H*D)
+    CORES["plain"] += 1
     return out @ p["wo"], (k_cache, v_cache)
 
 
@@ -313,6 +448,7 @@ def attn_decode_kernel(
     eps: float = 1e-6,
     active: torch.Tensor | None = None,
     rope_freqs: torch.Tensor | None = None,
+    constrain=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """``attn_decode`` with ``repro_torch::flash_decode`` as the attention
     core: the K/V write, then single-pass attention over the cache at
@@ -340,9 +476,20 @@ def attn_decode_kernel(
         o = flash_decode_paged(q_k, k_cache.buf, k_cache.table, k_cache.offset,
                                v_cache.offset, st, sh, T, k_cache.page_elems,
                                lengths)
+        CORES["kernel"] += 1
     else:
         _write_kv(k_cache, v_cache, k, v, slot_b, active)
-        o = flash_decode(q_k, k_cache, v_cache, lengths)
+        k_read, v_read = k_cache, v_cache
+        if constrain is not None:
+            k_read = constrain(k_read, "kv_heads")
+            v_read = constrain(v_read, "kv_heads")
+        if context_parallel(k_read):
+            # chosen from the placements: T is split over the ranks
+            o = flash_decode_context_parallel(q_k, k_read, v_read, lengths)
+            CORES["kernel: context-parallel"] += 1
+        else:
+            o = flash_decode(q_k, k_read, v_read, lengths)
+            CORES["kernel"] += 1
     out = o.reshape(B, 1, n_heads * head_dim)
     return out @ p["wo"], (k_cache, v_cache)
 
@@ -360,12 +507,15 @@ def cross_attn(
     *,
     n_heads: int,
     head_dim: int,
+    constrain=None,
 ) -> torch.Tensor:
     """Attention of the decoder's positions over the encoder's K/V, no
     mask and no RoPE (reference ``attention.py:296-312``)."""
     B, S, _ = x.shape
     k, v = enc_kv
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    if constrain is not None:
+        q = constrain(q, "heads")
     s = _gqa_scores(q, k).float() / np.sqrt(head_dim)
     probs = torch.softmax(s, dim=-1).to(x.dtype)
     return _gqa_out(probs, v) @ p["wo"]

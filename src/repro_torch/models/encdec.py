@@ -73,27 +73,34 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     }
 
 
-def _bidir_attn(p, x, cfg: ArchConfig, rope_freqs=None):
+def _bidir_attn(p, x, cfg: ArchConfig, rope_freqs=None, constrain=None):
     """Full bidirectional self-attention for the encoder."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = attn._project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, hd, positions,
                                 cfg.rope_theta, cfg.rms_eps, rope_freqs)
+    if constrain is not None:
+        q = constrain(q, "heads")
     s = attn._gqa_scores(q, k).float() / np.sqrt(hd)
     probs = torch.softmax(s, dim=-1).to(x.dtype)
     return attn._gqa_out(probs, v) @ p["wo"]
 
 
-def encode(params, cfg: ArchConfig, frames: torch.Tensor, rope_freqs=None
-           ) -> torch.Tensor:
+def encode(params, cfg: ArchConfig, frames: torch.Tensor, rope_freqs=None,
+           constrain=None) -> torch.Tensor:
     """frames (B, S_enc, D) stub embeddings -> encoder output (B, S_enc, D)."""
     h = frames.to(_dtype(cfg))
+    if constrain is not None:
+        h = constrain(h, "hidden")
     for i in range(cfg.encoder_layers):
         lp = _layer(params["enc"], i)
         x = rms_norm(h, lp["ln1"], cfg.rms_eps)
-        h = h + _bidir_attn(lp["attn"], x, cfg, rope_freqs)
-        h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.rms_eps), cfg.act)
+        h = h + _bidir_attn(lp["attn"], x, cfg, rope_freqs, constrain)
+        h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.rms_eps), cfg.act,
+                          constrain)
+        if constrain is not None:
+            h = constrain(h, "hidden")
     return rms_norm(h, params["ln_enc"], cfg.rms_eps)
 
 
@@ -107,7 +114,7 @@ def cross_kv(params, cfg: ArchConfig, enc_out: torch.Tensor):
 
 
 def _dec_block(lp, cfg: ArchConfig, h, enc_kv, cache=None, pos=None, active=None,
-               rope_freqs=None, cores: str = "kernel"):
+               rope_freqs=None, cores: str = "kernel", constrain=None):
     """One decoder layer: causal self-attention (prefill when ``cache`` is
     None, else one decode step on ``cache``, in place), cross-attention
     over ``enc_kv``, MLP. Returns (h, self-attention K/V)."""
@@ -115,35 +122,44 @@ def _dec_block(lp, cfg: ArchConfig, h, enc_kv, cache=None, pos=None, active=None
     x = rms_norm(h, lp["ln1"], cfg.rms_eps)
     kwargs = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
                   theta=cfg.rope_theta, window=None, eps=cfg.rms_eps,
-                  rope_freqs=rope_freqs)
+                  rope_freqs=rope_freqs, constrain=constrain)
     if cache is None:
         a, kv = attn.attn_prefill(lp["attn"], x, **kwargs)
     else:
         a, kv = ATTENTION[cores](lp["attn"], x, cache, pos, active=active, **kwargs)
     h = h + a
     h = h + attn.cross_attn(lp["xattn"], rms_norm(h, lp["ln_x"], cfg.rms_eps),
-                            enc_kv, n_heads=cfg.n_heads, head_dim=hd)
-    h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.rms_eps), cfg.act)
+                            enc_kv, n_heads=cfg.n_heads, head_dim=hd,
+                            constrain=constrain)
+    h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.rms_eps), cfg.act,
+                      constrain)
+    if constrain is not None:
+        h = constrain(h, "hidden")
     return h, kv
 
 
-def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["ln_f"], cfg.rms_eps) @ params["embed"].T
+def _logits(params, cfg: ArchConfig, h: torch.Tensor, constrain=None
+            ) -> torch.Tensor:
+    logits = rms_norm(h, params["ln_f"], cfg.rms_eps) @ params["embed"].T
+    if constrain is not None:
+        logits = constrain(logits, "logits")
+    return logits
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-            frames: torch.Tensor, *, remat: bool = False, rope_freqs=None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            frames: torch.Tensor, *, remat: bool = False, rope_freqs=None,
+            constrain=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced training forward -> (logits (B, S, vocab), aux = 0).
     ``remat`` recomputes each decoder layer in the backward pass
     (``torch.utils.checkpoint``, the counterpart of the reference's
     ``jax.checkpoint`` of its scan body)."""
-    enc_out = encode(params, cfg, frames, rope_freqs)
+    enc_out = encode(params, cfg, frames, rope_freqs, constrain)
     ks, vs = cross_kv(params, cfg, enc_out)
     h = params["embed"][tokens]
 
     def body(lp, h, k, v):
-        return _dec_block(lp, cfg, h, (k, v), rope_freqs=rope_freqs)[0]
+        return _dec_block(lp, cfg, h, (k, v), rope_freqs=rope_freqs,
+                          constrain=constrain)[0]
 
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
@@ -151,8 +167,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             h = checkpoint(body, lp, h, ks[i], vs[i], use_reentrant=False)
         else:
             h = body(lp, h, ks[i], vs[i])
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                                device=h.device)
+    return _logits(params, cfg, h, constrain), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, enc_len: int,
@@ -169,18 +185,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, enc_len: int,
             "cross": (zeros(enc_len), zeros(enc_len))}
 
 
-def prefill(params, cfg: ArchConfig, tokens, frames, *, rope_freqs=None
-            ) -> tuple[torch.Tensor, dict]:
+def prefill(params, cfg: ArchConfig, tokens, frames, *, rope_freqs=None,
+            constrain=None) -> tuple[torch.Tensor, dict]:
     """Encode + a teacher-forced pass over the prompt; returns (last
     logits (B, vocab), caches with 'self' at the prompt's length and
     'cross')."""
-    enc_out = encode(params, cfg, frames, rope_freqs)
+    enc_out = encode(params, cfg, frames, rope_freqs, constrain)
     ks, vs = cross_kv(params, cfg, enc_out)
     h = params["embed"][tokens]
     self_k, self_v = [], []
     for i in range(cfg.n_layers):
         h, (k, v) = _dec_block(_layer(params["dec"], i), cfg, h, (ks[i], vs[i]),
-                               rope_freqs=rope_freqs)
+                               rope_freqs=rope_freqs, constrain=constrain)
         self_k.append(k)
         self_v.append(v)
     logits = _logits(params, cfg, h[:, -1:])[:, 0]
@@ -190,14 +206,16 @@ def prefill(params, cfg: ArchConfig, tokens, frames, *, rope_freqs=None
 
 def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor, caches: dict,
                 pos, active: torch.Tensor | None = None, *, rope_freqs=None,
-                cores: str = "kernel") -> tuple[torch.Tensor, dict]:
+                cores: str = "kernel", constrain=None) -> tuple[torch.Tensor, dict]:
     """ONE new token; the self-attention caches are written in place."""
     h = params["embed"][token]
+    if constrain is not None:
+        h = constrain(h, "hidden")
     (sk, sv), (ck, cv) = caches["self"], caches["cross"]
     for i in range(cfg.n_layers):
         h, _ = _dec_block(_layer(params["dec"], i), cfg, h, (ck[i], cv[i]),
-                          (sk[i], sv[i]), pos, active, rope_freqs, cores)
-    return _logits(params, cfg, h)[:, 0], caches
+                          (sk[i], sv[i]), pos, active, rope_freqs, cores, constrain)
+    return _logits(params, cfg, h, constrain)[:, 0], caches
 
 
 def reset_slots(caches: dict, keep: torch.Tensor) -> dict:

@@ -89,11 +89,13 @@ def mlp_init(generator, lead: tuple[int, ...], d_model: int, d_ff: int, act: str
     return p
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, act: str, constrain=None) -> torch.Tensor:
     f = activation(act)
     h = x @ p["w_in"]
     if "w_gate" in p:
         h = f(x @ p["w_gate"]) * h
     else:
         h = f(h)
+    if constrain is not None:
+        h = constrain(h, "ffn")
     return h @ p["w_out"]

@@ -154,6 +154,7 @@ def moe_apply(
     top_k: int,
     act: str,
     capacity_factor: float = 1.25,
+    constrain=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, S, D) in x's dtype, the Switch aux loss, a fp32
     scalar), as the reference's ``moe_apply``."""
@@ -185,11 +186,18 @@ def moe_apply(
     # "bnsec,bnsd->bnecd": each group's expert inputs
     disp = route.dispatch.to(x.dtype).reshape(BG, g, E * C)
     xin = torch.bmm(disp.transpose(1, 2), x_p.reshape(BG, g, D))  # (BG, E·C, D)
+    if constrain is not None:
+        # the reference's tags read (B, G, E, C, ·) layouts
+        xin = constrain(xin.reshape(B, G, E, C, D), "experts").reshape(BG, E * C, D)
     # "bnecd,edf->bnecf" (twice) and "bnecf,efd->bnecd", expert-major
     xe = xin.reshape(BG, E, C, D).transpose(0, 1).reshape(E, BG * C, D)
     h = torch.bmm(xe, p["w_in"])
     gt = torch.bmm(xe, p["w_gate"])
     h = f(gt) * h
+    if constrain is not None:
+        F_ = h.shape[-1]
+        h5 = h.reshape(E, B, G, C, F_).permute(1, 2, 0, 3, 4)
+        h = constrain(h5, "experts_ff").permute(2, 0, 1, 3, 4).reshape(E, BG * C, F_)
     eo = torch.bmm(h, p["w_out"])  # (E, BG·C, D)
     eo = eo.reshape(E, BG, C, D).transpose(0, 1).reshape(BG, E * C, D)
     # "bnsec,bnecd->bnsd": back to the tokens, weighted by their gates
@@ -197,6 +205,6 @@ def moe_apply(
     out = torch.bmm(comb, eo).reshape(B, Sp, D)[:, :S]
 
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], x, act)
+        out = out + mlp_apply(p["shared"], x, act, constrain)
     return out, aux
 

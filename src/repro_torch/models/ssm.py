@@ -110,6 +110,7 @@ def mamba_prefill(
     chunk: int = 256,
     eps: float = 1e-6,
     cores: str = "kernel",
+    constrain=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (out (B,S,D), (conv_state, ssm_state))."""
     B, S, D = x.shape
@@ -134,6 +135,8 @@ def mamba_prefill(
         dt = F.pad(dt, (0, 0, 0, pad))
         dA = F.pad(dA, (0, 0, 0, pad))
     xs = xBC[..., :d_inner].unflatten(-1, (H, P))
+    if constrain is not None:
+        xs = constrain(xs, "ssm_heads")
     Bh = _heads(xBC[..., d_inner : d_inner + G * N].unflatten(-1, (G, N)), H)
     Ch = _heads(xBC[..., d_inner + G * N :].unflatten(-1, (G, N)), H)
 
@@ -169,6 +172,7 @@ def mamba_decode(
     conv: int,
     eps: float = 1e-6,
     active: torch.Tensor | None = None,  # (B,) bool — freeze inactive states
+    constrain=None,  # accepted as the reference's is: decode has no site
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token; returns (out (B,1,D), cache). The cache tensors are
     written in place — rows with ``active == False`` write back what they

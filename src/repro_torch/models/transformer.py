@@ -208,7 +208,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device) -> dict:
 
 
 def _apply_shared_attn(sp, h, emb0, cfg, cache=None, pos=None, active=None,
-                       freqs=None, cores="kernel"):
+                       freqs=None, cores="kernel", constrain=None):
     """zamba2's shared block (reference ``transformer.py:120-140``):
     attention + MLP over concat(h, emb0) at 2·d_model, its own heads and
     RoPE table ``freqs`` (at ``shared_head_dim``), global. Prefill when
@@ -218,18 +218,19 @@ def _apply_shared_attn(sp, h, emb0, cfg, cache=None, pos=None, active=None,
     H = cfg.shared_attn_heads
     kwargs = dict(n_heads=H, n_kv=H, head_dim=shared_head_dim(cfg),
                   theta=cfg.rope_theta, window=None, eps=cfg.rms_eps,
-                  rope_freqs=freqs)
+                  rope_freqs=freqs, constrain=constrain)
     if cache is None:
         a, kv = attn.attn_prefill(sp["attn"], x, **kwargs)
     else:
         a, kv = ATTENTION[cores](sp["attn"], x, cache, pos, active=active, **kwargs)
     y = x + a
-    y = y + mlp_apply(sp["mlp"], rms_norm(y, sp["ln2"], cfg.rms_eps), cfg.act)
+    y = y + mlp_apply(sp["mlp"], rms_norm(y, sp["ln2"], cfg.rms_eps), cfg.act,
+                      constrain)
     return y @ sp["out"], kv
 
 
 def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
-           cores="kernel", decode=True, shared=None):
+           cores="kernel", decode=True, shared=None, constrain=None):
     """Apply one layer. Decode writes ``cache`` in place; prefill
     (``decode=False``) builds the layer's cache. ``shared`` is
     ``(params, emb0, freqs)`` of the shared block, which a layer with
@@ -240,7 +241,7 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
         sp, emb0, freqs = shared
         delta, new_cache["shared"] = _apply_shared_attn(
             sp, h, emb0, cfg, cache["shared"] if decode else None, pos, active,
-            freqs, cores)
+            freqs, cores, constrain)
         h = h + delta
     x = rms_norm(h, p["ln1"], cfg.rms_eps)
     if spec.mixer == "attn":
@@ -248,6 +249,7 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
             window=spec.window, eps=cfg.rms_eps, rope_freqs=rope_freqs,
+            constrain=constrain,
         )
         if decode:
             a, new_cache["attn"] = ATTENTION[cores](
@@ -258,7 +260,7 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
         kwargs = dict(
             expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
             ngroups=cfg.ssm_groups, dstate=cfg.ssm_state, conv=cfg.ssm_conv,
-            eps=cfg.rms_eps,
+            eps=cfg.rms_eps, constrain=constrain,
         )
         if decode:
             a, new_cache["mamba"] = ssm_mod.mamba_decode(
@@ -269,12 +271,16 @@ def _block(p, spec, cfg, h, cache=None, pos=None, active=None, rope_freqs=None,
     h = h + a
     aux = None
     if spec.ffn == "mlp":
-        h = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.rms_eps), cfg.act)
+        h = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.rms_eps), cfg.act,
+                          constrain)
     elif spec.ffn == "moe":
         delta, aux = moe_mod.moe_apply(
             p["moe"], rms_norm(h, p["ln2"], cfg.rms_eps), n_experts=cfg.n_experts,
-            top_k=cfg.top_k, act=cfg.act, capacity_factor=cfg.capacity_factor)
+            top_k=cfg.top_k, act=cfg.act, capacity_factor=cfg.capacity_factor,
+            constrain=constrain)
         h = h + delta
+    if constrain is not None:
+        h = constrain(h, "hidden")
     return h, _sorted(new_cache), aux
 
 
@@ -298,31 +304,40 @@ def decode_step(
     rope_freqs: torch.Tensor | None = None,
     shared_freqs: torch.Tensor | None = None,
     cores: str = "kernel",
+    constrain=None,
 ) -> tuple[torch.Tensor, dict]:
     """ONE new token against the caches. Returns (logits (B, vocab),
     caches) — the caches are the ones passed in, written in place.
     ``cores`` picks the attention core (see ``CORES``); the shared block's
-    ``emb0`` is the current token's embedding, as in the reference."""
+    ``emb0`` is the current token's embedding, as in the reference.
+    ``constrain(x, tag)``, if given, is called at the reference's sites
+    (``launch/mesh.ShardingCtx.constrain`` in a sharded step)."""
     h = params["embed"][token]
     shared = (params.get("shared_attn"), h, shared_freqs)
+    if constrain is not None:
+        h = constrain(h, "hidden")
     for i in range(cfg.n_periods):
         for j, spec in enumerate(cfg.period):
             h, _, _ = _block(_layer(params["period"][j], i), spec, cfg, h,
                              _layer(caches["period"][j], i), pos, active,
-                             rope_freqs, cores, shared=shared)
+                             rope_freqs, cores, shared=shared, constrain=constrain)
     for j, spec in enumerate(cfg.remainder):
         h, _, _ = _block(params["remainder"][j], spec, cfg, h,
                          caches["remainder"][j], pos, active, rope_freqs, cores,
-                         shared=shared)
-    return _logits(params, cfg, h)[:, 0], caches
+                         shared=shared, constrain=constrain)
+    return _logits(params, cfg, h, constrain)[:, 0], caches
 
 
 # --------------------------------------------------------------- prefill
 
 
-def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ArchConfig, h: torch.Tensor, constrain=None
+            ) -> torch.Tensor:
     h = rms_norm(h, params["ln_f"], cfg.rms_eps)
-    return h @ params["embed"].T
+    logits = h @ params["embed"].T
+    if constrain is not None:
+        logits = constrain(logits, "logits")
+    return logits
 
 
 def _stack(caches: list) -> Any:
@@ -342,21 +357,22 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _period(params, cfg: ArchConfig, i: int, h, rope_freqs, cores: str, shared):
+def _period(params, cfg: ArchConfig, i: int, h, rope_freqs, cores: str, shared,
+            constrain=None):
     """Period ``i`` of the stack over a full sequence: (h, the layers'
     caches, their aux losses summed or None)."""
     caches, total = [], None
     for j, spec in enumerate(cfg.period):
         h, c, aux = _block(_layer(params["period"][j], i), spec, cfg, h,
                            rope_freqs=rope_freqs, cores=cores, decode=False,
-                           shared=shared)
+                           shared=shared, constrain=constrain)
         caches.append(c)
         total = _add_aux(total, aux)
     return h, caches, total
 
 
 def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
-               shared_freqs=None, remat: bool = False):
+               shared_freqs=None, remat: bool = False, constrain=None):
     """The whole stack over a full sequence (no caches in); returns (h,
     caches, aux) with the caches in the reference's stacked structure
     and aux the MoE layers' aux losses summed in layer order (None
@@ -371,9 +387,10 @@ def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
     for i in range(cfg.n_periods):
         if remat:
             h, cs, aux = checkpoint(_period, params, cfg, i, h, rope_freqs, cores,
-                                    shared, use_reentrant=False)
+                                    shared, constrain, use_reentrant=False)
         else:
-            h, cs, aux = _period(params, cfg, i, h, rope_freqs, cores, shared)
+            h, cs, aux = _period(params, cfg, i, h, rope_freqs, cores, shared,
+                                 constrain)
         for j, c in enumerate(cs):
             per_layer[j].append(c)
         total = _add_aux(total, aux)
@@ -382,7 +399,7 @@ def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
     for j, spec in enumerate(cfg.remainder):
         h, c, aux = _block(params["remainder"][j], spec, cfg, h,
                            rope_freqs=rope_freqs, cores=cores, decode=False,
-                           shared=shared)
+                           shared=shared, constrain=constrain)
         remainder.append(c)
         total = _add_aux(total, aux)
     return h, {"period": period, "remainder": tuple(remainder)}, total
@@ -400,30 +417,33 @@ def _embed(params, tokens, prefix_embeds):
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None, *, cores: str = "kernel",
             rope_freqs: torch.Tensor | None = None,
-            shared_freqs: torch.Tensor | None = None, remat: bool = False
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            shared_freqs: torch.Tensor | None = None, remat: bool = False,
+            constrain=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, P + S, vocab) and the aux loss: the MoE
     layers' Switch losses summed, a fp32 zero without a MoE layer.
     ``remat`` recomputes each period in the backward pass."""
-    h, _, aux = _run_stack(params, cfg, _embed(params, tokens, prefix_embeds),
-                           cores, rope_freqs, shared_freqs, remat)
+    h = _embed(params, tokens, prefix_embeds)
+    if constrain is not None:
+        h = constrain(h, "hidden")
+    h, _, aux = _run_stack(params, cfg, h, cores, rope_freqs, shared_freqs, remat,
+                           constrain)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _logits(params, cfg, h), aux
+    return _logits(params, cfg, h, constrain), aux
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None, *, cores: str = "kernel",
             rope_freqs: torch.Tensor | None = None,
-            shared_freqs: torch.Tensor | None = None
+            shared_freqs: torch.Tensor | None = None, constrain=None
             ) -> tuple[torch.Tensor, dict]:
     """Returns (logits for the LAST position (B, vocab), caches) over
     ``prefix_embeds`` (if any) and ``tokens``. ``cores`` picks the SSD
     core of the Mamba2 layers (see ``CORES``); attention prefill has one
     core, the plain chunked attention, as in the reference."""
     h, caches, _ = _run_stack(params, cfg, _embed(params, tokens, prefix_embeds),
-                              cores, rope_freqs, shared_freqs)
-    return _logits(params, cfg, h[:, -1:])[:, 0], caches
+                              cores, rope_freqs, shared_freqs, constrain=constrain)
+    return _logits(params, cfg, h[:, -1:], constrain)[:, 0], caches
 
 
 def grow_caches(cfg: ArchConfig, caches: dict, new_len: int) -> dict:

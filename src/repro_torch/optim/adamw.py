@@ -73,13 +73,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict
-                  ) -> tuple[Any, dict, dict]:
+def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                  gnorm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
     """One AdamW step; params, ``state["m"]`` and ``state["v"]`` are
     updated in place and returned with the new step and ``{"grad_norm",
-    "lr"}`` (fp32 scalar tensors)."""
+    "lr"}`` (fp32 scalar tensors). A sharded step passes its rank's
+    shards and the global ``gnorm`` it summed over the ranks."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     fstep = step.float()

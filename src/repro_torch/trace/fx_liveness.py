@@ -50,8 +50,11 @@ from repro_torch.core.graph import Graph, Op, TensorSpec
 # it around engine construction (one trace per engine).
 TRACE_CALLS = 0
 
-# aten ops that return a view of their input without alias annotations
-_UNANNOTATED_VIEWS = {"aten::_unsafe_view", "aten::_reshape_alias"}
+# aten ops that return a view of their input without alias annotations,
+# and the wait on a collective, whose result is the collective's output
+# tensor itself (the collective's node is the one that makes it)
+_UNANNOTATED_VIEWS = {"aten::_unsafe_view", "aten::_reshape_alias",
+                      "_c10d_functional::wait_tensor"}
 
 
 def _returns_alias(node: torch.fx.Node) -> bool:

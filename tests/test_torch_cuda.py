@@ -205,6 +205,33 @@ def test_flash_decode_kernel_gives_zeros_for_a_length0_row(cuda):
     assert bool(torch.isfinite(got).all())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,KV,G,D,T", CASES + [(8, 8, 12, 192, 2048)])
+def test_flash_decode_lse_kernel_matches_plain(cuda, B, KV, G, D, T, dtype):
+    """The kernel's log-sum-exp (written by the merging CTA) and output
+    against ``flash_decode_lse_ref`` on the same inputs, rows of length 0
+    included (output 0, -1e30); (8, 8, 12, 192, 2048) is one rank's span
+    of nemotron-4-340b's decode_32k at (data=16, model=16)."""
+    from repro_torch.kernels.ref import flash_decode_lse_ref
+
+    rng = np.random.default_rng(13)
+    q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
+    k, v = (_rand(rng, (B, T, KV, D), dtype, cuda) for _ in range(2))
+    lengths = rng.integers(1, T + 1, size=B).astype(np.int32)
+    lengths[0] = 0
+    lengths = torch.from_numpy(lengths).to(cuda)
+    before = fd.LAUNCHES
+    out, lse = fd.flash_decode_lse(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == before + 1
+    want_out, want_lse = flash_decode_lse_ref(q.float(), k.float(), v.float(), lengths)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), want_out.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_flash_decode_kernel_on_two_streams_at_once(cuda):
     """Launches queued on two streams run at the same time: each stream
     keeps its own counts of finished spans, so no CTA merges before every

@@ -149,3 +149,27 @@ def test_the_copied_pipeline_is_the_references_byte_for_byte():
 def test_the_training_modules_are_checked(path):
     assert path in SOURCES
 
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/launch/mesh.py", "src/repro_torch/launch/dryrun.py",
+     "src/repro_torch/launch/fx_analysis.py", "src/repro_torch/launch/roofline.py",
+     "src/repro_torch/configs/nemotron_4_340b.py"],
+)
+def test_the_multi_device_modules_are_checked(path):
+    assert path in SOURCES
+
+
+def test_the_dry_run_makes_no_process_group_at_import():
+    """The fake group is made in ``run_one``, never when the module is
+    imported (the reference's import-time ``XLA_FLAGS`` has no
+    counterpart)."""
+    probe = ("import torch.distributed as dist, repro_torch.launch.dryrun, "
+             "repro_torch.launch.mesh; print(dist.is_initialized())")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

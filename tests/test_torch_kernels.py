@@ -206,6 +206,72 @@ def test_split_and_merge_of_empty_spans_gives_zeros_not_nan():
     assert torch.isfinite(got).all()
 
 
+def _lse_numpy(q, k, lengths) -> np.ndarray:
+    """Each query head's log-sum-exp of its scaled scores over [0, length),
+    in float64."""
+    q64, k64 = np.asarray(q, np.float64), np.asarray(k, np.float64)
+    s = np.einsum("bkgd,btkd->bkgt", q64 / np.sqrt(q.shape[-1]), k64)
+    T = k.shape[1]
+    s = np.where(np.arange(T)[None, None, None] < lengths[:, None, None, None], s,
+                 -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m[..., 0] + np.log(np.exp(s - m).sum(-1)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,KV,G,D,T", CASES)
+def test_flash_decode_lse_gives_the_output_and_the_log_sum_exp(B, KV, G, D, T, dtype):
+    """``flash_decode_lse`` on CPU tensors: the output is the JAX oracle's
+    (the bar of ``flash_decode``), and the log-sum-exp the scores' in
+    float64 within 1e-5 (the scores are fp32 in both)."""
+    q, k, v, lengths = _mk(8, B, KV, G, D, T, dtype)
+    want = jax_flash_decode_ref(q, k, v, lengths)
+    out, lse = fd.flash_decode_lse(*_torch(q, k, v, lengths))
+    _assert_close(out, want, TOL[dtype])
+    assert lse.dtype == torch.float32 and lse.shape == (B, KV, G)
+    np.testing.assert_allclose(lse.numpy(), _lse_numpy(np.asarray(q, np.float32),
+                                                       np.asarray(k, np.float32),
+                                                       lengths), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_spans", [2, 4])
+@pytest.mark.parametrize("B,KV,G,D,T", CASES)
+def test_spans_merged_by_their_lse_are_the_whole_cache(B, KV, G, D, T, n_spans):
+    """The context-parallel merge of ``models/attention``: the cache's T cut
+    into ``n_spans`` spans (a rank's each), ``flash_decode_lse`` on each
+    with its lengths cut to the span (0 past the row's length), and the
+    outputs weighed by exp(lse - max lse): the JAX oracle on the whole
+    cache, at the fp32 bar. The rows hold length 1, one past the first
+    span, and T."""
+    q, k, v, _ = _mk(9, B, KV, G, D, T, "float32")
+    q = q * 8.0
+    Tl = -(-T // n_spans)
+    lengths = np.array(([1, min(Tl + 1, T), T] * B)[:B], np.int32)
+    want = jax_flash_decode_ref(q, k, v, lengths)
+    tq, tk, tv, tl = _torch(q, k, v, lengths)
+    outs, lses = [], []
+    for r in range(n_spans):
+        ks, vs = tk[:, r * Tl:(r + 1) * Tl], tv[:, r * Tl:(r + 1) * Tl]
+        n = torch.clamp(tl - r * Tl, 0, ks.shape[1]).to(torch.int32)
+        o, lse = fd.flash_decode_lse(tq, ks, vs, n)
+        outs.append(o)
+        lses.append(lse)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(0))[..., None]
+    got = (torch.stack(outs).float() * w).sum(0) / w.sum(0)
+    _assert_close(got, want, TOL["float32"])
+
+
+def test_flash_decode_lse_of_an_empty_row_is_zero_and_minus_1e30():
+    """A span the row has not reached (lengths 0) gives the output 0 and the
+    log-sum-exp -1e30, as the kernel's merge writes them: its weight
+    beside any real span is exp(-1e30 - m) = 0."""
+    q, k, v, _ = _torch(*_mk(10, 2, 2, 2, 64, 128, "float32"))
+    out, lse = fd.flash_decode_lse(q, k, v, torch.tensor([0, 5], dtype=torch.int32))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool((lse[0] == -1e30).all()) and bool(torch.isfinite(lse[1]).all())
+
+
 @pytest.mark.parametrize("B,KV,T,want", [
     (8, 8, 2048, 8),  # the qwen3 serving shape: 8 spans of 256, 512 CTAs
     (3, 4, 128, 1),  # too short to split

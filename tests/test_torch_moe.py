@@ -108,14 +108,15 @@ def test_granite_is_ported_as_the_reference():
         jax_get_reduced(GRANITE))
 
 
-def test_llama4_has_its_reduced_config_only():
+def test_llama4_full_config_is_the_references():
+    """Since the multi-device slice (A15.2) ``get_config`` returns llama4's
+    full config, the reference's field for field (it runs sharded; one
+    period is built whole on one card)."""
     assert dataclasses.asdict(get_reduced(LLAMA4)) == dataclasses.asdict(
         jax_get_reduced(LLAMA4))
-    with pytest.raises(NotImplementedError, match="A15"):
-        get_config(LLAMA4)
-    # the module's full config stays importable (one period on the card)
-    assert dataclasses.asdict(llama4_module.CONFIG) == dataclasses.asdict(
+    assert dataclasses.asdict(get_config(LLAMA4)) == dataclasses.asdict(
         jax_get_config(LLAMA4))
+    assert get_config(LLAMA4) is llama4_module.CONFIG
 
 
 def test_the_moe_family_and_layer_are_ported():

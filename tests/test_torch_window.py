@@ -113,11 +113,14 @@ def test_gemma3_is_ported_as_the_reference(arch):
     assert [s.window for s in red.period] == [1024, None]
 
 
-def test_nemotron_has_its_reduced_config_only():
+def test_nemotron_full_config_is_the_references():
+    """Since the multi-device slice (A15.2) ``get_config`` returns
+    nemotron's full config, the reference's field for field (it runs
+    sharded, ``launch/dryrun.py``)."""
     assert dataclasses.asdict(get_reduced("nemotron-4-340b")) == dataclasses.asdict(
         jax_get_reduced("nemotron-4-340b"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        get_config("nemotron-4-340b")
+    assert dataclasses.asdict(get_config("nemotron-4-340b")) == dataclasses.asdict(
+        jax_get_config("nemotron-4-340b"))
 
 
 def test_gemma3_4b_state_is_the_rings_and_the_global_caches():
