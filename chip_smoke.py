@@ -34,7 +34,8 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                ``ssd_chunk``: the CPU
                test cases (slow decay included, the tensor-core kernel's
                edge shapes, and B/C from two groups repeated over 16
-               heads, zamba2's layout) in every dtype pair, mamba2-2.7b's
+               heads, zamba2's layout) and reduced mamba2-2.7b's chunk as
+               examples/train_lm calls it in every dtype pair, mamba2-2.7b's
                prefill chunk (L=256, H=80, P=64, N=128, bf16, B/C one group
                at head stride 0) with the original and a slow decay, and
                zamba2-7b's (L=256, H=112, P=64, N=64, bf16, B/C from 2
@@ -270,7 +271,8 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                ``csrc/ssd_chunk_bwd.cu``: bf16 x/B/C on the tensor-core
                kernel, fp32 on the CUDA-core one) against its plain version
                in float64 with random upstream gradients: single chunks (the
-               CPU cases in every dtype pair; mamba2-2.7b's and zamba2-7b's
+               CPU cases and reduced mamba2-2.7b's train_lm chunk in every
+               dtype pair; mamba2-2.7b's and zamba2-7b's
                prefill chunks in fp32 and bf16, mamba2's at batch 2 in
                bf16) and chains of 2 chunks at the slow decay whose second
                chunk hands the first its state gradient; the autograd of
@@ -334,12 +336,33 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                GB of local K/V, one decode step, whose 96 layers each run
                ``flash_decode_lse`` on this rank's span of T (context
                parallel; the kernel at that span first held against its
-               plain version, output and log-sum-exp, and timed); its
+               plain version, output and log-sum-exp, and timed beside one
+               library call, ``aten._scaled_dot_product_efficient_attention``
+               on K/V repeated to 96 heads, its log-sum-exp held against
+               the kernel's); its
                output's local shape and 96 launches, the allocator's peak
                beside the dry run's ``arg_gb`` and ``planned_act_gb``, the
                step's kernel time (torch.profiler) and CUDA-event time,
                the attention cores. The fake group's collectives move
                nothing, so the step's values are not checked.
+39. examples  — the twins of the reference's examples
+               (``repro_torch.examples``), each through its entry point, on
+               the card, after every other phase: quickstart (MobileNet v1
+               planned, ``my_model`` run out of its arena on ``cuda``,
+               equal to eager); dynamic_shapes (three stages of one 6 MiB
+               arena); paper_tables (every claim passes); serve_lm on
+               full-width qwen3-0.6b (``--full``: 2,492 ``flash_decode``
+               launches, 28 a step) and on reduced mamba2-2.7b, each
+               printing the slot audit, live state equal to planned, every
+               step a replay, its plan certified; train_lm on reduced
+               qwen3-0.6b (200 steps, the final loss below ln(vocab) - 1,
+               no kernel) and reduced mamba2-2.7b (50 steps of one
+               128-token chunk at d_state 16, head dim 32, float32: 50
+               ``ssd_chunk`` and 50 ``ssd_chunk_bwd`` launches, the final
+               loss below the first; both kernels held against their
+               plain versions at this call's shape in the kernels and
+               kernels_ssd_bwd phases, case ``train_lm_mamba2``). One row
+               per example.
 
 Every engine is built with ``REPRO_STARTUP_LINT=1``, so its unified plan
 (activation and state) is certified by ``analysis/soundness`` before it
@@ -360,8 +383,9 @@ kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
 5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26 and
 27, 28, 29 and each of its bundle serves, 30, 34's 4 steps, 37's two
-sharded runs; 7, 24 and 34's gradient checks and 37's eager twins for
-their own checks) and read just after it.
+sharded runs, 38's step, each serve_lm and train_lm of 39; 7, 24 and
+34's gradient checks and 37's eager twins for their own checks) and read
+just after it.
 Every phase's row carries ``t_s``, the run's seconds when it was
 printed.
 
@@ -858,8 +882,9 @@ def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
 # ssd_chunk cases: (B, L, H, P, N), the decay and the SSM groups of B and C
 # (None: B and C drawn per head); the CPU test cases of
 # tests/test_torch_ssd.py, one group broadcast over the heads, two groups
-# repeated over theirs (zamba2's layout), and the prefill chunks of
-# mamba2-2.7b and zamba2-7b
+# repeated over theirs (zamba2's layout), and reduced mamba2-2.7b's
+# training chunk (the prefill chunks of mamba2-2.7b and zamba2-7b follow in
+# phase_kernels_ssd)
 SSD_CASES = {
     "kernels_0": ((2, 64, 2, 32, 16), "original", None),
     "kernels_1": ((1, 128, 4, 64, 128), "original", None),
@@ -879,6 +904,9 @@ SSD_CASES = {
     "L1_P64": ((2, 1, 3, 64, 128), "slow", None),
     "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", 1),
     "N13_L130": ((1, 130, 2, 64, 13), "slow", 1),
+    # reduced mamba2-2.7b's chunk as examples/train_lm calls it (batch 4,
+    # seq-len 128, one group at head stride 0)
+    "train_lm_mamba2": ((4, 128, 16, 32, 16), "original", 1),
 }
 # (x/B/C dtype, state dtype): every pair the kernel builds. fp32; bf16 x
 # with an fp32 state (as tests/test_kernels.py passes it); bf16 throughout
@@ -4062,7 +4090,7 @@ def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
 # single chunks of SSD_CASES: the last chunk of a sequence, whose state
 # nothing reads (its upstream state gradient is zero, as autograd passes it)
 SSD_BWD_CASES = ("kernels_2", "ragged_L33", "L1", "slow_L200_P8", "two_groups_L96",
-                 "N13_L130", "ragged_L65_P32_N40")
+                 "N13_L130", "ragged_L65_P32_N40", "train_lm_mamba2")
 # the full-width prefill chunks: (arch, label)
 SSD_BWD_ARCHS = (("mamba2-2.7b", "mamba2"), (ZAMBA2, "zamba2"))
 # the kernel's timings, (arch, label): both prefill chunks (batch 1), and
@@ -4842,6 +4870,41 @@ def phase_sharded(card_name: str) -> dict:
     return out
 
 
+def lse_library_call(q, k, v, kernel_lse) -> dict:
+    """One PyTorch call computing ``flash_decode_lse``'s function at full
+    lengths: ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, on q as (B, KV·G, 1, D) and K/V repeated to
+    KV·G heads before the timed region (the repeat timed apart). Its
+    log-sum-exp is held against the kernel's (``kernel_lse``, (B, KV, G))
+    within 1e-3 + 1e-4·|lse|."""
+    import torch
+
+    B, KV, G, D = q.shape
+    T = k.shape[1]
+
+    def repeat(t):
+        return t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+
+    repeat_ms = cuda_time_ms(lambda: (repeat(k), repeat(v)), runs=30)
+    qh, kh, vh = q.reshape(B, KV * G, 1, D), repeat(k), repeat(v)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, None, True)
+
+    outs = call()
+    # the first query row's lse (the call pads rows to 32)
+    lse = outs[1].float().reshape(B, KV * G, -1)[..., 0].reshape(B, KV, G)
+    gap = (lse - kernel_lse).abs()
+    lse_ok = bool((gap <= 1e-3 + 1e-4 * kernel_lse.abs()).all())
+    ms = cuda_time_ms(call)
+    return {"call": "aten._scaled_dot_product_efficient_attention", "ms": ms,
+            "repeat_ms": repeat_ms,
+            "bytes_read": (qh.numel() + kh.numel() + vh.numel()) * q.element_size(),
+            "shape": [B, KV * G, 1, D, T], "lse_max_abs_gap": float(gap.max()),
+            "lse_ok": lse_ok}
+
+
 def phase_rank_of_256(card_name: str, note: dict) -> dict:
     """Rank 0's local program of full-width nemotron-4-340b decode_32k on
     (data=16, model=16), run on the card over the fake group of 256 ranks
@@ -4905,17 +4968,18 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
     full = torch.full((B,), T, dtype=torch.int32, device="cuda")
     ms = cuda_time_ms(lambda: fd.flash_decode_lse(q, k, v, full))
     plain_ms = cuda_time_ms(lambda: flash_decode_lse_ref(q, k, v, full))
+    _, kernel_lse = fd.flash_decode_lse(q, k, v, full)
     fd.LAUNCHES = before  # the check's and the timing's launches are not the step's
+    library = lse_library_call(q, k, v, kernel_lse)
     bound = kernel_bound("flash_decode", {"B": B, "KV": KV, "G": G, "D": D, "T": T,
                                           "dtype": "bfloat16"}, card_name=card_name)
     kernel = {"kernel": "flash_decode_lse", "shape": [B, KV, G, D, T],
               "lengths_checked": mix.tolist(), "max_abs_err": float(err.max()),
               "lse_max_abs_err": float(lse_err.max()), "ms": ms, "plain_ms": plain_ms,
-              "library_ms": None,
-              "library": "none: no public PyTorch call returns the log-sum-exp",
+              "library_ms": library["ms"], "library": library,
               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
-              "ok": kernel_ok}
-    del q, k, v, out, want_out, full
+              "ok": kernel_ok and library["lse_ok"]}
+    del q, k, v, out, want_out, full, kernel_lse
     torch.cuda.empty_cache()
 
     vocab = step.shapes[0]["embed"].shape[0]
@@ -4984,6 +5048,171 @@ def run_mesh_child(phases: set) -> None:
         phase_rank_of_256(card_name, note)
 
 
+def _quiet(fn, *args):
+    """``fn(*args)`` with its printed lines kept (returned beside its
+    result and its seconds) rather than printed: the examples' output
+    would push the run's rows out of the end of the log."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def example_row(name: str, seconds: float, checks: dict, **fields) -> dict:
+    row = {"phase": "examples", "example": name, "seconds": seconds, **fields,
+           "checks": checks, "ok": all(checks.values())}
+    emit(row)
+    if not row["ok"]:
+        fail(f"examples: {name} failed {[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def example_serve(label: str, argv: list[str], kernel: str | None) -> dict:
+    """``examples/serve_lm.main(argv)`` on the card, the launch counts set
+    to 0 just before it and read just after: every request finished, the
+    slot audit line printed for the engine's slots, live state equal to
+    planned, every decode step a replay, ``kernel`` launched once a layer
+    a step (``check_replayed``), and the plan certified."""
+    import gc
+
+    import torch
+
+    from repro_torch.examples import serve_lm
+
+    reset_launches()
+    stats, lines, seconds = _quiet(serve_lm.main, argv)
+    launches = read_launches()
+    replayed = check_replayed(f"examples {label}", stats, kernel)
+    audit = [ln for ln in lines if ln.startswith("slot audit:")]
+    want_audit = (f"slot audit: {stats['requests']} requests over "
+                  f"{stats['engine'].n_slots} slots, no interval overlap")
+    live = next((ln for ln in lines if ln.startswith("--- live device state:")), "")
+    checks = {
+        "on_the_card": stats["device"].startswith("cuda"),
+        "all_requests_served": stats["requests"] == 8,
+        "slot_audit_printed": audit == [want_audit],
+        "unified_plan_printed": "unified plan " in live and "residency on" in live,
+        "live_state_is_planned": stats["state_live_bytes"] == stats["state_planned_bytes"],
+        "logits_finite": stats["last_logits_finite"],
+    }
+    plan_row(f"{label} (examples/serve_lm)", stats)
+    row = example_row(
+        label, seconds, checks, argv=argv, requests=stats["requests"],
+        tokens=stats["tokens"], waves=stats["waves"],
+        decode_steps=stats["decode_calls"], tokens_per_s=stats["tokens_per_s"],
+        slot_log=stats["slot_log"], slot_audit=audit,
+        state_planned_bytes=stats["state_planned_bytes"],
+        state_live_bytes=stats["state_live_bytes"], launches=launches,
+        graphs=replayed)
+    del stats  # the engine, its state and its graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def example_train(label: str, argv: list[str], launches_per_step: dict,
+                  loss_check: tuple, **fields) -> dict:
+    """``examples/train_lm.main(argv)`` on the card (reduced config), the
+    launch counts set to 0 just before it and read just after: each
+    kernel in ``launches_per_step`` launched that many times a step, the
+    others never; ``loss_check`` is a (name, test of the losses) pair.
+    Returns the launches."""
+    from repro_torch.examples import train_lm
+
+    reset_launches()
+    hist, lines, seconds = _quiet(train_lm.main, argv)
+    launches = read_launches()
+    steps = int(argv[argv.index("--steps") + 1])
+    want = {k: launches_per_step.get(k, 0) * steps for k in launches}
+    losses = [h["loss"] for h in hist]
+    name, test = loss_check
+    example_row(label, seconds, {
+        "steps_run": len(hist) == steps,
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "launches": launches == want,
+        name: test(losses),
+    }, argv=argv, first_loss=losses[0], final_loss=losses[-1], launches=launches,
+        expected_launches=want,
+        step_wall_s_median=statistics.median(h["wall_s"] for h in hist),
+        final_line=lines[-1] if lines else None, **fields)
+    return launches
+
+
+def phase_examples(card_name: str) -> dict:
+    """The twins of the reference's five examples and of its Tables 1-2
+    (``repro_torch.examples``), each through the entry point a user
+    calls, on the card: quickstart's arena executor on ``cuda`` held
+    against eager; dynamic_shapes' four stages; paper_tables with every
+    claim passing (pure planning: tests/test_torch_examples.py holds its
+    rows to the reference's strategies); serve_lm on full-width
+    qwen3-0.6b (``flash_decode`` once a layer a step) and on reduced
+    mamba2-2.7b, each printing its slot audit with live state equal to
+    planned; train_lm on reduced qwen3-0.6b for 200 steps (final loss
+    below ln(vocab) - 1) and reduced mamba2-2.7b for 50 (d_state 16, head
+    dim 32, float32: one 128-token chunk a step through ``ssd_chunk`` and
+    ``ssd_chunk_bwd``; the final loss below the first). Returns each
+    kernel's launches by example."""
+    import torch
+
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.examples import dynamic_shapes, paper_tables, quickstart
+
+    t0 = time.perf_counter()
+    res, lines, seconds = _quiet(quickstart.main, ["--device", DEVICE])
+    example_row("quickstart", seconds, {
+        "on_the_card": res["device"].startswith("cuda") and res["output"].is_cuda,
+        "output_matches_eager": res["max_abs_err"] <= 1e-5 * float(res["output"].abs().max()),
+        "arena_below_naive": res["arena_bytes"] < res["naive_peak_bytes"],
+    }, lines=lines, arena_bytes=res["arena_bytes"],
+        naive_peak_bytes=res["naive_peak_bytes"], max_abs_err=res["max_abs_err"])
+
+    res, lines, seconds = _quiet(dynamic_shapes.main)
+    example_row("dynamic_shapes", seconds, {
+        "four_lines": len(lines) == 4,
+        "one_arena_of_6_mib": res["stage_bytes"] == [6 * 2**20] * 3,
+        "staging_cost_nothing": res["overhead_vs_oneshot"] == 1.0,
+    }, lines=lines)
+
+    res, lines, seconds = _quiet(paper_tables.main)
+    example_row("paper_tables", seconds, {
+        "every_claim_passes": res["failures"] == [],
+    }, failures=res["failures"],
+        claims=[ln for ln in lines if ln.startswith(("PASS", "FAIL"))][-1:],
+        searched_order_mb={n: t["searched_order"] for n, t in res["table2"].items()})
+
+    launches: dict[str, dict[str, int]] = {}
+    qwen3 = example_serve("qwen3-0.6b serve_lm --full",
+                          ["--arch", "qwen3-0.6b", "--full"], "flash_decode")
+    launches["flash_decode"] = {"qwen3-0.6b examples/serve_lm --full":
+                                qwen3["launches"]["flash_decode"]}
+    example_serve("mamba2-2.7b serve_lm", ["--arch", "mamba2-2.7b"], None)
+
+    ln_vocab = math.log(get_reduced("qwen3-0.6b").vocab)
+    example_train("qwen3-0.6b train_lm (reduced, 200 steps)",
+                  ["--arch", "qwen3-0.6b", "--steps", "200"], {},
+                  ("final_loss_below_ln_vocab_minus_1",
+                   lambda losses: losses[-1] < ln_vocab - 1), ln_vocab=ln_vocab)
+
+    cfg = get_reduced("mamba2-2.7b")
+    per_step = {"ssd_chunk": cfg.n_layers, "ssd_chunk_bwd": cfg.n_layers}
+    counts = example_train(
+        "mamba2-2.7b train_lm (reduced, 50 steps)",
+        ["--arch", "mamba2-2.7b", "--steps", "50"], per_step,
+        ("final_loss_below_first", lambda losses: losses[-1] < losses[0]),
+        shape={"ssm_state": cfg.ssm_state, "ssm_head_dim": cfg.ssm_head_dim,
+               "chunk": 128, "dtype": cfg.dtype})
+    for name in per_step:
+        launches[name] = {"mamba2-2.7b examples/train_lm (reduced)": counts[name]}
+    emit({"phase": "examples", "card": card_name, "seconds": time.perf_counter() - t0,
+          "launches": launches, "ok": True})
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "serve_block", "prefill_parity", "prefill", "serve_mamba",
           "parity_gemma3", "serve_gemma3", "prefill_gemma3", "parity_granite",
@@ -4992,7 +5221,7 @@ PHASES = ("device", "build", "kernels", "parity", "serve", "profile",
           "prefill_internvl2", "parity_paged", "serve_paged", "serve_bundle",
           "serve_aot", "serve_pytree", "serve_paged_gemma3", "serve_paged_zamba2",
           "smem", "kernels_ssd_bwd", "train", "train_mamba2", "train_seamless",
-          "dryrun", "sharded", "rank_of_256")
+          "dryrun", "sharded", "rank_of_256", "examples")
 
 
 T0 = time.perf_counter()
@@ -5193,11 +5422,14 @@ def main() -> None:
         fail(f"{len(FAILED_CASES)} case(s) over their bars: {FAILED_CASES}")
     if "smem" in phases:
         phase_smem()
+    if "examples" in phases:
+        for name, by_path in phase_examples(card_name).items():
+            launches[name].update(by_path)
     if phases != set(PHASES):
         return
-    if len(CERTIFIED) != 22 or len(roofs) != 11:
+    if len(CERTIFIED) != 24 or len(roofs) != 11:
         fail(f"certified plans {CERTIFIED}, roofline rows {len(roofs)}: "
-             f"expected 22 and 11")
+             f"expected 24 and 11")
     import torch
 
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all", flush=True)

@@ -79,7 +79,7 @@ import torch
 
 from repro_torch.analysis import counters
 from repro_torch.configs.base import ARCH_IDS, get_config, get_reduced
-from repro_torch.core.shared_objects import from_page_log
+from repro_torch.core.shared_objects import from_page_log, from_slot_log
 from repro_torch.core.unified import PlanSession
 from repro_torch.models.api import DecoderModel
 from repro_torch.runtime.device import resolve_device
@@ -241,7 +241,9 @@ def run(argv: list[str] | None = None) -> dict:
     print("--- memory report (the paper's planner on the decode step) ---")
     print(report.summary())
     print(f"--- live device state: {report.state_live_bytes} B (planned "
-          f"{report.state_planned_bytes} B) ---")
+          f"{report.state_planned_bytes} B, unified plan "
+          f"{engine.unified_plan.total_size} B, residency "
+          f"{'on' if report.state_residency else 'off'}) ---")
     toks = sum(len(r.tokens) for r in done)
     print(f"--- served {len(done)} requests, {toks} tokens in {wall:.3f}s "
           f"({toks / wall:.1f} tok/s, {engine.waves} waves, "
@@ -250,7 +252,13 @@ def run(argv: list[str] | None = None) -> dict:
     for r in done[:3]:
         print(f"req {r.request_id}: waves [{r.admitted_wave},{r.finished_wave}] "
               f"tokens {r.tokens[:8]}...")
+    # slot-reuse audit: the engine's slot log is a §4 shared-objects
+    # assignment (slots = objects, requests = tensors); from_slot_log
+    # raises if any two requests overlapped on one slot
+    audit = from_slot_log(engine.slot_log, state_plan=report.state_plan)
     print(f"slot log (slot, admitted, finished, rid): {engine.slot_log}")
+    print(f"slot audit: {len(audit.assignment)} requests over "
+          f"{engine.n_slots} slots, no interval overlap")
     final_report = engine.memory_report
     pages_total = final_report.state_pages_total
     pages_live = final_report.state_pages_live
@@ -428,8 +436,8 @@ def profile_waves(engine: InferenceEngine, waves: int, *,
     }, finished
 
 
-def main() -> None:
-    run()
+def main(argv: list[str] | None = None) -> dict:
+    return run(argv)
 
 
 if __name__ == "__main__":

@@ -342,6 +342,8 @@ SSD_CASES = {
     "L1_P64": ((2, 1, 3, 64, 128), "slow", None),
     "ragged_L65_P32_N40": ((1, 65, 2, 32, 40), "slow", 1),
     "N13_L130": ((1, 130, 2, 64, 13), "slow", None),
+    # reduced mamba2-2.7b's chunk as examples/train_lm calls it
+    "train_lm_mamba2": ((4, 128, 16, 32, 16), "original", 1),
 }
 # (atol, rtol) of an output against the plain version in fp32 on the same
 # inputs: fp32 summation order; a bf16 output adds one rounding (2**-8)

@@ -173,3 +173,14 @@ def test_the_dry_run_makes_no_process_group_at_import():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["src/repro_torch/examples/__init__.py", "src/repro_torch/examples/quickstart.py",
+     "src/repro_torch/examples/dynamic_shapes.py",
+     "src/repro_torch/examples/paper_tables.py", "src/repro_torch/examples/serve_lm.py",
+     "src/repro_torch/examples/train_lm.py"],
+)
+def test_the_example_modules_are_checked(path):
+    assert path in SOURCES
