@@ -21,9 +21,10 @@ the CUDA-core one (fp32 x/B/C); each ``ssd_chunk`` fault except
 share). ``drop_lo`` is planted in ``ssd_tc.cuh``'s ``split3``, which the
 tensor-core kernels of the forward and the backward share; it is judged
 on the forward's rows (the kernels phase runs no backward). ``flash_decode.cu`` builds ``flash_decode`` and
-``flash_decode_paged`` from one kernel: a ``flash_decode`` fault's run
-lists the cases of both, and ``paged_table_ignored`` is planted in the
-paged address only. ``ring_clamped`` (``models/attention.py``) writes a
+``flash_decode_paged`` from two kernels (the CUDA-core one and, for bf16
+at (192, 12), the tensor-core one) that share the merge and the paged
+address: a ``flash_decode`` fault's run lists the cases of both ops, and
+``paged_table_ignored`` is planted in the paged address only. ``ring_clamped`` (``models/attention.py``) writes a
 ring's new K/V row at ``min(pos, T - 1)`` in place of ``pos % T``: the
 wrapped-ring cases must fail, rings before their wrap read right.
 ``state_put_ignores_table`` (``models/paged.py``) puts a Mamba2 layer's
@@ -71,13 +72,16 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 #           in every dtype)
 SLOW_CASES = ("slow_L256", "slow_L200_P8", "one_group_slow_L96", "prefill_slow")
 # qwen3's serving shape, and granite-moe's (64, 3): 8 spans of 128 with
-# empty ones, and its serving shape
-FD_MUST_FAIL = ("serving_full", "D64_G3_empty_spans", "granite_serving_full")
+# empty ones, and its serving shape; nemotron's (192, 12) with 8 spans of
+# 128 (bf16 on the tensor-core kernel, fp32 on the CUDA-core one)
+FD_MUST_FAIL = ("serving_full", "D64_G3_empty_spans", "granite_serving_full",
+                "D192_G12_empty_spans")
 # flash_decode_paged's cases with a shuffled table (chip_smoke.py's
 # PAGED_CASES and the qwen3 serving layout)
 PAGED_SHUFFLED = ("paged_P16384_shuffled", "paged_P65536_shuffled",
                   "paged_P1040_shuffled", "paged_D320_G2_P1040_shuffled",
                   "paged_D320_G2_P16384_shuffled", "paged_D64_G3_P65536_shuffled",
+                  "paged_D192_G12_P65536_shuffled", "nemotron_span_P65536_shuffled",
                   "paged_P16384_shuffled_hole", "qwen3_serving_full_shuffled",
                   "qwen3_serve_mix_shuffled", "gemma3_ring_P65536_shuffled",
                   "zamba2_P65536_shuffled")
@@ -140,6 +144,9 @@ FAULTS = {
          "for (int s = 0; s < n_split - 1; ++s) {"),
         ("for (int s = 0; s < n_split; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];",
          "for (int s = 0; s < n_split - 1; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];"),
+        # the tensor-core path's sum (merge_spans_wide)
+        ("for (int s = 0; s != n_split; ++s) {",
+         "for (int s = 0; s != n_split - 1; ++s) {"),
     ], FD_MUST_FAIL),
     # the merge weighs every partial by 1, not by exp(m_s - m)
     "merge_weight_one": ("flash_decode", FD, [

@@ -564,20 +564,26 @@ def phase_build() -> None:
 
 def flash_decode_ptxas(log_path) -> dict:
     """``-Xptxas -v``'s registers and spill stores of each flash_decode
-    instantiation, keyed ``dtype/D/G`` (from the kernel's mangled name)."""
+    instantiation, keyed ``dtype/D/G[/paged]``, with the kernel it is
+    (from the mangled name: ``flash_decode_split_kernel``, the CUDA cores,
+    or ``flash_decode_tc_kernel``, the tensor cores, bf16 only)."""
     log = log_path.read_text() if log_path.exists() else ""
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
         m = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E",
                       chunk)
+        tc = re.search(r"flash_decode_tc_kernelILi(\d+)ELi(\d+)ELb([01])E", chunk)
         regs = re.search(r"Used (\d+) registers", chunk)
-        if m is None or regs is None:
+        if (m is None and tc is None) or regs is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        dtype = "float32" if m.group(1) == "f" else "bfloat16"
-        paged = "/paged" if m.group(4) == "1" else ""
-        out[f"{dtype}/{m.group(2)}/{m.group(3)}{paged}"] = {
-            "registers": int(regs.group(1)),
+        if tc is not None:
+            dtype, (d, g, paged), path = "bfloat16", tc.groups(), "tensor_core"
+        else:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            (d, g, paged), path = m.groups()[1:], "cuda_core"
+        out[f"{dtype}/{d}/{g}{'/paged' if paged == '1' else ''}"] = {
+            "path": path, "registers": int(regs.group(1)),
             "spill_store_bytes": int(spill.group(1)) if spill else 0}
     return out
 
@@ -680,6 +686,7 @@ def phase_kernels(card_name: str) -> dict:
         ok = bool((err <= atol + rtol * want.abs()).all())
         emit({"phase": "kernels", "kernel": "flash_decode", "case": label,
               "dtype": str(q.dtype).removeprefix("torch."),
+              "path": fd.kernel_path(q.dtype, q.shape[3], q.shape[2]),
               "max_abs_err": float(err.max()),
               "control_max_abs_err": float((control.float() - want).abs().max()),
               "max_abs_out": float(want.abs().max()),
@@ -868,8 +875,8 @@ def time_serving(card_name, gen, check, arch, prefix, labels) -> dict:
                "bytes": bound.min_bytes, "flops": bound.flops,
                "bytes_ms": bound.bytes_s * 1e3,
                "fp32_cuda_core_ms": bound.ops_s * 1e3, "max_abs_err": err,
-               "n_split": fd.num_splits(B, KV, T),
-               "scratch_bytes": fd.scratch_bytes(B, KV, G, D, T)}
+               "n_split": fd.num_splits(B, KV, G, D, T, torch.bfloat16),
+               "scratch_bytes": fd.scratch_bytes(B, KV, G, D, T, torch.bfloat16)}
         if prefix:
             row["library_backend"], row["library_ms_by_backend"] = sdpa_backends(library)
         emit(row)
@@ -1071,6 +1078,9 @@ SMEM_CASES = (
     ("flash_decode", {"G": 1, "D": 224, "dtype": "float32"}),
     ("flash_decode", {"G": 7, "D": 64, "dtype": "bfloat16"}),
     ("flash_decode", {"G": 7, "D": 64, "dtype": "float32"}),
+    # nemotron's span (rank_of_256): bf16 on the tensor cores
+    ("flash_decode", {"G": 12, "D": 192, "dtype": "bfloat16"}),
+    ("flash_decode", {"G": 12, "D": 192, "dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
     ("ssd_chunk", {"P": 64, "N": 128, "dtype": "float32", "state_dtype": "float32"}),
     ("ssd_chunk", {"P": 64, "N": 64, "dtype": "bfloat16", "state_dtype": "bfloat16"}),
@@ -1119,6 +1129,10 @@ def phase_smem() -> None:
                "optin_limit_bytes": limit, "model_budget_bytes": kp.budget,
                "fits": kp.fits and requested <= limit,
                "planned_minus_requested": planned - requested}
+        if kernel == "flash_decode":
+            dt = getattr(torch, shape["dtype"])
+            row["path"] = fd.kernel_path(dt, shape["D"], shape["G"])
+            row["ctas_per_sm"] = fd.ctas_per_sm(shape["G"], shape["D"], dt)
         if kernel == "ssd_chunk_bwd":
             row["ctas_per_sm"] = sc.bwd_ctas_per_sm(shape["P"], shape["N"],
                                                     getattr(torch, shape["dtype"]),
@@ -2465,6 +2479,9 @@ PAGED_CASES = (
     ("paged_D320_G2_P1040_shuffled", 3, 2, 2, 320, 512, 1040, True, (1, 200, 512)),
     ("paged_D320_G2_P16384_shuffled", 3, 2, 2, 320, 512, 16384, True, (1, 200, 512)),
     ("paged_D64_G3_P65536_shuffled", 2, 8, 3, 64, 2048, 65536, True, (1, 2048)),
+    # nemotron's (192, 12), bf16 on the tensor cores: 8 spans of 128, a row
+    # one position into a tile of 64, a full row
+    ("paged_D192_G12_P65536_shuffled", 3, 2, 12, 192, 1024, 65536, True, (1, 385, 1024)),
 )
 PAGED_MUST_FAIL = tuple(c[0] for c in PAGED_CASES if c[7])
 
@@ -2511,10 +2528,11 @@ def phase_kernels_paged(card_name: str) -> dict:
     KiB and 1040 B (a multiple of 16, not a power of two), fp32 and bf16,
     ascending and shuffled tables with null pages past the lengths, a
     length-1 row, a mapped hole inside a length, and gemma3's (320, 2)
-    whose 640-byte rows straddle 1040-byte pages. Then bit-equality with
-    ``flash_decode`` on the cache gathered out of the pool at qwen3-0.6b's
-    serving layout (its own paged plan: 64 KiB pages, the first layer's K
-    and V of 28) and at granite's (64, 3), and the timing at qwen3's
+    whose 640-byte rows straddle 1040-byte pages, and nemotron's (192, 12)
+    (bf16 on the tensor cores). Then bit-equality with ``flash_decode`` on
+    the cache gathered out of the pool at qwen3-0.6b's serving layout (its
+    own paged plan: 64 KiB pages, the first layer's K and V of 28), at
+    granite's (64, 3) and at nemotron's span, and the timing at qwen3's
     serving shape with a shuffled table: the kernel, its plain version,
     the symmetric kernel on the gathered cache and the gather alone."""
     import torch
@@ -2542,6 +2560,7 @@ def phase_kernels_paged(card_name: str) -> dict:
         ok = bool((err <= atol + rtol * want.abs()).all())
         emit({"phase": "kernels", "kernel": "flash_decode_paged", "case": label,
               "dtype": str(q.dtype).removeprefix("torch."),
+              "path": fd.kernel_path(q.dtype, q.shape[3], q.shape[2]),
               "page_elems": args[-1], "pages_per_slot": args[1].shape[1],
               "max_abs_err": float(err.max()),
               "control_max_abs_err": float((control.float() - want).abs().max()),
@@ -2569,6 +2588,7 @@ def phase_kernels_paged(card_name: str) -> dict:
         same = bool(torch.equal(paged, flat))
         emit({"phase": "kernels", "kernel": "flash_decode_paged",
               "bit_equal_to_flash_decode": label, "shape": list(q.shape),
+              "path": fd.kernel_path(q.dtype, q.shape[3], q.shape[2]),
               "equal": same, "max_abs_diff": float((paged.float() - flat.float()).abs().max())})
         if not same:
             fail_case(f"flash_decode_paged/bit_equal/{label}",
@@ -2594,6 +2614,16 @@ def phase_kernels_paged(card_name: str) -> dict:
     args = paged_pool(gen, B, KV, D, T, torch.bfloat16, PAGE_SIZE, [T] * B, True)
     q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
     bit_equal("granite_serving_full", q, args, lengths)
+    del args
+    # nemotron's (192, 12) at one rank's span of decode_32k (the tensor-core
+    # kernel), 64 KiB pages, shuffled: rows ending at a tile and a span edge
+    B, KV, G, D, T = 8, 8, 12, 192, 2048
+    rows = (1, 64, 65, 256, 257, 1500, 2047, T)
+    lengths = torch.tensor(rows, dtype=torch.int32, device=DEVICE)
+    args = paged_pool(gen, B, KV, D, T, torch.bfloat16, PAGE_SIZE, rows, True)
+    q = (torch.randn((B, KV, G, D), generator=gen, device=DEVICE) * Q_STD).to(torch.bfloat16)
+    check("nemotron_span_P65536_shuffled", q, args, lengths)
+    bit_equal("nemotron_span", q, args, lengths)
     del args
 
     # qwen3-0.6b's serving layout: its own paged plan at 8 x 2048, bf16, the
@@ -2646,7 +2676,7 @@ def phase_kernels_paged(card_name: str) -> dict:
                "gather_ms": gather_ms,
                "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
                "bytes": bound.min_bytes, "max_abs_err": err,
-               "n_split": fd.num_splits(B, KV, T)}
+               "n_split": fd.num_splits(B, KV, G, D, T, torch.bfloat16)}
         emit(row)
         record[label] = row
         del k, v
@@ -2680,7 +2710,7 @@ def phase_kernels_paged(card_name: str) -> dict:
                "flash_decode_on_gathered_ms": symmetric_ms, "gather_ms": gather_ms,
                "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
                "bytes": bound.min_bytes, "max_abs_err": err,
-               "n_split": fd.num_splits(B, KV, T)}
+               "n_split": fd.num_splits(B, KV, G, D, T, torch.bfloat16)}
         emit(row)
         PAGED_TIMING[label] = row
         del args, k, v
@@ -2851,7 +2881,7 @@ def phase_kernels_ring(card_name: str) -> dict:
            "library_max_abs_err": lib_err,
            "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
            "bytes": bound.min_bytes, "max_abs_err": err,
-           "n_split": fd.num_splits(B, KV, T)}
+           "n_split": fd.num_splits(B, KV, G, D, T, torch.bfloat16)}
     emit(row)
     RING_TIMING.update(row)
     del buf, caches, k, v
@@ -3407,49 +3437,72 @@ def serve_twins() -> None:
 # program: {"row" (compile_row), "aot" (its manifest), "plain" (the same
 # bundle without the program, published alone), "file" (its bundle)}
 QWEN3_BUCKETS: dict = {}
-# page size -> the background compile of that bucket (start_qwen3_compiles)
-QWEN3_COMPILES: dict = {}
 # the phases that serve the compiled qwen3-0.6b buckets
 BUCKET_PHASES = ("serve_bundle", "serve_aot", "serve_pytree")
+# name -> (process, its directory) of each bucket compiled in the background
+# (start_compile)
+COMPILES: dict = {}
 
 
 def _bucket_dir(page) -> str:
     return "paged" if page else "symmetric"
 
 
-def start_qwen3_compiles() -> None:
-    """Compile the two full-width qwen3-0.6b buckets (8 slots x 2048, bf16;
-    symmetric, and paged from 896 pages of 64 KiB) with
-    ``python -m repro_torch.launch.compile`` in two background processes
-    that see no card (``CUDA_VISIBLE_DEVICES`` empty: the compile traces
-    on ``meta``), each into a manifest of its own, while the kernel and
-    parity phases hold the card. ``main`` starts them when a phase of
-    ``BUCKET_PHASES`` runs; the run kills them if it ends first."""
+def start_compile(name: str, arch: str, page_size: int | None = None,
+                  pool: int | None = None) -> None:
+    """Compile the full-width bucket of ``arch`` at 8 slots x 2048 (bf16;
+    paged from ``pool`` pages of ``page_size`` bytes where given) with
+    ``python -m repro_torch.launch.compile`` (its AOT program packed,
+    loaded and linted) into the manifest ``aot`` of a fresh directory under
+    ``build/``, in a background process that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty: the compile traces on ``meta``).
+    ``finish_compile(name)`` collects it; the run kills it and removes its
+    directory if it ends first."""
     import atexit
     import shutil
     import tempfile
 
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT / "src")}
-    for page in (None, PAGE_SIZE):
-        cmd = [sys.executable, "-m", "repro_torch.launch.compile", "--arch",
-               "qwen3-0.6b", "--full", "--slots", "8", "--max-len", "2048", "--json",
-               "--out", str(root / "aot" / _bucket_dir(page))]
-        if page:
-            cmd += ["--page-size", str(page), "--page-pool", str(PAGE_POOL)]
-        QWEN3_COMPILES[page] = subprocess.Popen(
-            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-    QWEN3_COMPILES["root"] = root
+    cmd = [sys.executable, "-m", "repro_torch.launch.compile", "--arch", arch, "--full",
+           "--slots", "8", "--max-len", "2048", "--json", "--out", str(root / "aot")]
+    if page_size:
+        cmd += ["--page-size", str(page_size), "--page-pool", str(pool)]
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT / "src")})
+    COMPILES[name] = (proc, root)
 
     def stop() -> None:
-        for page in (None, PAGE_SIZE):
-            QWEN3_COMPILES[page].kill()
-            QWEN3_COMPILES[page].wait()
+        proc.kill()
+        proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
     atexit.register(stop)
+
+
+def finish_compile(name: str, *start) -> dict:
+    """Wait for the compile ``name`` of ``start_compile`` (started here
+    with the arguments ``start`` if this process did not start it):
+    ``{"root": its directory, "wall_s": the compile's wall seconds}``,
+    which a child process gets as ``CHIP_SMOKE_BUNDLE`` (JSON)."""
+    if name not in COMPILES:
+        start_compile(name, *start)
+    proc, root = COMPILES[name]
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode:
+        fail(f"the compile of {name} exited {proc.returncode}\n"
+             f"{out[-2000:]}\n{err[-3000:]}")
+    return {"root": str(root), "wall_s": json.loads(out.splitlines()[-1])["wall_s"]}
+
+
+def start_qwen3_compiles() -> None:
+    """The two full-width qwen3-0.6b buckets (symmetric, and paged from
+    896 pages of 64 KiB), compiled in the background while the kernel and
+    parity phases hold the card; ``main`` starts them when a phase of
+    ``BUCKET_PHASES`` runs."""
+    for page in (None, PAGE_SIZE):
+        start_compile(f"qwen3-0.6b/{_bucket_dir(page)}", "qwen3-0.6b", page, PAGE_POOL)
 
 
 def qwen3_buckets() -> dict:
@@ -3464,24 +3517,17 @@ def qwen3_buckets() -> dict:
 
     if QWEN3_BUCKETS:
         return QWEN3_BUCKETS
-    if not QWEN3_COMPILES:
-        start_qwen3_compiles()
     cfg = get_config("qwen3-0.6b")
-    root = QWEN3_COMPILES["root"]
     for page in (None, PAGE_SIZE):
-        out, err = QWEN3_COMPILES[page].communicate(timeout=900)
-        if QWEN3_COMPILES[page].returncode:
-            fail(f"compile of the qwen3-0.6b {_bucket_dir(page)} bucket exited "
-                 f"{QWEN3_COMPILES[page].returncode}\n{out[-2000:]}\n{err[-3000:]}")
+        given = finish_compile(f"qwen3-0.6b/{_bucket_dir(page)}", "qwen3-0.6b", page,
+                               PAGE_POOL)
+        root = Path(given["root"])
         key = bucket_key(cfg, n_slots=8, max_len=2048, page_size=page)
-        manifest = root / "aot" / _bucket_dir(page)
-        path = manifest / BundleManifest(manifest).buckets()[key]["file"]
-        plain = root / "plain" / _bucket_dir(page)
-        BundleManifest(plain).publish(
+        path = root / "aot" / BundleManifest(root / "aot").buckets()[key]["file"]
+        BundleManifest(root / "plain").publish(
             key, dataclasses.replace(load_bundle(path), executables=None))
-        QWEN3_BUCKETS[page] = {
-            "row": compile_row(json.loads(out.splitlines()[-1])["wall_s"], path),
-            "aot": manifest, "plain": plain, "file": path}
+        QWEN3_BUCKETS[page] = {"row": compile_row(given["wall_s"], path),
+                               "aot": root / "aot", "plain": root / "plain", "file": path}
     return QWEN3_BUCKETS
 
 
@@ -3893,8 +3939,8 @@ def wait_for_parent() -> dict:
     return json.loads(sys.stdin.read() or "{}")
 
 
-def in_fresh_process(phase: str) -> dict:
-    return finish_fresh_process(phase, start_fresh_process(phase))
+def in_fresh_process(phase: str, env: dict | None = None) -> dict:
+    return finish_fresh_process(phase, start_fresh_process(phase, env))
 
 
 def phase_serve_paged_family(phase: str) -> dict:
@@ -3989,8 +4035,10 @@ BUNDLE_FAMILIES = ("gemma3-4b",)
 
 def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
                              counts: dict, device_ms_per_wave: float) -> dict:
-    """The paged bucket of ``args`` compiled on ``meta`` with its AOT
-    program and published, then the same mix served twice, the
+    """The paged bucket of ``args``, compiled on ``meta`` with its AOT
+    program in the background (``start_compile``: by the parent run beside
+    the build, handed over as ``CHIP_SMOKE_BUNDLE``, or here where that is
+    unset), and the same bundle without its program published beside it; then the same mix served twice, the
     plan-at-construction engine freed first: from the bundle without its
     program (one trace), then from the bundle with it (no trace). Each
     serve: tokens and ``flash_decode_paged`` launches equal to that
@@ -4002,29 +4050,27 @@ def serve_family_from_bundle(phase: str, args: list, pool: int, stats: dict,
     engine's, and the device ms of a steady wave beside that engine's
     ``device_ms_per_wave``) with the program's serve under ``"aot"``."""
     import shutil
-    import tempfile
 
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.core.artifact import BundleManifest, bucket_key
+    from repro_torch.core.artifact import BundleManifest, bucket_key, load_bundle
     from repro_torch.launch import serve
-    from repro_torch.launch.compile import compile_and_publish
 
     cfg = get_config(args[args.index("--arch") + 1])
     paged_args = args + ["--page-size", str(PAGE_SIZE), "--page-pool", str(pool)]
     want = counts["flash_decode_paged"]
-    (ROOT / "build").mkdir(exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="bundles-", dir=ROOT / "build"))
+    if "CHIP_SMOKE_BUNDLE" in os.environ:
+        given = json.loads(os.environ["CHIP_SMOKE_BUNDLE"])
+    else:
+        given = finish_compile(phase, cfg.name, PAGE_SIZE, pool)
+    root = Path(given["root"])
     try:
-        res = compile_and_publish(cfg, str(root / "aot"), n_slots=8, max_len=2048,
-                                  page_size=PAGE_SIZE, page_pool=pool,
-                                  command=f"chip_smoke.py {phase}")
         key = bucket_key(cfg, n_slots=8, max_len=2048, page_size=PAGE_SIZE)
-        compiled = compile_row(
-            res.wall_s, root / "aot" / BundleManifest(root / "aot").buckets()[key]["file"])
+        path = root / "aot" / BundleManifest(root / "aot").buckets()[key]["file"]
+        compiled = compile_row(given["wall_s"], path)
         BundleManifest(root / "plain").publish(
-            key, dataclasses.replace(res.bundle, executables=None))
+            key, dataclasses.replace(load_bundle(path), executables=None))
         served = {}
         for name, traces in (("plain", 1), ("aot", 0)):
             reset_launches()
@@ -4905,6 +4951,35 @@ def lse_library_call(q, k, v, kernel_lse) -> dict:
             "lse_ok": lse_ok}
 
 
+def lse_at_span(gen, shape: tuple) -> tuple:
+    """bf16 q, K and V at ``shape`` (B, KV, G, D, T; B <= 8) drawn from
+    ``gen``, and ``flash_decode_lse`` held against its plain version on
+    them at rows of lengths 0, 1, 129, 700, 1500, 2047, T and 0 (the
+    output at the bf16 bar, the log-sum-exp within 1e-4 + 1e-5·|want|):
+    ``(q, k, v, check)``, ``check`` the lengths, the errors and ``ok``."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import flash_decode_lse_ref
+
+    B, KV, G, D, T = shape
+    q = (torch.randn((B, KV, G, D), generator=gen, device="cuda") * Q_STD
+         ).to(torch.bfloat16)
+    k, v = ((torch.randn((B, T, KV, D), generator=gen, device="cuda") * 0.5
+             ).to(torch.bfloat16) for _ in range(2))
+    mix = torch.tensor([0, 1, 129, 700, 1500, 2047, T, 0][:B], dtype=torch.int32,
+                       device="cuda")
+    out, lse = fd.flash_decode_lse(q, k, v, mix)
+    want_out, want_lse = flash_decode_lse_ref(q.float(), k.float(), v.float(), mix)
+    torch.cuda.synchronize()
+    err = (out.float() - want_out).abs()
+    lse_err = (lse - want_lse).abs()
+    ok = bool((err <= 1e-3 + 1e-2 * want_out.abs()).all()) and bool(
+        (lse_err <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    return q, k, v, {"lengths_checked": mix.tolist(), "max_abs_err": float(err.max()),
+                     "lse_max_abs_err": float(lse_err.max()), "ok": ok}
+
+
 def phase_rank_of_256(card_name: str, note: dict) -> dict:
     """Rank 0's local program of full-width nemotron-4-340b decode_32k on
     (data=16, model=16), run on the card over the fake group of 256 ranks
@@ -4951,20 +5026,8 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
     B, KV = token_l.shape[0], cfg.n_kv_heads
     G, D = cfg.n_heads // KV, cfg.resolved_head_dim
     T = INPUT_SHAPES["decode_32k"].seq_len // mesh.size(1)
-    q = (torch.randn((B, KV, G, D), generator=gen, device="cuda") * Q_STD
-         ).to(torch.bfloat16)
-    k, v = ((torch.randn((B, T, KV, D), generator=gen, device="cuda") * 0.5
-             ).to(torch.bfloat16) for _ in range(2))
-    mix = torch.tensor([0, 1, 129, 700, 1500, 2047, T, 0][:B], dtype=torch.int32,
-                       device="cuda")
     before = fd.LAUNCHES
-    out, lse = fd.flash_decode_lse(q, k, v, mix)
-    want_out, want_lse = flash_decode_lse_ref(q.float(), k.float(), v.float(), mix)
-    torch.cuda.synchronize()
-    err = (out.float() - want_out).abs()
-    lse_err = (lse - want_lse).abs()
-    kernel_ok = bool((err <= 1e-3 + 1e-2 * want_out.abs()).all()) and bool(
-        (lse_err <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    q, k, v, check = lse_at_span(gen, (B, KV, G, D, T))
     full = torch.full((B,), T, dtype=torch.int32, device="cuda")
     ms = cuda_time_ms(lambda: fd.flash_decode_lse(q, k, v, full))
     plain_ms = cuda_time_ms(lambda: flash_decode_lse_ref(q, k, v, full))
@@ -4974,12 +5037,13 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
     bound = kernel_bound("flash_decode", {"B": B, "KV": KV, "G": G, "D": D, "T": T,
                                           "dtype": "bfloat16"}, card_name=card_name)
     kernel = {"kernel": "flash_decode_lse", "shape": [B, KV, G, D, T],
-              "lengths_checked": mix.tolist(), "max_abs_err": float(err.max()),
-              "lse_max_abs_err": float(lse_err.max()), "ms": ms, "plain_ms": plain_ms,
+              "path": fd.kernel_path(q.dtype, D, G),
+              "n_split": fd.num_splits(B, KV, G, D, T, q.dtype),
+              **check, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library["ms"], "library": library,
               "bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by,
-              "ok": kernel_ok and library["lse_ok"]}
-    del q, k, v, out, want_out, full, kernel_lse
+              "ok": check["ok"] and library["lse_ok"]}
+    del q, k, v, full, kernel_lse
     torch.cuda.empty_cache()
 
     vocab = step.shapes[0]["embed"].shape[0]
@@ -5023,7 +5087,7 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
            "attention_core": core, "launches": launches,
            "expected_launches": per_step, "kernel_at_span": kernel,
            "ok": tuple(logits.shape) == want_shape and launches == per_step
-           and core == "kernel: context-parallel" and kernel_ok}
+           and core == "kernel: context-parallel" and check["ok"]}
     emit(row)
     if not row["ok"]:
         fail(f"rank_of_256: local logits {tuple(logits.shape)} (want {want_shape}), "
@@ -5039,6 +5103,12 @@ def run_mesh_child(phases: set) -> None:
     if "dryrun" in phases:
         phase_dryrun()
         return
+    # the parent collects this child at the end of its run: import what the
+    # phase runs first, so that the imports are not on the run's path
+    import torch  # noqa: F401
+
+    from repro_torch.launch import dryrun, mesh  # noqa: F401
+    from repro_torch.models import api, attention  # noqa: F401
     note = wait_for_parent()
     smi, card_name = phase_device()
     phase_build()
@@ -5264,6 +5334,11 @@ def main() -> None:
         for phase in MESH_PHASES if phase in phases and not args.child}
     if phases & set(BUCKET_PHASES):
         start_qwen3_compiles()
+    # the paged families' bundles compile beside the build and the kernel
+    # phases, timed on the card alone, as qwen3's do: off the serve phases
+    for phase, (arch, pool, *_) in PAGED_FAMILIES.items():
+        if phase in phases and arch in BUNDLE_FAMILIES and not args.child:
+            start_compile(phase, arch, PAGE_SIZE, pool)
     train = None
     if "train" in phases and not args.child:
         # qwen3's training launches no kernel of the port: its fresh
@@ -5278,8 +5353,7 @@ def main() -> None:
     if built:
         phase_build()
     if train is not None:
-        running = sum(QWEN3_COMPILES[page].poll() is None
-                      for page in QWEN3_COMPILES if page != "root")
+        running = sum(proc.poll() is None for proc, _ in COMPILES.values())
         finish_fresh_process("train", train, {"built_before": built,
                                               "background_compiles": running})
     timing = {}
@@ -5385,7 +5459,8 @@ def main() -> None:
         if args.child:
             phase_serve_paged_family(phase)
             continue
-        row = in_fresh_process(phase)
+        row = in_fresh_process(phase, {"CHIP_SMOKE_BUNDLE": json.dumps(
+            finish_compile(phase))} if phase in COMPILES else None)
         want = SERVE_TOKENS.get(arch)
         if want is not None and row["tokens"] != {str(k): v for k, v in want.items()}:
             fail(f"{phase}: the paged tokens differ from the symmetric serve phase's")
@@ -5414,10 +5489,12 @@ def main() -> None:
         launches["flash_decode"]["qwen3-0.6b sharded decode"] = \
             row["launches"]["flash_decode"]
         launches["ssd_chunk"]["mamba2-2.7b sharded prefill"] = row["launches"]["ssd_chunk"]
+    lse_span = None
     if "rank_of_256" in mesh_children:
         row = finish_fresh_process("rank_of_256", mesh_children["rank_of_256"], note)
         launches["flash_decode"]["nemotron-4-340b rank 0 of 256 decode (T split)"] = \
             row["launches"]
+        lse_span = row["kernel_at_span"]
     if FAILED_CASES:
         fail(f"{len(FAILED_CASES)} case(s) over their bars: {FAILED_CASES}")
     if "smem" in phases:
@@ -5461,6 +5538,11 @@ def main() -> None:
             row["gemma3_4b_ring"] = {k: RING_TIMING[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_backend", "max_abs_err")}
+            # flash_decode_lse at rank 0's span of nemotron-4-340b's decode
+            # (rank_of_256: the tensor-core kernel)
+            row["nemotron_lse_span"] = {k: lse_span[k] for k in (
+                "shape", "path", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "lse_max_abs_err")}
             for arch, timing_of in (("gemma3_4b", GEMMA3_TIMING),
                                     ("granite_moe_3b", GRANITE_TIMING),
                                     ("zamba2_7b", ZAMBA2_TIMING),

@@ -59,6 +59,38 @@
 // (context parallel) is attended span by span, each rank on its own span, and
 // the ranks' outputs merge with weights exp(lse_r - max_r lse_r).
 //
+// The tensor-core path (FD_TC_PAIRS: bf16 at nemotron's (192, 12)). Above, a
+// lane keeps every query head's fp32 q and acc for its chunks of D: at (192,
+// 12) that is ~240 live values a thread (255 registers and spill stores), and
+// each position's G dot products are summed over a 5-level shuffle tree, so
+// the kernel is bound by issue and latency at 2 CTAs an SM, not by bytes.
+// flash_decode_tc_kernel puts the G query heads on the M rows of
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators; rows G..15 are 0):
+//   * a tile is 64 positions, 16 for each of the 4 warps. S = q K^T takes D/16
+//     k-steps over the warp's two 8-position n-blocks, q held as A fragments
+//     in registers for the whole span and K read from the ring by ldmatrix
+//     (its rows are already the .col B operand); the scale goes onto S in fp32;
+//   * the online softmax runs on S's accumulator fragment: a lane holds rows
+//     g and g + 8, so a row's max and sum take 2 quad-shuffle levels. P is
+//     rounded to bf16 in registers as the A fragment of P V (the only rounding
+//     this path adds; l sums the fp32 p, so the lse keeps its accuracy), V is
+//     read by ldmatrix.trans, and O is 16 x D fp32 accumulators (D/2 registers
+//     a lane);
+//   * each warp keeps its own (m, l, O) and the warps merge through shared
+//     memory, then the spans through merge_if_last, as above, but four
+//     elements at a time: at G * D = 2304 the element-by-element merge of the
+//     last CTA waits on memory 18 times a thread (write_partial_wide,
+//     merge_spans_wide);
+//   * a 384-byte row stride would put the 8 rows of an ldmatrix on the same
+//     banks, so the 16-byte chunk c of tile row r is stored at chunk
+//     c ^ (r % 8) of that row (TcLayout: rows are whole groups of 8 chunks);
+//   * a ring of kTcStages tiles of 48 KiB (K and V) is 96 KiB, and with
+//     __launch_bounds__(128, 2) two CTAs share an SM: one tile of each in
+//     flight while the other is used, ~96 KiB of loads an SM.
+// The paged variant changes only the addresses (paged_at), so it stays
+// bit-equal to the symmetric one on the gathered cache. fp32 stays on the
+// CUDA-core kernel: its 1e-5 bar leaves no room for a bf16 P.
+//
 // Not done here (left for later work): TMA loads and wgmma.
 //
 // Plain C interface; the Python wrapper (kernels/flash_decode.py) loads the
@@ -69,6 +101,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The (D, G) pairs whose bf16 instantiations run on the tensor cores
+// (flash_decode_tc_kernel); every other pair, and every fp32 one, runs on
+// flash_decode_split_kernel. kernels/flash_decode.py (TC_PAIRS) and
+// kernels/smem_plan.py (FD_TC_PAIRS) list the same.
+#define FD_TC_PAIRS(X) X(192, 12)
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -76,6 +114,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 2;             // positions per lane group per tile
 constexpr int kStages = 4;             // tiles in the shared-memory ring
 constexpr int kMaxSplits = 64;         // the wrapper's num_splits never exceeds it
+constexpr int kTcStages = 2;           // tiles in the tensor-core kernel's ring
+constexpr int kTcRows = 16;            // positions a warp takes of each of its tiles
 constexpr float kNegInf = -1e30f;
 
 constexpr int align16(int n) { return (n + 15) / 16 * 16; }
@@ -120,6 +160,27 @@ struct Layout {
   static constexpr int SMEM = cmax(RING, cmax(WARP_MERGE, SPLIT_MERGE));
   static_assert(D % VEC == 0, "a cache row is whole 16-byte chunks");
   static_assert((LANES & (LANES - 1)) == 0, "shuffle reductions need 2^k lanes");
+};
+
+// How one CTA of the tensor-core kernel at (bf16, D, G) lays a span out:
+// tiles of kTcRows positions a warp, K rows then V rows, each row CH 16-byte
+// chunks stored at chunk c ^ (row % 8); the merges are Layout's, in the ring.
+template <int D, int G>
+struct TcLayout {
+  using Merge = Layout<__nv_bfloat16, D, G>;
+  static constexpr int CH = D / 8;               // 16-byte chunks per cache row
+  static constexpr int ROW = D * 2;              // bytes per cache row
+  static constexpr int TILE = kWarps * kTcRows;  // positions per tile
+  static constexpr int HALF = TILE * ROW;        // the K (or V) rows of one tile
+  static constexpr int STAGE = 2 * HALF;
+  static constexpr int RING = kTcStages * STAGE;
+  static constexpr int SMEM = cmax(RING, cmax(Merge::WARP_MERGE, Merge::SPLIT_MERGE));
+  static constexpr int KSTEPS = D / 16;  // k-steps of S = q K^T
+  static constexpr int NBLK = D / 8;     // 8-column blocks of O
+  static_assert(G <= 16, "the query heads of one K/V head fill at most 16 rows");
+  static_assert(CH % 8 == 0, "the swizzle keeps each chunk in its row");
+  static_assert(kThreads % 8 == 0 && TILE % (kThreads / 8) == 0,
+                "each thread loads whole rows' chunk columns");
 };
 
 template <typename T>
@@ -173,6 +234,88 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// ldmatrix of four 8x8 bf16 matrices: lanes 8i..8i+7 give the row addresses
+// of matrix i; register i of lane t then holds (row t/4, columns 2(t%4), +1)
+// of matrix i, or with .trans (rows 2(t%4), +1, column t/4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a b over one m16n8k16 tile, bf16 operands, fp32 accumulators. Lane t
+// holds d[0], d[1] = (row t/4, columns 2(t%4), +1), d[2], d[3] = (row t/4 + 8,
+// the same columns); a = A's (row t/4, k 2(t%4), +1), (row t/4 + 8, same k),
+// (row t/4, k + 8), (row t/4 + 8, k + 8); b0, b1 = B's (k 2(t%4), +1, column
+// t/4) and (k + 8, column t/4)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The spans' weighted sum of the tensor-core path (bf16 out): each thread
+// takes four consecutive elements of one query head (D % 4 == 0) in each of
+// PER passes, and the loads of a span's PER float4 are issued together, so a
+// thread waits on memory about n_split / 4 times, not G * D / kThreads *
+// n_split / 8 times. sm_w holds the spans' weights, sm_inv 1 / (sum of
+// weighted l) per query head.
+template <int D, int G>
+__device__ __forceinline__ void merge_spans_wide(const float* acc, const float* sm_w,
+                                                 const float* sm_inv,
+                                                 __nv_bfloat16* ob, int n_split) {
+  constexpr int N4 = G * D / 4;
+  constexpr int PER = (N4 + kThreads - 1) / kThreads;
+  static_assert(D % 4 == 0, "four elements of one query head");
+  float4 o[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it) o[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s != n_split; ++s) {
+    const float4* a4 = reinterpret_cast<const float4*>(acc + s * G * D);
+#pragma unroll
+    for (int it = 0; it < PER; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      if (i < N4) {
+        const float4 a = __ldcg(a4 + i);
+        const float w = sm_w[s * G + 4 * i / D];
+        o[it].x += a.x * w;
+        o[it].y += a.y * w;
+        o[it].z += a.z * w;
+        o[it].w += a.w * w;
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    if (i < N4) {
+      const float inv = sm_inv[4 * i / D];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(o[it].x * inv, o[it].y * inv);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(o[it].z * inv, o[it].w * inv);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(ob + 4 * i) = packed;
+    }
+  }
+}
+
 // Called by every thread of a CTA once it has written partial blockIdx.x of
 // (b, h) = bh: counts the span in, and the CTA that counts last for its
 // (b, h) merges the n_split partials, writes the output once and sets the
@@ -183,7 +326,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // weights exp(m_s - max m) are taken once; then every thread sums its
 // elements' n_split partials with the loads unrolled. `lse` (may be null)
 // takes each query head's max m + log(sum l), or -1e30 where sum l is 0.
-template <typename T, int D, int G>
+// WIDE (the tensor-core path): the sum by merge_spans_wide.
+template <typename T, int D, int G, bool WIDE = false>
 __device__ __forceinline__ void merge_if_last(const float* part_acc,
                                               const float* part_ml, T* out,
                                               float* lse, int* counters, int bh,
@@ -223,14 +367,61 @@ __device__ __forceinline__ void merge_if_last(const float* part_acc,
     if (lse != nullptr) lse[bh * G + g] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    float o = 0.f;
+  if constexpr (WIDE) {
+    merge_spans_wide<D, G>(acc, sm_w, sm_inv, ob, n_split);
+  } else {
+    for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+      const int g = idx / D;
+      float o = 0.f;
 #pragma unroll 8
-    for (int s = 0; s < n_split; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];
-    store(ob + idx, o * sm_inv[g]);
+      for (int s = 0; s < n_split; ++s) o += __ldcg(acc + s * G * D + idx) * sm_w[s * G + g];
+      store(ob + idx, o * sm_inv[g]);
+    }
   }
   if (threadIdx.x == 0) counters[bh] = 0;
+}
+
+// The warps' states in shared memory `sm` (Layout::WARP_MERGE: m [kWarps][G],
+// l [kWarps][G], acc [kWarps][G][D]) merged into this span's partial, written
+// once (pacc [G][D], pml [G][2] = (m, l)), for the tensor-core path: each
+// query head's weights exp(m_w - max m) are taken once (by thread g, in place
+// of m), then each thread sums four consecutive elements at a time.
+template <int D, int G>
+__device__ __forceinline__ void write_partial_wide(float* sm, float* pacc, float* pml) {
+  using L = Layout<__nv_bfloat16, D, G>;
+  float* sm_m = sm;
+  const float* sm_l = sm + L::WARP_ML / 4;
+  const float* sm_acc = sm + 2 * L::WARP_ML / 4;
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(sm_m[w * G + g] - mx);
+      lsum += sm_l[w * G + g] * e;
+      sm_m[w * G + g] = e;
+    }
+    pml[2 * g] = mx;
+    pml[2 * g + 1] = lsum;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D / 4; i += kThreads) {
+    const int g = 4 * i / D;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float4 a = reinterpret_cast<const float4*>(sm_acc + w * G * D)[i];
+      const float e = sm_m[w * G + g];
+      o.x += a.x * e;
+      o.y += a.y * e;
+      o.z += a.z * e;
+      o.w += a.w * e;
+    }
+    reinterpret_cast<float4*>(pacc)[i] = o;
+  }
 }
 
 // One CTA per (b, h, span): the partial softmax state of span `split` of row b.
@@ -517,6 +708,233 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          reinterpret_cast<float*>(smem));
 }
 
+// One CTA per (b, h, span) of the tensor-core path (bf16, FD_TC_PAIRS): the
+// arguments, the partials and the merge are flash_decode_split_kernel's.
+template <int D, int G, bool PAGED>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const int* __restrict__ lengths, float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int* __restrict__ counters, int n_kv,
+                       int t_len, int n_split, int span, int64_t k_sb, int64_t k_st,
+                       int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
+                       float scale, const int* __restrict__ table, int pps,
+                       int64_t page_elems) {
+  using T = __nv_bfloat16;
+  using L = TcLayout<D, G>;
+  constexpr int CH = L::CH;
+  constexpr int ROW = L::ROW;
+  constexpr int TILE = L::TILE;
+  constexpr int HALF = L::HALF;
+  constexpr int STAGE = L::STAGE;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int split = blockIdx.x % n_split;
+  const int bh = blockIdx.x / n_split;
+  const int b = bh / n_kv;
+  const int h = bh % n_kv;
+  const int len = min(max(lengths[b], 0), t_len);
+  const int start = split * span;
+  const int end = min(start + span, len);
+  float* pacc = part_acc + static_cast<int64_t>(blockIdx.x) * G * D;
+  float* pml = part_ml + static_cast<int64_t>(blockIdx.x) * G * 2;
+  if (start >= end) {
+    // an empty span: the sentinel partial (uniform over the CTA)
+    for (int i = threadIdx.x; i < G * D; i += kThreads) pacc[i] = 0.f;
+    if (threadIdx.x < G) {
+      pml[2 * threadIdx.x] = kNegInf;
+      pml[2 * threadIdx.x + 1] = 0.f;
+    }
+    merge_if_last<T, D, G, true>(part_acc, part_ml, out, lse, counters, bh, n_split,
+                                 reinterpret_cast<float*>(smem));
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t k_row0 = PAGED ? k_sb + h * k_sh : b * k_sb + h * k_sh;
+  const int64_t v_row0 = PAGED ? v_sb + h * v_sh : b * v_sb + h * v_sh;
+  const int* trow = PAGED ? table + static_cast<int64_t>(b) * pps : nullptr;
+  const int n_tiles = (end - start + TILE - 1) / TILE;
+
+  // tile `tile` of the span into ring slot `slot`, K rows then V rows; each
+  // thread copies chunk columns c8, c8 + 8, ... of rows threadIdx.x / 8 + 16i.
+  // Rows past `end` are zero-filled.
+  auto load_tile = [&](int tile, int slot) {
+    unsigned char* ks = smem + slot * STAGE;
+    unsigned char* vs = ks + HALF;
+    const int t0 = start + tile * TILE;
+    const int c8 = threadIdx.x % 8;
+#pragma unroll
+    for (int i = 0; i < TILE / (kThreads / 8); ++i) {
+      const int r = threadIdx.x / 8 + i * (kThreads / 8);
+      const int t = t0 + r;
+      const bool ok = t < end;
+      const int64_t tc = ok ? t : start;
+      const int64_t ek0 = k_row0 + tc * k_st;
+      const int64_t ev0 = v_row0 + tc * v_st;
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j) {
+        const int c = c8 + 8 * j;
+        const int dst = r * ROW + (c ^ (r % 8)) * 16;
+        if constexpr (PAGED) {
+          cp_async16(ks + dst, paged_at(k, trow, ek0 + c * 8, page_elems), ok);
+          cp_async16(vs + dst, paged_at(v, trow, ev0 + c * 8, page_elems), ok);
+        } else {
+          cp_async16(ks + dst, k + ek0 + c * 8, ok);
+          cp_async16(vs + dst, v + ev0 + c * 8, ok);
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  // q of KV head h as the A fragments of the D/16 k-steps (rows G..15 zero)
+  const int gr = lane / 4;  // this lane's rows gr and gr + 8 of a fragment
+  const int qd = lane % 4;  // and its columns 2qd, 2qd + 1 (+ 8)
+  const T* qb = q + static_cast<int64_t>(bh) * G * D;
+  auto q2 = [&](int row, int col) -> uint32_t {
+    return row < G ? __ldg(reinterpret_cast<const unsigned*>(qb + row * D + col)) : 0u;
+  };
+  uint32_t qa[L::KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < L::KSTEPS; ++kk) {
+    const int col = kk * 16 + 2 * qd;
+    qa[kk][0] = q2(gr, col);
+    qa[kk][1] = q2(gr + 8, col);
+    qa[kk][2] = q2(gr, col + 8);
+    qa[kk][3] = q2(gr + 8, col + 8);
+  }
+
+  // rows gr (index 0) and gr + 8 (index 1): running max, this lane's share
+  // of the sum, and O's columns 8n + 2qd, + 1 for every block n
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[L::NBLK][4];
+#pragma unroll
+  for (int n = 0; n < L::NBLK; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  }
+  // ldmatrix rows: K as B of S (matrices: positions 0-7 | 8-15 x chunk
+  // 2kk | 2kk + 1), V as B of P V (positions 0-7 | 8-15 x chunk 2jj | 2jj + 1)
+  const int k_r = warp * kTcRows + (lane / 16) * 8 + lane % 8;
+  const int k_c = (lane / 8) % 2;
+  const int v_r = warp * kTcRows + ((lane / 8) % 2) * 8 + lane % 8;
+  const int v_c = lane / 16;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // tile `tile` has landed; slot (tile - 1) is free
+    if (tile + kTcStages - 1 < n_tiles) {
+      load_tile(tile + kTcStages - 1, (tile + kTcStages - 1) % kTcStages);
+    }
+    cp_async_commit();
+    const unsigned char* ks = smem + (tile % kTcStages) * STAGE;
+    const unsigned char* vs = ks + HALF;
+    const int p0 = start + tile * TILE + warp * kTcRows;  // this warp's first position
+    if (p0 >= end) continue;  // none of this warp's rows is live (warp-uniform)
+
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < L::KSTEPS; ++kk) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ks + k_r * ROW + ((2 * kk + k_c) ^ (k_r % 8)) * 16);
+      mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+      mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+    }
+    // s[n][e] is row gr + 8(e / 2), position p0 + 8n + 2qd + e % 2
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = p0 + 8 * n + 2 * qd + e % 2 < end;
+        s[n][e] = live ? s[n][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    // P as the A fragment of P V: k = the warp's 16 positions
+    uint32_t pa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = p0 + 8 * n + 2 * qd + e % 2 < end;
+        p[e] = live ? expf(s[n][e] - m[e / 2]) : 0.f;
+        l[e / 2] += p[e];
+      }
+      pa[2 * n] = pack_bf16(p[0], p[1]);
+      pa[2 * n + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < L::NBLK; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+#pragma unroll
+    for (int jj = 0; jj < L::NBLK / 2; ++jj) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, vs + v_r * ROW + ((2 * jj + v_c) ^ (v_r % 8)) * 16);
+      mma_bf16(o[2 * jj], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * jj + 1], pa, vb[2], vb[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the merge below
+
+  // each row's sum over its quad, then the warps' (m, l, O) to shared memory
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][G]
+  float* sm_l = sm_m + L::Merge::WARP_ML / 4;        // [kWarps][G]
+  float* sm_acc = sm_m + 2 * L::Merge::WARP_ML / 4;  // [kWarps][G][D]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = gr + 8 * r;
+    if (g >= G) continue;
+#pragma unroll
+    for (int n = 0; n < L::NBLK; ++n) {
+      *reinterpret_cast<float2*>(sm_acc + (warp * G + g) * D + 8 * n + 2 * qd) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    }
+    if (qd == 0) {
+      sm_m[warp * G + g] = m[r];
+      sm_l[warp * G + g] = l[r];
+    }
+  }
+  __syncthreads();
+  write_partial_wide<D, G>(sm_m, pacc, pml);
+  merge_if_last<T, D, G, true>(part_acc, part_ml, out, lse, counters, bh, n_split,
+                               reinterpret_cast<float*>(smem));
+}
+
 // the arguments of one call (table, pps and page_elems: the paged kernel's)
 struct Args {
   int batch, n_kv, t_len, n_split;
@@ -533,18 +951,56 @@ struct Args {
   int64_t page_elems;
 };
 
+// Whether (T, D, G) is on the tensor-core path (FD_TC_PAIRS, bf16 only)
+constexpr bool tc_pair(int d, int g) {
+#define FD_TC_MATCH(DD, GG) (d == DD && g == GG) ||
+  return FD_TC_PAIRS(FD_TC_MATCH) false;
+#undef FD_TC_MATCH
+}
+template <typename T>
+struct IsBf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsBf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};
+
+// The kernel an instantiation launches and the shared memory it requests
+template <typename T, int D, int G, bool PAGED,
+          bool TC = IsBf16<T>::value && tc_pair(D, G)>
+struct Pick {
+  static constexpr bool tc = false;
+  static constexpr int smem = Layout<T, D, G>::SMEM;
+  static auto kernel() { return &flash_decode_split_kernel<T, D, G, PAGED>; }
+};
+template <int D, int G, bool PAGED>
+struct Pick<__nv_bfloat16, D, G, PAGED, true> {
+  static constexpr bool tc = true;
+  static constexpr int smem = TcLayout<D, G>::SMEM;
+  static auto kernel() { return &flash_decode_tc_kernel<D, G, PAGED>; }
+};
+
+// The opt-in to the instantiation's bytes of dynamic shared memory, once,
+// before its first launch (a warm-up call precedes every graph capture, so
+// a capture never sets it). Every instantiation takes it: the 48 KiB a
+// launch gets without it include the static `last` of merge_if_last, so
+// 48 KiB of dynamic memory already needs it.
+template <typename T, int D, int G, bool PAGED>
+cudaError_t opt_in() {
+  using P = Pick<T, D, G, PAGED>;
+  static const cudaError_t err = cudaFuncSetAttribute(
+      P::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem);
+  return err;
+}
+
 template <typename T, int D, int G, bool PAGED>
 cudaError_t launch(const Args& a) {
-  constexpr int smem = Layout<T, D, G>::SMEM;
-  auto kernel = flash_decode_split_kernel<T, D, G, PAGED>;
-  // the opt-in to `smem` bytes of dynamic shared memory, once per
-  // instantiation before its first launch (a warm-up call precedes every
-  // graph capture, so a capture never sets it). Every instantiation takes
-  // it: the 48 KiB a launch gets without it include the static `last` of
-  // merge_if_last, so 48 KiB of dynamic memory already needs it.
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (opt_in != cudaSuccess) return opt_in;
+  using P = Pick<T, D, G, PAGED>;
+  constexpr int smem = P::smem;
+  const auto kernel = P::kernel();
+  const cudaError_t opted = opt_in<T, D, G, PAGED>();
+  if (opted != cudaSuccess) return opted;
   const int span = (a.t_len + a.n_split - 1) / a.n_split;
   const int parts = a.batch * a.n_kv * a.n_split;
   float* part_acc = a.part;
@@ -562,10 +1018,11 @@ cudaError_t launch(const Args& a) {
 // The (D, G) pairs built, each in fp32 and bf16: qwen3 (64, 2) and the other
 // powers of two at D = 64 and 128, granite-moe (64, 3), gemma3-4b's global
 // layers (320, 2), gemma3-27b's (168, 2), internvl2 (64, 7), zamba2 (224, 1),
-// llama4 (128, 5) and nemotron (192, 12). G sets only the loop counts: the
-// Layout follows from (dtype, D), so (64, 3) reads a position with CH lanes
-// as (64, 2) does. kernels/flash_decode.py (PAIRS) and kernels/smem_plan.py
-// (FD_PAIRS) list the same. Each pair is built symmetric and paged.
+// llama4 (128, 5) and nemotron (192, 12). On the CUDA-core kernel G sets
+// only the loop counts: the Layout follows from (dtype, D), so (64, 3) reads
+// a position with CH lanes as (64, 2) does. kernels/flash_decode.py (PAIRS)
+// and kernels/smem_plan.py (FD_PAIRS) list the same. Each pair is built
+// symmetric and paged, each on the kernel Pick names.
 #define FD_PAIRS(X)                                                          \
   X(64, 1) X(64, 2) X(64, 3) X(64, 4) X(64, 7) X(64, 8) X(128, 1) X(128, 2) \
   X(128, 4) X(128, 5) X(128, 8) X(168, 2) X(192, 12) X(224, 1) X(320, 2)
@@ -582,10 +1039,40 @@ cudaError_t dispatch(int d, int g, const Args& a) {
 template <typename T>
 int smem_bytes(int d, int g) {
 #define FD_SMEM(DD, GG) \
-  if (d == DD && g == GG) return Layout<T, DD, GG>::SMEM;
+  if (d == DD && g == GG) return Pick<T, DD, GG, false>::smem;
   FD_PAIRS(FD_SMEM)
 #undef FD_SMEM
   return 0;
+}
+
+// CTAs of the instantiation that one SM holds at once (the occupancy API
+// on its registers, shared memory and threads); -1 on an error
+template <typename T, int D, int G>
+int ctas_per_sm() {
+  using P = Pick<T, D, G, false>;
+  if (opt_in<T, D, G, false>() != cudaSuccess) return -1;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, P::kernel(), kThreads, P::smem);
+  return err == cudaSuccess ? blocks : -1;
+}
+
+template <typename T>
+int occupancy(int d, int g) {
+#define FD_OCC(DD, GG) \
+  if (d == DD && g == GG) return ctas_per_sm<T, DD, GG>();
+  FD_PAIRS(FD_OCC)
+#undef FD_OCC
+  return -1;
+}
+
+template <typename T>
+int tensor_core(int d, int g) {
+#define FD_TC(DD, GG) \
+  if (d == DD && g == GG) return Pick<T, DD, GG, false>::tc ? 1 : 0;
+  FD_PAIRS(FD_TC)
+#undef FD_TC
+  return -1;
 }
 
 }  // namespace
@@ -657,7 +1144,7 @@ extern "C" int flash_decode_paged_launch(int dtype, int batch, int n_kv, int g,
 }
 
 // Bytes of dynamic shared memory one CTA of the instantiation (dtype, d, g)
-// requests at launch: Layout::SMEM, the largest of the kStages ring and the
+// requests at launch: the largest of its ring (Layout or TcLayout) and the
 // two merges that reuse it after the loop. 0 for an instantiation that does
 // not exist. A size query only; kernels/smem_plan.py plans the same working
 // set with the paper's planner.
@@ -669,5 +1156,31 @@ extern "C" int flash_decode_smem_bytes(int dtype, int d, int g) {
       return smem_bytes<__nv_bfloat16>(d, g);
     default:
       return 0;
+  }
+}
+
+// Which kernel the instantiation (dtype, d, g) launches: 1 the tensor-core
+// kernel, 0 the CUDA-core one, -1 an instantiation that does not exist.
+extern "C" int flash_decode_tensor_core(int dtype, int d, int g) {
+  switch (dtype) {
+    case 0:
+      return tensor_core<float>(d, g);
+    case 1:
+      return tensor_core<__nv_bfloat16>(d, g);
+    default:
+      return -1;
+  }
+}
+
+// CTAs of the symmetric instantiation (dtype, d, g) one SM holds at once;
+// -1 for an instantiation that does not exist or an error.
+extern "C" int flash_decode_ctas_per_sm(int dtype, int d, int g) {
+  switch (dtype) {
+    case 0:
+      return occupancy<float>(d, g);
+    case 1:
+      return occupancy<__nv_bfloat16>(d, g);
+    default:
+      return -1;
   }
 }

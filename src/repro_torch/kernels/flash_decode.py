@@ -17,11 +17,18 @@ the cache is a view into the engine's state buffer, whose batch stride
 is the state plan's slot stride, and it is never copied to make it
 contiguous. lengths ``(B,)`` int32, read on the device, each >= 1.
 
+Two kernels of ``csrc/flash_decode.cu`` compute it, picked from the
+shapes by one table (the source's ``FD_TC_PAIRS``, copied in
+``smem_plan.FD_TC_PAIRS``): bf16
+at nemotron's (192, 12) runs on the tensor cores (the query heads as the
+M rows of ``mma.sync``; P rounded to bf16 before P·V), every other pair
+and every fp32 call on the CUDA cores (``kernel_path``).
+
 On the card the positions of each ``(b, kv_head)`` are split into
-``num_splits(B, KV, T)`` spans, one CTA each, and the last CTA of each
-``(b, kv_head)`` merges their partial softmax states (flash-decoding).
-The split count comes from the shapes only, so the grid never depends on
-``lengths``. The wrapper allocates the fp32 partials (``scratch_bytes``)
+``num_splits(B, KV, G, D, T, dtype)`` spans, one CTA each, and the last
+CTA of each ``(b, kv_head)`` merges their partial softmax states
+(flash-decoding). The split count comes from the shapes and the dtype
+only, so the grid never depends on ``lengths``. The wrapper allocates the fp32 partials (``scratch_bytes``)
 with ``torch.empty`` on every call, and keeps one int32 count per
 ``(b, kv_head)`` for each device and stream, which the kernel leaves at
 0; the op has no input for either, so a traced plan does not see them.
@@ -72,7 +79,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, smem_plan
 from repro_torch.kernels.ref import (flash_decode_lse_ref, flash_decode_paged_ref,
                                      flash_decode_ref)
 
@@ -89,7 +96,9 @@ PAIRS = frozenset({(64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8),
                    (168, 2), (192, 12), (224, 1), (320, 2)})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # split T until there are at least two CTAs per SM of an H100 (132 SMs),
-# keeping every span at least MIN_SPAN positions long
+# keeping every span at least MIN_SPAN positions long; on the tensor-core
+# kernel (two CTAs an SM, __launch_bounds__(128, 2)) split T only as far as
+# one wave of TARGET_CTAS
 TARGET_CTAS = 264
 MIN_SPAN = 128
 MAX_SPLITS = 64  # kMaxSplits of csrc/flash_decode.cu
@@ -112,6 +121,40 @@ def smem_request_bytes(G: int, D: int, dtype: torch.dtype) -> int:
     n = fn(_DTYPE_CODE[dtype], D, G)
     if n <= 0:
         raise ValueError(f"flash_decode has no instantiation for {dtype}, D={D}, G={G}")
+    return n
+
+
+def kernel_path(dtype: torch.dtype, D: int, G: int) -> str:
+    """``"tensor_core"`` where the instantiation ``(dtype, D, G)`` runs on
+    the tensor-core kernel (bf16 at a pair of the source's
+    ``FD_TC_PAIRS``: ``smem_plan.flash_decode_path``), else
+    ``"cuda_core"``; fp32 stays on the CUDA cores, whose 1e-5 bar leaves
+    no room for a bf16 P."""
+    return smem_plan.flash_decode_path(D, G, str(dtype).removeprefix("torch."))
+
+
+def reported_path(G: int, D: int, dtype: torch.dtype) -> str:
+    """The kernel the built library launches for ``(dtype, D, G)``, as
+    ``csrc/flash_decode.cu`` reports it (``flash_decode_tensor_core``);
+    builds the library."""
+    fn = build.load("flash_decode").flash_decode_tensor_core
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(_DTYPE_CODE[dtype], D, G)
+    if n < 0:
+        raise ValueError(f"flash_decode has no instantiation for {dtype}, D={D}, G={G}")
+    return "tensor_core" if n else "cuda_core"
+
+
+def ctas_per_sm(G: int, D: int, dtype: torch.dtype) -> int:
+    """CTAs of the symmetric instantiation ``(dtype, D, G)`` that one SM
+    holds at once (the occupancy API); needs the card."""
+    fn = build.load("flash_decode").flash_decode_ctas_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(_DTYPE_CODE[dtype], D, G)
+    if n <= 0:
+        raise RuntimeError(f"flash_decode: no occupancy for {dtype}, D={D}, G={G} ({n})")
     return n
 
 
@@ -146,22 +189,31 @@ def _paged_kernel():
     return _PAGED_FN
 
 
-def num_splits(batch: int, n_kv: int, t_len: int) -> int:
-    """Spans per ``(b, kv_head)``: the least power of two that gives
-    ``TARGET_CTAS`` CTAs, at most ``t_len // MIN_SPAN`` and ``MAX_SPLITS``
-    and at least 1. From the shapes only: (8, 8, 2048), the qwen3 serving
-    shape, gives 8 spans of 256 positions."""
-    want = -(-TARGET_CTAS // max(batch * n_kv, 1))
+def num_splits(batch: int, n_kv: int, group: int, head_dim: int, t_len: int,
+               dtype: torch.dtype) -> int:
+    """Spans per ``(b, kv_head)``, from the shapes and the dtype only, on
+    the kernel they pick (``kernel_path``). CUDA cores: the least power of
+    two that gives ``TARGET_CTAS`` CTAs; (8, 8, 2048), the qwen3 serving
+    shape, gives 8 spans of 256. Tensor cores: the most, a power of two,
+    that keeps the CTAs within one wave of ``TARGET_CTAS``; nemotron's
+    span (8, 8, 2048) gives 4 of 512. Either at most ``t_len // MIN_SPAN``
+    and ``MAX_SPLITS``, at least 1."""
+    rows = max(batch * n_kv, 1)
     n = 1
-    while n < want:
-        n *= 2
+    if kernel_path(dtype, head_dim, group) == "tensor_core":
+        while 2 * n * rows <= TARGET_CTAS:
+            n *= 2
+    else:
+        while n * rows < TARGET_CTAS:
+            n *= 2
     return max(1, min(n, t_len // MIN_SPAN, MAX_SPLITS))
 
 
 def scratch_bytes(batch: int, n_kv: int, group: int, head_dim: int,
-                  t_len: int) -> int:
+                  t_len: int, dtype: torch.dtype) -> int:
     """Bytes of the fp32 partials (m, l, acc) one call allocates."""
-    return batch * n_kv * num_splits(batch, n_kv, t_len) * group * (head_dim + 2) * 4
+    return (batch * n_kv * num_splits(batch, n_kv, group, head_dim, t_len, dtype)
+            * group * (head_dim + 2) * 4)
 
 
 def check_inputs(q, k_cache, v_cache, lengths) -> None:
@@ -289,7 +341,7 @@ def _launch(q, k_cache, v_cache, lengths, lse):
     _check_cuda_layout(q, k_cache, v_cache, lengths)
     B, KV, G, D = q.shape
     T = k_cache.shape[1]
-    n_split = num_splits(B, KV, T)
+    n_split = num_splits(B, KV, G, D, T, q.dtype)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     part = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
                        device=q.device)
@@ -329,7 +381,7 @@ def _flash_decode_paged_cuda(q, buf, table, k_offset, v_offset, pos_stride,
     if any(t.device != q.device for t in (buf, table, lengths)):
         raise ValueError("flash_decode_paged: all inputs must be on one device")
     B, KV, G, D = q.shape
-    n_split = num_splits(B, KV, t_len)
+    n_split = num_splits(B, KV, G, D, t_len, q.dtype)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     part = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32,
                        device=q.device)

@@ -46,7 +46,10 @@ _ALIGN = 16
 
 # csrc/flash_decode.cu: 4 warps; a ring of kStages tiles of K and V rows,
 # kUnroll positions per lane group per tile; the merge of up to kMaxSplits
-# partials; the (D, G) pairs it builds (FD_PAIRS)
+# partials; the (D, G) pairs it builds (FD_PAIRS). The pairs whose bf16
+# instantiations run on the tensor-core kernel (FD_TC_PAIRS, the one Python
+# copy of the source's table; kernels/flash_decode.kernel_path reads it): a
+# ring of kTcStages tiles of kTcRows positions per warp
 FD_WARPS = 4
 FD_UNROLL = 2
 FD_STAGES = 4
@@ -54,6 +57,9 @@ FD_MAX_SPLITS = 64
 FD_PAIRS = ((64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8), (128, 1),
             (128, 2), (128, 4), (128, 5), (128, 8), (168, 2), (192, 12),
             (224, 1), (320, 2))
+FD_TC_PAIRS = ((192, 12),)
+FD_TC_STAGES = 2
+FD_TC_ROWS = 16
 
 # csrc/ssd_chunk.cu: chunks of at most kMaxL positions, N <= kMaxN; the
 # tensor-core kernel (bf16 x/B/C) has 4 warps and 64-row tiles, the
@@ -126,20 +132,33 @@ def _check_dtype(dtype: str) -> None:
         raise ValueError(f"dtype {dtype!r}: one of {sorted(_ITEMSIZE)}")
 
 
-def flash_decode_tile(D: int, dtype: str) -> tuple[int, int]:
+def flash_decode_path(D: int, G: int, dtype: str) -> str:
+    """The kernel ``(dtype, D, G)`` runs on: ``"tensor_core"`` for bf16 at
+    a pair of ``FD_TC_PAIRS``, else ``"cuda_core"``."""
+    return "tensor_core" if dtype == "bfloat16" and (D, G) in FD_TC_PAIRS else "cuda_core"
+
+
+def flash_decode_tile(D: int, G: int, dtype: str) -> tuple[int, int]:
     """``(positions per tile, 16-byte chunks per cache row)`` of one
-    ``flash_decode`` CTA (``Layout`` of ``csrc/flash_decode.cu``): a row
-    is CH chunks; where CH divides 32 a position takes CH lanes, else a
-    whole warp."""
+    ``flash_decode`` CTA of the instantiation ``(dtype, D, G)``, on the
+    kernel it runs on (``flash_decode_path``). CUDA cores (``Layout`` of
+    ``csrc/flash_decode.cu``): a row is CH chunks; where CH divides 32 a
+    position takes CH lanes, else a whole warp. Tensor cores
+    (``TcLayout``): ``FD_TC_ROWS`` positions for each warp."""
     ch = D * _ITEMSIZE[dtype] // 16
+    if flash_decode_path(D, G, dtype) == "tensor_core":
+        return FD_WARPS * FD_TC_ROWS, ch
     lanes = ch if ch <= 32 and 32 % ch == 0 else 32
     return FD_WARPS * (32 // lanes) * FD_UNROLL, ch
 
 
 def plan_flash_decode_smem(
-    *, G: int, D: int, dtype: str = "bfloat16", stages: int = FD_STAGES
+    *, G: int, D: int, dtype: str = "bfloat16", stages: int | None = None
 ) -> KernelSmemPlan:
-    """One CTA of ``flash_decode`` (one span of one ``(b, kv_head)``).
+    """One CTA of ``flash_decode`` (one span of one ``(b, kv_head)``) on
+    the kernel the instantiation runs on (``flash_decode_path``), with
+    ``stages`` ring slots (default the kernel's: ``FD_STAGES``,
+    ``FD_TC_STAGES`` on the tensor cores).
 
     Stages (ops): 0 prologue, the first ``stages - 1`` tiles in flight |
     1 the span's loop over the whole ring | 2 the merge of the warps'
@@ -147,13 +166,17 @@ def plan_flash_decode_smem(
     A ring slot holds the K rows and the V rows of one tile
     (``flash_decode_tile``): 8 KiB where a row's chunks divide a warp
     (D = 64, 128), ``2 · 8 · D · itemsize`` bytes where a warp reads one
-    position (bf16 D = 320: 10 KiB). The two merges reuse the ring.
+    position (bf16 D = 320: 10 KiB), ``2 · 64 · D · 2`` on the tensor
+    cores (bf16 D = 192: 48 KiB). The two merges reuse the ring.
     """
     _check_dtype(dtype)
     if (D, G) not in FD_PAIRS:
         raise ValueError(f"flash_decode is built for (D, G) in {FD_PAIRS}; "
                          f"got D={D}, G={G}")
-    tile, ch = flash_decode_tile(D, dtype)
+    tensor_core = flash_decode_path(D, G, dtype) == "tensor_core"
+    if stages is None:
+        stages = FD_TC_STAGES if tensor_core else FD_STAGES
+    tile, ch = flash_decode_tile(D, G, dtype)
     half_tile = tile * ch * 16  # the K (or V) rows of one tile
     r = _Records()
     for s in range(stages):
@@ -166,7 +189,8 @@ def plan_flash_decode_smem(
     r.add(3, 3, FD_MAX_SPLITS * G * 4)  # the spans' m, then their weights
     r.add(3, 3, FD_MAX_SPLITS * G * 4)  # the spans' l
     r.add(3, 3, G * 4)                  # 1 / (sum of weighted l)
-    return r.plan(f"flash_decode[G={G},D={D},{dtype},stages={stages}]")
+    kind = ",tensor_core" if tensor_core else ""
+    return r.plan(f"flash_decode[G={G},D={D},{dtype},stages={stages}{kind}]")
 
 
 def plan_ssd_chunk_smem(

@@ -51,6 +51,7 @@ from torch.utils.flop_counter import flop_registry, register_flop_formula
 from repro_torch.core.unified import iter_leaves
 from repro_torch.kernels import flash_decode as _flash_decode  # noqa: F401 (the op)
 from repro_torch.kernels import ssd_chunk as _ssd_chunk  # noqa: F401 (the op)
+from repro_torch.kernels.smem_plan import flash_decode_path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,8 +182,10 @@ def kernel_bound(kernel: str, shape: dict, *, card_name: str) -> Bound:
     """The least time the card could take for one call of ``kernel``.
 
     ``flash_decode``: ``shape`` has B, KV, G, D, T, dtype and optionally
-    ``sum_lengths`` (positions read over the batch; default B·T); its
-    arithmetic runs on the fp32 CUDA cores. ``ssd_chunk``: B, L, H, P, N,
+    ``sum_lengths`` (positions read over the batch; default B·T): its
+    arithmetic runs on the kernel the instantiation picks
+    (``kernels/smem_plan.flash_decode_path``), the fp32 CUDA cores or the
+    bf16 tensor cores. ``ssd_chunk``: B, L, H, P, N,
     dtype, state_dtype and ``groups`` (B and C are read once per group;
     default H); bf16 x/B/C run on the tensor cores, fp32 on the CUDA
     cores. ``ssd_chunk_bwd``: the same keys; it reads x, dt, dA, B, C
@@ -197,7 +200,9 @@ def kernel_bound(kernel: str, shape: dict, *, card_name: str) -> Bound:
                   + 2 * B * KV * G * D * item    # q in, the output out
                   + B * 4)                       # lengths
         flops = flash_decode_flops((B, KV, G, D), (B, T, KV, D), positions)
-        return Bound(flops, nbytes, spec.fp32_flops, spec.hbm_bytes_per_s)
+        tensor_core = flash_decode_path(D, G, shape["dtype"]) == "tensor_core"
+        rate = spec.bf16_flops if tensor_core else spec.fp32_flops
+        return Bound(flops, nbytes, rate, spec.hbm_bytes_per_s)
     if kernel == "ssd_chunk":
         B, L, H, P, N = (shape[k] for k in ("B", "L", "H", "P", "N"))
         item = _ITEMSIZE[shape["dtype"]]

@@ -127,7 +127,7 @@ SPLIT_CASES = [
 @pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
 def test_flash_decode_kernel_merges_spans_with_empty_ones(cuda, case, dtype):
     B, KV, G, D, T, rows = SPLIT_CASES[case]
-    assert fd.num_splits(B, KV, T) > 1
+    assert fd.num_splits(B, KV, G, D, T, getattr(torch, dtype)) > 1
     rng = np.random.default_rng(11)
     q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
     k, v = (_rand(rng, (B, T, KV, D), dtype, cuda) for _ in range(2))
@@ -148,7 +148,7 @@ def test_flash_decode_kernel_at_every_new_pair(cuda, D, G, dtype):
     8 spans of 128, a length-1 row (seven empty spans), a row ending one
     position into a span and a full row."""
     B, KV, T = 3, 2, 1024
-    assert fd.num_splits(B, KV, T) == 8
+    assert fd.num_splits(B, KV, G, D, T, getattr(torch, dtype)) == 8
     rng = np.random.default_rng(12)
     q = _rand(rng, (B, KV, G, D), dtype, cuda, Q_STD)
     k, v = (_rand(rng, (B, T, KV, D), dtype, cuda) for _ in range(2))
@@ -232,6 +232,64 @@ def test_flash_decode_lse_kernel_matches_plain(cuda, B, KV, G, D, T, dtype):
                                rtol=1e-5, atol=1e-5)
 
 
+def test_the_tensor_core_pair_reports_itself_on_the_tensor_cores(cuda):
+    """The built library launches the kernel the table names for every
+    instantiation: bf16 (192, 12) the tensor-core kernel, every other pair
+    and every fp32 one the CUDA-core kernel."""
+    for D, G in sorted(fd.PAIRS):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert fd.reported_path(G, D, dtype) == fd.kernel_path(dtype, D, G)
+    assert fd.reported_path(12, 192, torch.bfloat16) == "tensor_core"
+    assert fd.reported_path(12, 192, torch.float32) == "cuda_core"
+    # two CTAs an SM (__launch_bounds__(128, 2), 98,304 B of shared memory)
+    assert fd.ctas_per_sm(12, 192, torch.bfloat16) >= 2
+
+
+def _nemotron_span(cuda, seed):
+    """q and a K/V cache at one rank's span of nemotron-4-340b's decode_32k
+    on (data=16, model=16), bf16, with rows ending at a tile edge (64), one
+    past it, at a span edge (256), one past it, and T."""
+    B, KV, G, D, T = 8, 8, 12, 192, 2048
+    rng = np.random.default_rng(seed)
+    q = _rand(rng, (B, KV, G, D), "bfloat16", cuda, Q_STD)
+    k, v = (_rand(rng, (B, T, KV, D), "bfloat16", cuda) for _ in range(2))
+    rows = (1, 64, 65, 256, 257, 1500, 2047, T)
+    return rng, q, k, v, rows
+
+
+def test_the_tensor_core_kernel_gives_the_same_bits_twice(cuda):
+    """Two calls at nemotron's span give the same output and log-sum-exp
+    bit for bit: every sum runs in a fixed order (the warps' and the
+    spans' merges included), whichever CTA merges."""
+    _, q, k, v, rows = _nemotron_span(cuda, 18)
+    lengths = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    a, lse_a = fd.flash_decode_lse(q, k, v, lengths)
+    b, lse_b = fd.flash_decode_lse(q, k, v, lengths)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(lse_a.view(torch.int32), lse_b.view(torch.int32))
+    assert torch.equal(a, fd.flash_decode(q, k, v, lengths))
+
+
+def test_the_paged_tensor_core_kernel_equals_the_symmetric_one(cuda):
+    """The paged kernel at nemotron's (192, 12), bf16, its K/V read out of
+    a shuffled pool of 64 KiB pages: within the bf16 bar of its plain
+    version and bit-equal to ``flash_decode`` on the cache gathered out of
+    the pool (one kernel, other addresses)."""
+    from repro_torch.kernels.ref import flash_decode_paged_ref
+
+    rng, q, _, _, rows = _nemotron_span(cuda, 19)
+    B, KV, G, D = q.shape
+    args = _paged_pool(rng, B, KV, D, 2048, "bfloat16", 65536, rows, True, cuda)
+    lens = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    got = fd.flash_decode_paged(q, *args, lens)
+    want = flash_decode_paged_ref(q.float(), args[0].float(), *args[1:], lens)
+    atol, rtol = TOL["bfloat16"]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    k, v = _paged_gather(args, KV, D)
+    assert torch.equal(got, fd.flash_decode(q, k, v, lens))
+
+
 def test_flash_decode_kernel_on_two_streams_at_once(cuda):
     """Launches queued on two streams run at the same time: each stream
     keeps its own counts of finished spans, so no CTA merges before every
@@ -243,7 +301,7 @@ def test_flash_decode_kernel_on_two_streams_at_once(cuda):
     partial left in reused scratch by an earlier launch would show."""
     B, KV, G, D, T = 1, 1, 8, 64, 32768  # 64 spans of 512 positions
     n = 32
-    assert fd.num_splits(B, KV, T) == 64
+    assert fd.num_splits(B, KV, G, D, T, torch.float32) == 64
     rng = np.random.default_rng(13)
     k, v = (_rand(rng, (B, T, KV, D), "float32", cuda) for _ in range(2))
     lengths = [torch.tensor([n_pos], dtype=torch.int32, device=cuda)

@@ -79,16 +79,36 @@ def test_flash_decode_plan_at_the_gemma3_heads(shape):
     KiB); the merges reuse the ring."""
     kp = sp.plan_flash_decode_smem(**shape)
     item = 2 if shape["dtype"] == "bfloat16" else 4
-    assert sp.flash_decode_tile(shape["D"], shape["dtype"]) == (8, shape["D"] * item // 16)
+    assert sp.flash_decode_tile(shape["D"], shape["G"], shape["dtype"]) == (
+        8, shape["D"] * item // 16)
     assert kp.fits and kp.plan.total_size == sp.FD_STAGES * 2 * 8 * shape["D"] * item
     assert kp.plan.total_size == kp.plan.lower_bound < kp.plan.naive_size
 
 
 def test_a_merge_larger_than_the_ring_is_planned():
-    """nemotron's (192, 12) in bf16: the warps' accumulators (4 x 12 x 192
-    fp32, 36 KiB) outgrow the 24 KiB ring, and the plan is the merge."""
+    """nemotron's (192, 12) in fp32 (the CUDA-core kernel) with a ring of 3
+    stages: the warps' accumulators (4 x 12 x 192 fp32, 36 KiB) and their
+    m and l outgrow the 36 KiB ring of 3 x 2 x 8 rows of 768 B, and the
+    plan is the merge."""
+    kp = sp.plan_flash_decode_smem(G=12, D=192, dtype="float32", stages=3)
+    assert kp.plan.total_size == 2 * 192 + 4 * 12 * 192 * 4 > 3 * 2 * 8 * 768
+
+
+def test_the_tensor_core_ring_is_planned_by_hand():
+    """nemotron's (192, 12) in bf16 runs on the tensor-core kernel: a ring
+    of 2 tiles of 64 positions (16 a warp), each K and V rows of 384 B,
+    2 x 2 x 64 x 384 = 98,304 B, which the two merges reuse (the warps'
+    37,248 B, the spans' 6,192 B). In fp32 the pair stays on the CUDA-core
+    layout: 4 tiles of 8 rows of 768 B for K and V."""
     kp = sp.plan_flash_decode_smem(G=12, D=192, dtype="bfloat16")
-    assert kp.plan.total_size == 2 * 192 + 4 * 12 * 192 * 4 > sp.FD_STAGES * 2 * 8 * 384
+    assert sp.flash_decode_path(192, 12, "bfloat16") == "tensor_core"
+    assert sp.flash_decode_tile(192, 12, "bfloat16") == (64, 24)
+    assert kp.plan.total_size == 2 * 2 * 64 * 384 == 98_304 == kp.plan.lower_bound
+    assert kp.plan.naive_size == 98_304 + 2 * 192 + 36_864 + 2 * 3072 + 48
+    assert kp.fits and 2 * kp.plan.total_size < sp.SM_SHARED_L1_BYTES  # 2 CTAs an SM
+    fp32 = sp.plan_flash_decode_smem(G=12, D=192, dtype="float32")
+    assert sp.flash_decode_path(192, 12, "float32") == "cuda_core"
+    assert fp32.plan.total_size == sp.FD_STAGES * 2 * 8 * 768 == 49_152
 
 
 @pytest.mark.parametrize("shape", PREFILL)

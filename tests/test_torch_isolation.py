@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and no script of
 the card (``chip_smoke.py``, ``chip_faults.py``,
-``scripts/time_ssd_bwd.py``) imports JAX or anything of the reference
-package."""
+``scripts/time_kernel.py``) imports
+JAX or anything of the reference package."""
 
 import os
 import re
@@ -49,7 +49,7 @@ _FORBIDDEN = re.compile(
 
 
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + [
-    "chip_smoke.py", "chip_faults.py", "scripts/time_ssd_bwd.py"]
+    "chip_smoke.py", "chip_faults.py", "scripts/time_kernel.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES)

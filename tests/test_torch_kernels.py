@@ -23,7 +23,7 @@ from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.configs.base import get_reduced  # noqa: E402
 from repro_torch.core.unified import plan_state, state_records_from_cache  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.ref import flash_decode_lse_ref, flash_decode_ref  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
 from repro_torch.runtime.residency import StateResidency  # noqa: E402
 
@@ -280,15 +280,39 @@ def test_flash_decode_lse_of_an_empty_row_is_zero_and_minus_1e30():
     (64, 8, 4096, 1),  # 512 CTAs already
 ])
 def test_num_splits_comes_from_the_shapes(B, KV, T, want):
-    n = fd.num_splits(B, KV, T)
+    n = fd.num_splits(B, KV, 2, 64, T, torch.bfloat16)
     assert n == want
     assert n == 1 or B * KV * n >= fd.TARGET_CTAS or n == T // fd.MIN_SPAN
-    assert fd.scratch_bytes(B, KV, 2, 64, T) == B * KV * n * 2 * 66 * 4
+    assert fd.scratch_bytes(B, KV, 2, 64, T, torch.bfloat16) == B * KV * n * 2 * 66 * 4
+
+
+@pytest.mark.parametrize("B,KV,T,want", [
+    (8, 8, 2048, 4),  # nemotron's span: 256 CTAs, one wave at two an SM
+    (3, 2, 1024, 8),  # capped at T // MIN_SPAN
+    (1, 1, 300, 2),
+    (32, 8, 2048, 1),  # 256 CTAs already
+    (64, 8, 4096, 1),  # more than a wave: never below one span
+])
+def test_num_splits_on_the_tensor_cores_fills_one_wave(B, KV, T, want):
+    n = fd.num_splits(B, KV, 12, 192, T, torch.bfloat16)
+    assert n == want
+    assert B * KV * n <= fd.TARGET_CTAS or n == 1
+    assert n == T // fd.MIN_SPAN or n == 1 or 2 * B * KV * n > fd.TARGET_CTAS
+    assert fd.scratch_bytes(B, KV, 12, 192, T, torch.bfloat16) == B * KV * n * 12 * 194 * 4
+
+
+def test_the_tensor_core_kernels_scratch_at_nemotrons_span():
+    """8 slots x 8 KV heads x 4 spans x G=12 x (192 + 2) fp32: 2,383,872 B;
+    fp32 stays on the CUDA-core kernel, whose 8 spans take twice that."""
+    assert fd.kernel_path(torch.bfloat16, 192, 12) == "tensor_core"
+    assert fd.scratch_bytes(8, 8, 12, 192, 2048, torch.bfloat16) == 2_383_872
+    assert fd.kernel_path(torch.float32, 192, 12) == "cuda_core"
+    assert fd.scratch_bytes(8, 8, 12, 192, 2048, torch.float32) == 2 * 2_383_872
 
 
 def test_serving_scratch_is_a_quarter_mib():
     """8 slots x 8 KV heads x 8 spans x G=2 x (64 + 2) fp32: 270,336 B."""
-    assert fd.scratch_bytes(8, 8, 2, 64, 2048) == 270_336
+    assert fd.scratch_bytes(8, 8, 2, 64, 2048, torch.bfloat16) == 270_336
 
 
 def test_counts_are_never_made_while_a_graph_is_captured(monkeypatch):
@@ -315,3 +339,151 @@ def test_replaced_counts_stay_alive(monkeypatch):
     big = fd._counters(*key, 200)
     assert big.numel() == 200 and small.numel() == 64
     assert fd._RETIRED == [small] and fd._COUNTERS.pop(key) is big
+
+
+def _tensor_core_decode(q, k, v, lengths, n_split, p_bf16=True):
+    """The arithmetic of the tensor-core kernel (``flash_decode_tc_kernel``
+    of ``csrc/flash_decode.cu``) in plain PyTorch, on bf16 q, K and V: S
+    from exact products summed in fp32 (float64, then rounded), the scale
+    applied to S in fp32; each span of ``ceil(T / n_split)`` positions cut
+    into tiles of 64, 16 positions to each of 4 warps, each warp with its
+    own online softmax (m, l, O); P rounded to bf16 before P·V (exact
+    products, fp32 sums) while l sums the fp32 p; the warps merged, then
+    the spans, as the CUDA-core kernel merges them. Returns the output in
+    fp32 before its rounding to bf16 and each query head's log-sum-exp
+    (-1e30 for a row of length 0). ``p_bf16=False`` keeps P in fp32."""
+    B, KV, G, D = q.shape
+    T = k.shape[1]
+    warps, rows = 4, 16
+    span = -(-T // n_split)
+    scale = torch.tensor(1.0 / D ** 0.5, dtype=torch.float32)
+    scores = torch.einsum("bkgd,btkd->bkgt", q.double(), k.double()).float() * scale
+    out = torch.zeros(B, KV, G, D)
+    lse = torch.empty(B, KV, G)
+    for b in range(B):
+        length = min(max(int(lengths[b]), 0), T)
+        pm = torch.full((n_split, KV, G), -1e30)
+        pl = torch.zeros(n_split, KV, G)
+        pacc = torch.zeros(n_split, KV, G, D)
+        for s in range(n_split):
+            start, end = s * span, min(s * span + span, length)
+            if start >= end:
+                continue  # the sentinel partial
+            wm = torch.full((warps, KV, G), -1e30)
+            wl = torch.zeros(warps, KV, G)
+            wo = torch.zeros(warps, KV, G, D)
+            for t0 in range(start, end, warps * rows):
+                for w in range(warps):
+                    p0 = t0 + w * rows
+                    if p0 >= end:
+                        continue  # none of the warp's rows is live
+                    sc = scores[b, :, :, p0:min(p0 + rows, end)]
+                    mx = torch.maximum(wm[w], sc.amax(-1))
+                    corr = torch.exp(wm[w] - mx)
+                    wm[w] = mx
+                    p = torch.exp(sc - mx[..., None])
+                    wl[w] = wl[w] * corr + p.sum(-1)
+                    pp = p.bfloat16() if p_bf16 else p
+                    pv = torch.einsum("kgt,tkd->kgd", pp.double(),
+                                      v[b, p0:p0 + p.shape[-1]].double())
+                    wo[w] = ((wo[w] * corr[..., None]).double() + pv).float()
+            mx = wm.amax(0)
+            e = torch.exp(wm - mx)
+            pm[s], pl[s], pacc[s] = mx, (wl * e).sum(0), (wo * e[..., None]).sum(0)
+        mx = pm.amax(0)
+        weight = torch.exp(pm - mx)
+        lsum = (pl * weight).sum(0)
+        out[b] = (pacc * weight[..., None]).sum(0) / lsum.clamp_min(1e-30)[..., None]
+        lse[b] = torch.where(lsum > 0, mx + torch.log(lsum.clamp_min(1e-30)),
+                             torch.tensor(-1e30))
+    return out, lse
+
+
+# nemotron's (D, G) = (192, 12) at small T: (B, KV, T, lengths) with rows of
+# length 0, 1, a tile edge (64), one past it, a span edge and T
+TENSOR_CORE_CASES = [
+    (6, 2, 512, [0, 1, 64, 128, 129, 512]),  # 4 spans of 128: 2 tiles each
+    (4, 1, 200, [0, 63, 65, 200]),  # one span of 200: a ragged last tile
+    (2, 1, 1024, [385, 1024]),  # 8 spans of 128
+]
+
+
+@pytest.mark.parametrize("case", range(len(TENSOR_CORE_CASES)))
+def test_tensor_core_arithmetic_matches_the_jax_oracle(case):
+    """The tensor-core kernel's arithmetic (``_tensor_core_decode``) at
+    (192, 12) in bf16, split as the wrapper splits T: the output against
+    the JAX oracle on the same values in fp32 at the bf16 bar, 1e-3 +
+    1e-2·|want| (the bf16 P and the output's rounding); the log-sum-exp
+    against the scores' in float64 and against ``flash_decode_lse_ref`` in
+    fp32 within 1e-5 + 1e-5·|want| (the card test's bar); a row of length
+    0 gives the output 0 and -1e30."""
+    B, KV, T, rows = TENSOR_CORE_CASES[case]
+    G, D = 12, 192
+    q, k, v, _ = _mk(21 + case, B, KV, G, D, T, "bfloat16")
+    q = _as_dtype(np.asarray(q, np.float32) * 8.0, "bfloat16")  # scores of std 2
+    lengths = np.array(rows, np.int32)
+    tq, tk, tv, tl = _torch(q, k, v, lengths)
+    n_split = fd.num_splits(B, KV, G, D, T, torch.bfloat16)
+    got, lse = _tensor_core_decode(tq, tk, tv, tl, n_split)
+    got = got.bfloat16()
+    assert fd.kernel_path(torch.bfloat16, D, G) == "tensor_core"
+    live = lengths > 0
+    q32, k32, v32 = (np.asarray(a, np.float32) for a in (q, k, v))
+    want = np.asarray(jax_flash_decode_ref(q32, k32, v32, lengths), np.float32)
+    err = np.abs(got.float().numpy() - want)
+    assert (err[live] <= 1e-3 + 1e-2 * np.abs(want[live])).all(), err.max()
+    want_lse = _lse_numpy(q32[live], k32[live], lengths[live])
+    np.testing.assert_allclose(lse.numpy()[live], want_lse, rtol=1e-5, atol=1e-5)
+    ref_out, ref_lse = flash_decode_lse_ref(*(t.float() for t in (tq, tk, tv)), tl)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=1e-5, atol=1e-5)
+    ref_err = (got.float() - ref_out).abs()
+    assert bool((ref_err <= 1e-3 + 1e-2 * ref_out.abs()).all())
+    assert torch.equal(got[~torch.from_numpy(live)].float(),
+                       torch.zeros_like(got[~torch.from_numpy(live)].float()))
+    assert bool((lse[~torch.from_numpy(live)] == -1e30).all())
+
+
+def test_bf16_p_is_what_the_tensor_core_arithmetic_adds():
+    """With P kept in fp32 the emulation's output meets the fp32 bar
+    against the plain version, 1e-5 + 1e-5·|want|: the bf16 P is the one
+    rounding the tensor-core path adds before the output's (held to the
+    bf16 bar above), and it moves the output by more than that bar."""
+    B, KV, G, D, T = 2, 1, 12, 192, 256
+    q, k, v, _ = _torch(*_mk(30, B, KV, G, D, T, "bfloat16"))
+    q = q * 8
+    lengths = torch.tensor([100, 256], dtype=torch.int32)
+    exact = flash_decode_lse_ref(q.float(), k.float(), v.float(), lengths)
+    n_split = fd.num_splits(B, KV, G, D, T, torch.bfloat16)
+    fp32_p, lse = _tensor_core_decode(q, k, v, lengths, n_split, p_bf16=False)
+    bf16_p, _ = _tensor_core_decode(q, k, v, lengths, n_split)
+    bar = 1e-5 + 1e-5 * exact[0].abs()
+    assert bool(((fp32_p - exact[0]).abs() <= bar).all())
+    assert not bool(((bf16_p - exact[0]).abs() <= bar).all())
+    assert bool(((lse - exact[1]).abs() <= 1e-5 + 1e-5 * exact[1].abs()).all())
+
+
+def test_the_kernel_tables_agree():
+    """``csrc/flash_decode.cu``'s FD_PAIRS and FD_TC_PAIRS, the wrapper's
+    PAIRS and the SMEM plan's FD_PAIRS and FD_TC_PAIRS name the same
+    pairs; every tensor-core pair is built, and the wrapper picks the
+    tensor-core kernel exactly for the bf16 instantiations of the
+    source's FD_TC_PAIRS."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import smem_plan as sp
+
+    src = (Path(fd.__file__).parent / "csrc" / "flash_decode.cu").read_text()
+
+    def pairs(macro):
+        body = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", src).group(1)
+        return {(int(d), int(g)) for d, g in re.findall(r"X\((\d+), (\d+)\)", body)}
+
+    assert pairs("FD_PAIRS") == set(fd.PAIRS) == set(sp.FD_PAIRS)
+    tc = pairs("FD_TC_PAIRS")
+    assert tc == set(sp.FD_TC_PAIRS) == {(192, 12)}
+    assert tc <= fd.PAIRS
+    for D, G in fd.PAIRS:
+        assert fd.kernel_path(torch.float32, D, G) == "cuda_core"
+        assert fd.kernel_path(torch.bfloat16, D, G) == (
+            "tensor_core" if (D, G) in tc else "cuda_core")
