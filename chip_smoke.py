@@ -96,10 +96,10 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                requests of 32 prompt + 64 new tokens: all finish, every
                decode step is a replay, and the state is one buffer of
                exactly the planned size that never moves;
-11. parity_gemma3 — gemma3-4b at full width, one period (5 window layers
-               of 1024 and a global layer), fp32, 2 slots: a 1,090-token
-               prompt with 16 new tokens (every ring wraps) and two short
-               requests, served as ``parity`` serves qwen3;
+11. parity_gemma3 — gemma3-4b at full width, cut to two layers (a window
+               layer of 1024 and the global layer), fp32, 2 slots: a
+               1,090-token prompt with 16 new tokens (the ring wraps) and
+               two short requests, served as ``parity`` serves qwen3;
 12. serve_gemma3 — ``serve.run`` on full-width gemma3-4b (34 layers, bf16)
                with the serve phase's slots and requests: all finish, the
                state is one buffer of exactly 1,635,778,560 B (29 rings of
@@ -164,8 +164,8 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                embeddings and 1,792 tokens through ``ArenaExecutor`` from
                its certified plan, equal to eager; no kernel;
 24. parity_paged — engines served with 64 KiB pages and symmetric ones
-               from one seed, fp32: a full-width 2-layer qwen3, one
-               full-width period of gemma3-4b with the 1,090-token prompt
+               from one seed, fp32: a full-width 2-layer qwen3, gemma3-4b
+               cut as in parity_gemma3 with the 1,090-token prompt
                (every ring wraps), a 2-layer mamba2-2.7b and a 2-layer
                zamba2-7b (one layer after the shared block): tokens and
                slot logs identical, logits bit-equal, every captured paged
@@ -319,17 +319,23 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                0, its per-device param bytes the sum this script takes of
                each leaf's local shard under the reference's specs (frozen
                in tests/data, held against the reference by
-               tests/test_torch_mesh.py); each decode row's planned
-               activations and peak under 80 GB. The train row is marked
-               not representative (heads gathered, no remat: A15.4).
+               tests/test_torch_mesh.py); each row's planned activations
+               and peak under 80 GB, the train row with ``remat`` on (its
+               periods recomputed in the backward, as the reference's dry
+               run) and its scores split on T (q on heads, K/V on T where
+               the 8 K/V heads do not divide model = 16).
 37. sharded   — ``build_step``'s steps on DTensors on the card (a child
                process: NCCL, world 1, a (1, 1) mesh), after every timed
                phase: full-width qwen3-0.6b, 4 decode steps at 8 slots x
                2048 (28 ``flash_decode`` launches a step through the op's
                sharding rule), and full-width mamba2-2.7b, one 2048-token
-               prefill (512 ``ssd_chunk`` launches); each bit-equal to the
-               unsharded eager step (else within 1e-6), the eager twins'
-               launches counted apart.
+               prefill (512 ``ssd_chunk`` launches); the train step with
+               remat on full-width qwen3-0.6b at 512 x 4 and on mamba2-2.7b
+               cut to 8 layers, fp32, at 512 x 2 (32 ``ssd_chunk`` launches,
+               the forward's and the recompute's, and 16 ``ssd_chunk_bwd``);
+               each bit-equal to the unsharded eager step (the train steps'
+               loss, grad norm and every gradient leaf; else within 1e-6),
+               the eager twins' launches counted apart.
 38. rank_of_256 — rank 0's local program of full-width nemotron-4-340b
                decode_32k over the fake group of 256 ranks on the card (a
                child process): 2.64 GB of local params from a seed, 9.66
@@ -343,8 +349,12 @@ Phases, each printing JSON lines (any failed check exits non-zero):
                output's local shape and 96 launches, the allocator's peak
                beside the dry run's ``arg_gb`` and ``planned_act_gb``, the
                step's kernel time (torch.profiler) and CUDA-event time,
-               the attention cores. The fake group's collectives move
-               nothing, so the step's values are not checked.
+               the attention cores; then rank 0's qwen3-0.6b train_4k step
+               with remat (local batch 16 x 4,096), its allocator peak
+               under 80 GB beside the dry run's ``arg_gb`` +
+               ``planned_act_gb`` for that row. The fake group's
+               collectives move nothing, so the steps' values are not
+               checked.
 39. examples  — the twins of the reference's examples
                (``repro_torch.examples``), each through its entry point, on
                the card, after every other phase: quickstart (MobileNet v1
@@ -382,8 +392,8 @@ fp32 gradient check cut depth). The
 kernel counts (each wrapper's launches plus each replayed graph's
 captured launches per replay) are set to 0 just before each path (phases
 5, 9, 10, 12, 13, 15, 16, 17, 19, 20, 22, 23, 25, each serve of 26 and
-27, 28, 29 and each of its bundle serves, 30, 34's 4 steps, 37's two
-sharded runs, 38's step, each serve_lm and train_lm of 39; 7, 24 and
+27, 28, 29 and each of its bundle serves, 30, 34's 4 steps, 37's four
+sharded runs, 38's two steps, each serve_lm and train_lm of 39; 7, 24 and
 34's gradient checks and 37's eager twins for their own checks) and read
 just after it.
 Every phase's row carries ``t_s``, the run's seconds when it was
@@ -1164,21 +1174,30 @@ def phase_parity() -> None:
     run_parity("parity", cfg, requests, n_slots=4, max_len=128)
 
 
+def gemma3_two_layers():
+    """Full-width gemma3-4b cut to two layers, fp32: the first of its
+    window layers (a ring of 1024) and its global layer, the two kinds of
+    cache its period holds (the period's other four window layers are
+    this one's twins)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("gemma3-4b")
+    return dataclasses.replace(cfg, n_periods=1, remainder=(), dtype="float32",
+                               period=(cfg.period[0], cfg.period[-1]))
+
+
 def phase_parity_gemma3() -> None:
-    """gemma3-4b at full width, its depth cut to one period (5 window
-    layers of 1024 and a global layer), fp32, 2 slots: one request of a
+    """gemma3-4b at full width, its depth cut to two layers
+    (``gemma3_two_layers``: a window layer of 1024 and the global layer),
+    fp32, 2 slots: one request of a
     1,090-token prompt and 16 new tokens, so every ring wraps, and two
     short ones, so a slot is reused. The same three ways as ``parity``.
     fp32, as qwen3's parity: in bf16 the plain attention rounds its scores
     to bf16 (the reference's cast point) where the kernel keeps fp32, so
     greedy tokens would test rounding, not the kernel; the bf16 kernel is
     held in the kernels phase and served in serve_gemma3."""
-    from repro_torch.configs.base import get_config
-
-    cfg = dataclasses.replace(get_config("gemma3-4b"), n_periods=1, remainder=(),
-                              dtype="float32")
-    run_parity("parity_gemma3", cfg, [(1090, 16), (37, 20), (5, 12)], n_slots=2,
-               max_len=1280)
+    run_parity("parity_gemma3", gemma3_two_layers(), [(1090, 16), (37, 20), (5, 12)],
+               n_slots=2, max_len=1280)
 
 
 def run_parity(phase: str, cfg, requests, *, n_slots: int, max_len: int,
@@ -2984,8 +3003,9 @@ def phase_kernels_state() -> None:
 def phase_parity_paged() -> None:
     """Paged engines (64 KiB pages) against symmetric ones from one seed
     (``run_parity_paged``): a full-width 2-layer fp32 qwen3; gemma3-4b at
-    full width cut to one period (5 rings of 1024 and a global cache),
-    with the 1,090-token prompt of ``parity_gemma3`` so every ring wraps;
+    full width cut to two layers (``gemma3_two_layers``: a ring of 1024
+    and a global cache), with the 1,090-token prompt of ``parity_gemma3``
+    so the ring wraps;
     a 2-layer mamba2-2.7b; zamba2-7b cut to a Mamba2 layer and one after
     the shared block. The last three are also served with the plain
     cores (paged), whose logits are held within 1e-4 of the kernel's."""
@@ -2994,9 +3014,8 @@ def phase_parity_paged() -> None:
     mix = list(zip((3, 5, 8, 2, 6, 4), (6, 9, 4, 7, 5, 8)))
     qwen3 = dataclasses.replace(get_config("qwen3-0.6b"), n_periods=2, dtype="float32")
     run_parity_paged(qwen3, mix, n_slots=4, max_len=128, plain=False)
-    gemma3 = dataclasses.replace(get_config("gemma3-4b"), n_periods=1, remainder=(),
-                                 dtype="float32")
-    run_parity_paged(gemma3, [(1090, 16), (37, 20), (5, 12)], n_slots=2, max_len=1280)
+    run_parity_paged(gemma3_two_layers(), [(1090, 16), (37, 20), (5, 12)], n_slots=2,
+                     max_len=1280)
     mamba2 = dataclasses.replace(get_config("mamba2-2.7b"), n_periods=2, dtype="float32")
     run_parity_paged(mamba2, mix, n_slots=4, max_len=128)
     zamba2 = dataclasses.replace(
@@ -4726,8 +4745,8 @@ MESH_PHASES = ("dryrun", "sharded", "rank_of_256")
 # file against the JAX reference's own rules)
 REFERENCE_SPECS = ROOT / "tests" / "data" / "reference_param_specs_16x16.json"
 ITEMSIZE = {"bfloat16": 2, "float32": 4, "int32": 4}
-# a decode row's planned activations and peak must fit one 80 GB card
-DECODE_ROW_LIMIT_GB = 80.0
+# a row's planned activations and peak must fit one 80 GB card
+ROW_LIMIT_GB = 80.0
 
 
 def reference_param_bytes(arch: str, sizes: dict) -> int:
@@ -4752,12 +4771,12 @@ def phase_dryrun() -> dict:
     llama4-maverick-400b-a17b decode_32k, qwen3-0.6b train_4k. Each row
     must be ``ok`` without a planner error, with collective bytes above 0
     and its per-device param bytes equal to ``reference_param_bytes`` (the
-    reference's specs, frozen in the checkout); a decode row's planned
-    activations and peak must each stay under ``DECODE_ROW_LIMIT_GB``.
-    The train row is recorded and marked not representative: between the
-    hooks DTensor gathers qwen3's heads where its 8 K/V heads do not
-    divide model = 16, and the sharded train step runs without remat
-    (ROADMAP A15.4), so its plan is no device's real need."""
+    reference's specs, frozen in the checkout); each row's planned
+    activations and peak must stay under ``ROW_LIMIT_GB``, and the train
+    row must recompute its periods (``remat``, as the reference's dry
+    run). Where qwen3's 8 K/V heads do not divide model = 16, q is split
+    on heads and K/V on T, and the softmax and the PV product reduce
+    across the ranks, so the train row's plan is a device's need."""
     from repro_torch.launch.dryrun import run_one
 
     rows, ok = [], True
@@ -4768,11 +4787,11 @@ def phase_dryrun() -> dict:
                   "no_planner_error": "planner_error" not in row,
                   "param_bytes_are_the_references": row.get("param_bytes") == want,
                   "collectives": row.get("coll_gb", 0) > 0}
-        if shape.startswith("decode"):
-            checks["planned_act_under_limit"] = \
-                row.get("planned_act_gb", math.inf) < DECODE_ROW_LIMIT_GB
-            checks["peak_under_limit"] = \
-                row.get("peak_mem_gb", math.inf) < DECODE_ROW_LIMIT_GB
+        checks["planned_act_under_limit"] = \
+            row.get("planned_act_gb", math.inf) < ROW_LIMIT_GB
+        checks["peak_under_limit"] = row.get("peak_mem_gb", math.inf) < ROW_LIMIT_GB
+        if shape.startswith("train"):
+            checks["remat"] = row.get("remat") is True
         ok &= all(checks.values())
         rows.append({**{k: row.get(k) for k in (
             "arch", "shape", "mesh", "status", "error", "wall_s", "param_bytes",
@@ -4781,9 +4800,9 @@ def phase_dryrun() -> dict:
             "collective_counts", "collective_bytes_by_kind", "compute_s", "memory_s",
             "collective_s", "dominant", "model_flops_ratio", "graph_nodes",
             "planner_total_gb", "planner_lb_gb", "planner_naive_gb", "planner_strategy",
-            "state_total_gb", "state_live_gb", "planner_error")},
-            "param_bytes_reference": want, "checks": checks,
-            "representative": not shape.startswith("train")})
+            "state_total_gb", "state_live_gb", "planner_error", "remat",
+            "largest_tensors")},
+            "param_bytes_reference": want, "checks": checks, "representative": True})
     row = {"phase": "dryrun", "mesh": "16x16", "rows": rows, "ok": ok}
     emit(row)
     if not ok:
@@ -4816,9 +4835,10 @@ def phase_sharded(card_name: str) -> dict:
     4 decode steps, each 28 ``flash_decode`` launches through the op's
     sharding rule (its 8 K/V heads divide model = 1, so the kernel runs);
     mamba2-2.7b: one 2048-token prefill, 512 ``ssd_chunk`` launches (64
-    layers x 8 chunks). Each against the unsharded eager step on the same
-    inputs by PERF.md §2's parity rule; the eager twin's launches are
-    counted apart."""
+    layers x 8 chunks); the train step with remat (``sharded_train``) on
+    qwen3-0.6b and on mamba2-2.7b cut to 8 layers. Each against the
+    unsharded eager step on the same inputs by PERF.md §2's parity rule;
+    the eager twins' launches are counted apart."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4904,9 +4924,24 @@ def phase_sharded(card_name: str) -> dict:
         "tokens": S, "ssd_chunk_launches": n, "expected": cfg.n_layers * (S // 256),
         "eager_twin_launches": eager, "logits": par, "caches": cache_par,
         "ok": par["ok"] and cache_par["ok"] and n == cfg.n_layers * (S // 256)}
+    del local, logits, caches, want_logits, want_caches
+    torch.cuda.empty_cache()
+    # ---- the train step with remat (the reference's dry-run step):
+    # qwen3-0.6b at the train phase's 512 x 4, and mamba2-2.7b cut to 8
+    # periods in fp32 (train_mamba2's gradient gate) at its 512 x 2: per
+    # step 2 x 8 layers x 2 chunks = 32 ssd_chunk launches (the forward,
+    # then each period's recompute in the backward) and 16 ssd_chunk_bwd
+    out["qwen3_train"] = sharded_train(mesh, get_config("qwen3-0.6b"), 512, 4)
+    cut = dataclasses.replace(get_config("mamba2-2.7b"), n_periods=8, dtype="float32")
+    out["mamba2_train"] = sharded_train(mesh, cut, 512, 2, want_launches={
+        "ssd_chunk": 2 * 8 * 2, "ssd_chunk_bwd": 8 * 2})
+    train_launches = out["mamba2_train"]["launches"]
     out["launches"] = {"flash_decode": out["qwen3_decode"]["flash_decode_launches"],
-                       "ssd_chunk": n}
-    out["ok"] = out["qwen3_decode"]["ok"] and out["mamba2_prefill"]["ok"]
+                       "ssd_chunk": n,
+                       "ssd_chunk_train": train_launches["ssd_chunk"],
+                       "ssd_chunk_bwd_train": train_launches["ssd_chunk_bwd"]}
+    out["ok"] = all(out[k]["ok"] for k in ("qwen3_decode", "mamba2_prefill",
+                                           "qwen3_train", "mamba2_train"))
     emit(out)
     if not out["ok"]:
         fail(f"sharded: {out}")
@@ -4914,6 +4949,73 @@ def phase_sharded(card_name: str) -> dict:
 
     dist.destroy_process_group()
     return out
+
+
+def sharded_train(mesh, cfg, seq_len: int, batch: int,
+                  want_launches: dict | None = None) -> dict:
+    """One AdamW step of ``build_step``'s train step (remat on) on ``cfg``
+    at full width, weights from a seed, the train phases' token stream,
+    against the unsharded eager step with remat (``make_train_step``) on
+    the same params and batch, by PERF.md §2's parity rule: the loss, the
+    grad norm and every gradient leaf (each side's AdamW first moment over
+    (1 - b1) and its clip scale: one step from zero moments), the new
+    params reported. The SSD kernels' launches of the sharded step, read
+    just after it, must be ``want_launches``; the eager twin's are
+    counted apart."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.train import make_batch, make_train_step
+    from repro_torch.models.api import ShapeSpec, for_config
+    from repro_torch.optim import adamw
+    from repro_torch.tree_util import leaves, tree_map
+
+    model = for_config(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch))
+    b = make_batch(cfg, pipe.batch_at(0), "cuda")
+    opt_cfg = adamw.AdamWConfig()
+
+    def gradients(opt_state, metrics):
+        scale = torch.clamp(opt_cfg.grad_clip / (metrics["grad_norm"] + 1e-9), max=1.0)
+        return [m / ((1 - opt_cfg.b1) * scale) for m in leaves(opt_state["m"])]
+
+    reset_launches()
+    eager = make_train_step(model, opt_cfg, remat=True)(
+        tree_map(torch.clone, params), adamw.init_state(params), b)
+    torch.cuda.synchronize()
+    eager_launches = read_launches()
+    step, _ = build_step(cfg.name, "train", mesh, cfg=cfg,
+                         shape=ShapeSpec("train", seq_len, batch, "train"),
+                         device="cuda", opt_cfg=opt_cfg)
+    local = step.shard((params, adamw.init_state(params), b, model.rope_tables))
+    del params
+    reset_launches()
+    t0 = time.perf_counter()
+    got = step.gather(step.fn(*local))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    metrics = _parity([got[2]["loss"], got[2]["grad_norm"]],
+                      [eager[2]["loss"], eager[2]["grad_norm"]])
+    grads = _parity(gradients(got[1], got[2]), gradients(eager[1], eager[2]))
+    new_params = _parity(leaves(got[0]), leaves(eager[0]))
+    launches = {k: counts[k] for k in ("ssd_chunk", "ssd_chunk_bwd")}
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "seq_len": seq_len, "batch": batch, "remat": step.remat,
+           "loss": float(got[2]["loss"]), "loss_eager": float(eager[2]["loss"]),
+           "grad_norm": float(got[2]["grad_norm"]),
+           "loss_and_grad_norm": metrics, "gradients": grads, "params": new_params,
+           "leaves": len(leaves(got[1]["m"])), "launches": launches,
+           "expected_launches": want_launches or {"ssd_chunk": 0, "ssd_chunk_bwd": 0},
+           "eager_twin_launches": {k: eager_launches[k] for k in launches},
+           "wall_s": wall}
+    row["ok"] = (step.remat and metrics["ok"] and grads["ok"]
+                 and launches == row["expected_launches"])
+    del local, got, eager
+    torch.cuda.empty_cache()
+    return row
 
 
 def lse_library_call(q, k, v, kernel_lse) -> dict:
@@ -5010,6 +5112,7 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
     from repro_torch.tree_util import tree_map
 
     mesh = init_mesh((16, 16), ("data", "model"), "cuda", backend="fake")
+    nemotron = note.get("nemotron-4-340b", {})
     step, _ = build_step("nemotron-4-340b", "decode_32k", mesh, device="cuda")
     cfg = step.ctx.cfg
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5073,26 +5176,82 @@ def phase_rank_of_256(card_name: str, note: dict) -> dict:
     kernel_us = sum(e.self_device_time_total for e in prof.key_averages())
     want_shape = (8, vocab // 16)
     per_step = flash_decode_per_step(cfg)
+    local_shape = list(logits.shape)
+    del inputs, logits
+    torch.cuda.empty_cache()
+    train = rank0_train_step(mesh, note.get("qwen3-0.6b", {}))
     row = {"phase": "rank_of_256", "card": card_name, "arch": "nemotron-4-340b",
            "shape": "decode_32k", "mesh": "16x16 (fake group, rank 0)",
            "values_checked": False,
            "why_not_values": "the fake group's collectives leave their outputs unwritten",
-           "local_logits_shape": list(logits.shape), "want_shape": list(want_shape),
+           "local_logits_shape": local_shape, "want_shape": list(want_shape),
            "inputs_gb": args_bytes / 1e9, "peak_gb": peak / 1e9,
            "peak_over_inputs_gb": (peak - args_bytes) / 1e9,
-           "dryrun_arg_gb": note.get("arg_gb"),
-           "dryrun_planned_act_gb": note.get("planned_act_gb"),
-           "dryrun_peak_mem_gb": note.get("peak_mem_gb"),
+           "dryrun_arg_gb": nemotron.get("arg_gb"),
+           "dryrun_planned_act_gb": nemotron.get("planned_act_gb"),
+           "dryrun_peak_mem_gb": nemotron.get("peak_mem_gb"),
            "device_kernel_ms": kernel_us / 1e3, "event_ms": start.elapsed_time(end),
            "attention_core": core, "launches": launches,
            "expected_launches": per_step, "kernel_at_span": kernel,
-           "ok": tuple(logits.shape) == want_shape and launches == per_step
-           and core == "kernel: context-parallel" and check["ok"]}
+           "qwen3_train_4k": train,
+           "ok": tuple(local_shape) == want_shape and launches == per_step
+           and core == "kernel: context-parallel" and check["ok"] and train["ok"]}
     emit(row)
     if not row["ok"]:
-        fail(f"rank_of_256: local logits {tuple(logits.shape)} (want {want_shape}), "
+        fail(f"rank_of_256: local logits {tuple(local_shape)} (want {want_shape}), "
              f"{launches} flash_decode launches (want {per_step}), core {core!r}, "
-             f"kernel at the span {kernel}")
+             f"kernel at the span {kernel}, qwen3 train_4k {train}")
+    return row
+
+
+def rank0_train_step(mesh, note: dict) -> dict:
+    """Rank 0's local program of full-width qwen3-0.6b train_4k on the fake
+    group of 256 ranks (``mesh``), on the card: the local params from a
+    seed, zero moments, a local batch of 16 x 4,096 tokens, one AdamW
+    step with remat. Its 8 K/V heads do not divide model = 16, so K/V
+    are split on T and the softmax and the PV product reduce across the
+    ranks. Checks that the step completes with its params' local shapes
+    and an allocator peak under ``ROW_LIMIT_GB``, recorded beside the dry
+    run's ``arg_gb`` + ``planned_act_gb`` for the row (``note``). The
+    fake group's collectives move nothing, so no value is checked."""
+    import torch
+
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.models.api import for_config
+    from repro_torch.tree_util import leaves, tree_map
+
+    step, _ = build_step("qwen3-0.6b", "train_4k", mesh, device="cuda")
+    cfg = step.ctx.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params_l, opt_l, batch_l, _ = step.inputs
+    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="cuda"
+                                            ).normal_(0.0, 0.02, generator=gen), params_l)
+    opt = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"), opt_l)
+    batch = tree_map(lambda t: torch.randint(0, cfg.vocab, tuple(t.shape), generator=gen,
+                                             device="cuda", dtype=t.dtype), batch_l)
+    tables = for_config(cfg, "cuda").rope_tables
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_params, _, metrics = step.fn(params, opt, batch, tables)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shapes_kept = [tuple(t.shape) for t in leaves(new_params)] == \
+        [tuple(t.shape) for t in leaves(params_l)]
+    planned = (note.get("arg_gb") or 0) + (note.get("planned_act_gb") or 0)
+    row = {"arch": "qwen3-0.6b", "shape": "train_4k", "remat": step.remat,
+           "local_batch": list(batch_l["tokens"].shape),
+           "values_checked": False, "inputs_gb": args_bytes / 1e9,
+           "peak_gb": peak / 1e9, "peak_over_inputs_gb": (peak - args_bytes) / 1e9,
+           "dryrun_arg_gb": note.get("arg_gb"),
+           "dryrun_planned_act_gb": note.get("planned_act_gb"),
+           "dryrun_arg_plus_planned_gb": planned, "wall_s": wall,
+           "metrics_keys": sorted(metrics), "params_local_shapes_kept": shapes_kept,
+           "ok": step.remat and shapes_kept and peak / 1e9 < ROW_LIMIT_GB}
+    del params, opt, batch, new_params
+    torch.cuda.empty_cache()
     return row
 
 
@@ -5481,7 +5640,8 @@ def main() -> None:
         phase_train_seamless(card_name)
     if "dryrun" in mesh_children:
         dry = finish_fresh_process("dryrun", mesh_children["dryrun"])
-        note = next(r for r in dry["rows"] if r["arch"] == "nemotron-4-340b")
+        note = {r["arch"]: r for r in dry["rows"]
+                if r["arch"] in ("nemotron-4-340b", "qwen3-0.6b")}
     else:
         note = {}
     if "sharded" in mesh_children:
@@ -5489,6 +5649,10 @@ def main() -> None:
         launches["flash_decode"]["qwen3-0.6b sharded decode"] = \
             row["launches"]["flash_decode"]
         launches["ssd_chunk"]["mamba2-2.7b sharded prefill"] = row["launches"]["ssd_chunk"]
+        launches["ssd_chunk"]["mamba2-2.7b sharded train step (remat, 8 layers)"] = \
+            row["launches"]["ssd_chunk_train"]
+        launches["ssd_chunk_bwd"]["mamba2-2.7b sharded train step (remat, 8 layers)"] = \
+            row["launches"]["ssd_chunk_bwd_train"]
     lse_span = None
     if "rank_of_256" in mesh_children:
         row = finish_fresh_process("rank_of_256", mesh_children["rank_of_256"], note)

@@ -21,7 +21,9 @@ tensors (``.to_local()``). Its three kinds:
 
 * train: forward, ``torch.autograd.grad``, and AdamW on the local shards
   with the global grad norm summed over the ranks (a sharded DTensor's
-  rows are never sliced: that would gather it);
+  rows are never sliced: that would gather it); each period is
+  recomputed in the backward (``remat``, as the reference's dry run),
+  its recompute under the same steering as the forward;
 * prefill: logits and the caches at the reference's cache shardings;
 * decode: one token; the cache is written in place on each rank's shard,
   the counterpart of the reference's donated cache.
@@ -40,7 +42,9 @@ for the keys it drops:
   ``plan_graph(mode="offsets", strategy="auto")``;
 * ``arg_gb``: the local params, optimizer state, cache and batch (split
   into ``param_gb``, ``opt_gb``, ``cache_gb`` and ``batch_gb``);
-* ``peak_mem_gb``: the two added;
+* ``peak_mem_gb``: the two added; ``largest_tensors``: the ten largest
+  kinds of tensor the rank's program makes (``[bytes, op, shape, dtype,
+  count]``), and ``remat`` whether a train step recomputes its periods;
 * ``xla_flops_per_dev`` / ``xla_bytes_per_dev`` -> ``hlo_gflops`` /
   ``hbm_gb``, counted over the traced graph (no XLA here);
 * ``attention_core``: the attention cores the traced step's layers took
@@ -57,12 +61,15 @@ the state plan); ``--search`` the order/fusion search.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch nemotron-4-340b \\
         --shape decode_32k [--multi-pod] [--activation-plan] [--json out.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
+        --shape train_4k --activation-plan
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -100,6 +107,7 @@ class Step:
     specs: tuple  # the inputs' partition specs, same trees
     shapes: tuple  # the inputs' global tensors, on meta
     ctx: ShardingCtx
+    remat: bool = False  # a train step recomputes each period in its backward
     out_placements: Any = None  # the last call's outputs: (placements, shape)
 
     @property
@@ -165,11 +173,14 @@ def cores_taken(counts) -> str:
 
 def build_step(arch: str, shape_name: str, mesh, *, seq_parallel: bool = False,
                cfg: ArchConfig | None = None, shape: ShapeSpec | None = None,
-               device="meta", opt_cfg: adamw.AdamWConfig | None = None):
+               device="meta", opt_cfg: adamw.AdamWConfig | None = None,
+               remat: bool = True):
     """Returns (Step, None) or (None, reason). ``cfg`` and ``shape``
     override the registry's (reduced configs and small shapes in tests);
     ``device`` holds the model's constant tables (``meta`` for the dry
-    run, the card or the CPU for a real run)."""
+    run, the card or the CPU for a real run); ``remat`` recomputes each
+    period of a train step in its backward, as the reference's
+    ``make_train_step(..., remat=True)``."""
     from torch.distributed.tensor import DTensor
 
     clear_sharding_caches()
@@ -211,10 +222,8 @@ def build_step(arch: str, shape_name: str, mesh, *, seq_parallel: bool = False,
             b = wrap(batch_l, b_specs, batch)
             tb = wrap(tables_l, t_specs, tables)
             with sharded_ops():
-                # no remat: checkpoint's recompute in the backward runs
-                # outside the step's mode (and under tracing takes only
-                # dispatch modes as its contexts)
-                loss_fn = make_loss_fn(model, False, constrain, **tb)
+                # the recompute re-enters this mode (models/layers.remat_call)
+                loss_fn = make_loss_fn(model, remat, constrain, **tb)
                 loss, metrics, grads = value_and_grad(loss_fn, p, b)
                 # each gradient on its param's shards (pending sums reduced)
                 grads = tree_map(lambda g, s: g.redistribute(mesh, ctx.placements(s)),
@@ -280,7 +289,8 @@ def build_step(arch: str, shape_name: str, mesh, *, seq_parallel: bool = False,
 
         fn = serve_step
     inputs = tuple(tree_map(local, g, s) for g, s in zip(shapes, specs))
-    step = Step(shape.kind, fn, inputs, specs, shapes, ctx)
+    step = Step(shape.kind, fn, inputs, specs, shapes, ctx,
+                remat=remat and shape.kind == "train")
     return step, None
 
 
@@ -348,12 +358,31 @@ def planner_report(graph, plan, search: bool = False, state_pytree=None,
     return out
 
 
+def largest_tensors(trace, n: int = 10) -> list[list]:
+    """The ``n`` largest kinds of tensor one rank's traced program makes
+    (views, inputs and outputs aside), largest first: ``[bytes, op,
+    shape, dtype, count]``, the tensors of one op, shape and dtype
+    counted together."""
+    op = {tid: str(node.target) for node, tids in trace.produced.items()
+          for tid in tids}
+    g = trace.graph
+    kinds = collections.Counter(
+        (t.nbytes, op[tid], tuple(t.shape), t.dtype) for tid, t in g.tensors.items()
+        if tid in op and tid not in g.boundary_ids)
+    top = sorted(kinds.items(), key=lambda kv: (-kv[0][0], kv[0][1], kv[0][2]))[:n]
+    return [[nbytes, o, list(shape), dt, count]
+            for (nbytes, o, shape, dt), count in top]
+
+
 def run_one(arch: str, shape_name: str, multi_pod: bool = False,
             seq_parallel: bool = False, activation_plan: bool = False,
             search: bool = False, *, cfg: ArchConfig | None = None,
-            shape: ShapeSpec | None = None, mesh_shape=None) -> dict:
+            shape: ShapeSpec | None = None, mesh_shape=None,
+            remat: bool = True, on_graph: Callable | None = None) -> dict:
     """One row: trace the sharded step of ``arch`` at ``shape_name`` on the
-    production mesh (or ``mesh_shape``: ``(sizes, axes)``) and count it."""
+    production mesh (or ``mesh_shape``: ``(sizes, axes)``) and count it;
+    a train step recomputes its periods in the backward unless ``remat``
+    is false. ``on_graph(gm)``, if given, sees the traced program."""
     if mesh_shape is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
     else:
@@ -364,13 +393,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
     cfg = cfg or get_config(arch)
     shape = shape or INPUT_SHAPES[shape_name]
     step, why = build_step(arch, shape_name, mesh, seq_parallel=seq_parallel,
-                           cfg=cfg, shape=shape)
+                           cfg=cfg, shape=shape, remat=remat)
     if step is None:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": why}
     attention.CORES.clear()
     gm = trace_step(step)
     core = cores_taken(attention.CORES)
+    if on_graph is not None:
+        on_graph(gm)
     cost = fx_analysis.analyze(gm)
     n_dev = math.prod(sizes)
     parts = {"param": _nbytes(step.inputs[0]), "opt": 0, "cache": 0, "batch": 0}
@@ -387,7 +418,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
     from repro_torch.trace.fx_liveness import trace_from_graph_module
 
     name = f"{arch}-{shape_name}-{mesh_name}"
-    graph = trace_from_graph_module(gm, name=name).graph
+    trace = trace_from_graph_module(gm, name=name)
+    graph = trace.graph
     plan = plan_graph(graph, mode="offsets", strategy="auto")
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
     out_vals = [a.meta.get("val") for a in out_node.all_input_nodes]
@@ -406,6 +438,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         **{f"{k}_gb": v / 1e9 for k, v in parts.items()},
         "out_gb": out_b / 1e9,
         "planned_act_gb": plan.total_size / 1e9,
+        "remat": step.remat,
+        "largest_tensors": largest_tensors(trace),
         "attention_core": core,
         "collective_counts": cost.collective_counts,
         "collective_bytes_by_kind": cost.collective_bytes_by_kind,

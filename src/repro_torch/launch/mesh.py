@@ -168,11 +168,16 @@ class ShardingCtx:
     def constrain(self, x, tag: str):
         """``x`` redistributed to the placements of its tag's spec when it
         is a DTensor; a plain tensor (or a tag with no rule) is returned
-        as it is."""
+        as it is. A DTensor outside ``sharded_ops`` raises: there DTensor
+        gathers what the rules split (a remat recompute that left the
+        steering would do so quietly)."""
         from torch.distributed.tensor import DTensor
 
         if not isinstance(x, DTensor):
             return x
+        if not steered():
+            raise RuntimeError(f"a sharded step's model code ran outside "
+                               f"sharded_ops() (constrain {tag!r})")
         spec = self.activation_spec(x, tag)
         if spec is None:
             return x
@@ -432,6 +437,9 @@ _VIEWS = frozenset({_T.reshape, _T.view, torch.reshape, _T.unflatten, _T.flatten
 # masked pending sum, reduced at once (later views cannot carry the mask)
 _GATHERS = frozenset({torch.take_along_dim, _T.take_along_dim, torch.gather,
                       _T.gather, _T.__getitem__, torch.nn.functional.embedding})
+# a softmax over a dim that may be split (attention's scores over a key
+# axis split across the ranks: ``_SplitSoftmax``)
+_SOFTMAXES = frozenset({torch.softmax, _T.softmax, torch.nn.functional.softmax})
 # products whose right operand is a weight (``_fsdp_gather``)
 _PRODUCTS = frozenset({_T.__matmul__, torch.matmul, _T.matmul, torch.bmm, _T.bmm,
                        torch.mm, _T.mm})
@@ -498,8 +506,11 @@ class ShardedOps(torch.overrides.TorchFunctionMode):
     - an embedding lookup, the loss's gather and its log-sum-exp over a
       split vocab stay split (``_embedding``, ``_SplitGather``,
       ``_split_logsumexp``), and a masked pending sum is reduced at once;
-    - an einsum whose split labels the output keeps runs on the shards
-      (``_local_einsum``); an empty ``cat`` part is dropped."""
+    - a softmax over a split dim (attention's scores where K/V are split
+      on T) reduces its max and sum across the ranks (``_SplitSoftmax``);
+    - an einsum with one split label a mesh dim runs on the shards, the
+      label kept or, contracted, a pending sum (``_local_einsum``); an
+      empty ``cat`` part is dropped."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -516,6 +527,11 @@ class ShardedOps(torch.overrides.TorchFunctionMode):
             dim = kwargs.get("dim", args[2] if len(args) > 2 else None)
             if _split_on(x, dim):
                 return _SplitGather.apply(x, idx, dim % x.ndim)
+        if func in _SOFTMAXES and len(args) <= 2 and "dtype" not in kwargs:
+            x = args[0]
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+            if isinstance(dim, int) and _split_on(x, dim):
+                return _SplitSoftmax.apply(x, dim % x.ndim)
         if func in (torch.logsumexp, torch.Tensor.logsumexp):
             x = args[0]
             dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
@@ -717,16 +733,22 @@ def _drop_empty(parts, dim: int):
 
 def _local_einsum(eq: str, *ops):
     """``einsum`` of DTensors on each rank's shards, where the placements
-    allow it: on every mesh dim at most one label is split, the output
-    keeps it, and every operand has it (one whole on that mesh dim is
-    split on it first, a slice of its own whose backward gathers).
-    DTensor's own einsum flattens the batch labels into one dim, which
-    with a split label behind another turns into a strided split that it
-    resolves index by index. None where the placements do not allow it
-    (the caller runs DTensor's einsum): an operand without the label would
-    get a gradient that is a pending sum, which its local backward cannot
-    know, and a split contraction's pending sum DTensor's einsum carries."""
-    from torch.distributed.tensor import DTensor, Shard
+    allow it: on every mesh dim at most one label is split, and every
+    operand that has that label is split on it (one whole on that mesh
+    dim is split first, a slice of its own whose backward gathers). The
+    result keeps the split where the output has the label, and is a
+    pending sum where the product contracts it (attention's probabilities
+    times V over keys split on T: the reference's one all-reduce of a
+    (B, C, H·hd) tile in place of the scores). DTensor's own einsum
+    flattens the batch labels into one dim, which with a split label
+    behind another turns into a strided split that it resolves index by
+    index, and it picks its placements by its own cost, which in the
+    backward splits the gradient of split scores on another dim. An
+    operand without the split label (a whole q against keys split on T)
+    gets a gradient that is a pending sum, which ``_LocalEinsum`` writes
+    out. None where the placements do not allow it (the caller runs
+    DTensor's einsum)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
     if "..." in eq or "->" not in eq or not ops or not all(
             isinstance(o, DTensor) for o in ops):
@@ -741,6 +763,8 @@ def _local_einsum(eq: str, *ops):
         size.update(zip(labels, o.shape))
     placements = []
     want = [list(o.placements) for o in ops]
+    grad_pl = [list(o.placements) for o in ops]
+    pending = False  # a pending sum in the result or in a gradient
     for m in range(mesh.ndim):
         split = set()
         for labels, o in zip(ins, ops):
@@ -755,19 +779,87 @@ def _local_einsum(eq: str, *ops):
         if len(split) > 1:
             return None
         (lab,) = split
-        if size[lab] % mesh.size(m) or lab not in out:
+        if size[lab] % mesh.size(m):
             return None
         for i, labels in enumerate(ins):
-            if lab not in labels:
-                return None
-            want[i][m] = Shard(labels.index(lab))
-        placements.append(Shard(out.index(lab)))
+            if lab in labels:
+                want[i][m] = grad_pl[i][m] = Shard(labels.index(lab))
+            else:
+                grad_pl[i][m] = Partial()
+                pending = True
+        if lab in out:
+            placements.append(Shard(out.index(lab)))
+        else:
+            placements.append(Partial())
+            pending = True
+    if pending and not _differentiable(ins, out):
+        return None
     ops = [o if list(o.placements) == w else o.redistribute(mesh, tuple(w))
            for o, w in zip(ops, want)]
+    shape = torch.Size(size[c] for c in out)
+    if pending:
+        return _LocalEinsum.apply(eq, shape, tuple(placements),
+                                  tuple(tuple(g) for g in grad_pl), *ops)
     local = torch.einsum(eq, *(o.to_local() for o in ops))
-    shape = tuple(size[c] for c in out)
     return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
-                              shape=torch.Size(shape), stride=_stride_like(local, shape))
+                              shape=shape, stride=_stride_like(local, shape))
+
+
+def _differentiable(ins, out) -> bool:
+    """Whether each operand's gradient is one einsum of the output's
+    gradient and the other operands: no label twice in an operand, and
+    each label of an operand in the output or in another operand."""
+    for i, labels in enumerate(ins):
+        if len(set(labels)) != len(labels):
+            return False
+        rest = out + "".join(ins[j] for j in range(len(ins)) if j != i)
+        if any(c not in rest for c in labels):
+            return False
+    return True
+
+
+class _LocalEinsum(torch.autograd.Function):
+    """``einsum`` on the local shards with an explicit backward, for the
+    products whose result or gradients are pending sums: the output's
+    gradient comes whole where the result was a pending sum, and each
+    operand's local gradient is the einsum of it with the other local
+    operands, a pending sum on the mesh dims where the operand lacks the
+    split label."""
+
+    @staticmethod
+    def forward(ctx, eq, shape, placements, grad_pl, *ops):
+        from torch.distributed.tensor import DTensor
+
+        local_ops = [o.to_local() for o in ops]
+        local = torch.einsum(eq, *local_ops)
+        ctx.save_for_backward(*local_ops)
+        mesh = ops[0].device_mesh
+        ctx.meta = (eq, mesh, placements, grad_pl, [tuple(o.shape) for o in ops])
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=shape, stride=_stride_like(local, shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        eq, mesh, placements, grad_pl, shapes = ctx.meta
+        local_ops = ctx.saved_tensors
+        ins, out = eq.replace(" ", "").split("->")
+        ins = ins.split(",")
+        g = grad.redistribute(mesh, tuple(Replicate() if p.is_partial() else p
+                                          for p in placements)).to_local()
+        grads = []
+        for i, labels in enumerate(ins):
+            if not ctx.needs_input_grad[4 + i]:
+                grads.append(None)
+                continue
+            rest = [j for j in range(len(ins)) if j != i]
+            gl = torch.einsum(",".join([out, *(ins[j] for j in rest)]) + "->" + labels,
+                              g, *(local_ops[j] for j in rest))
+            grads.append(DTensor.from_local(gl, mesh, grad_pl[i], run_check=False,
+                                            shape=torch.Size(shapes[i]),
+                                            stride=_stride_like(gl, shapes[i])))
+        return (None, None, None, None, *grads)
 
 
 def _stride_like(local: torch.Tensor, shape) -> tuple[int, ...]:
@@ -786,15 +878,32 @@ def _split_logsumexp(x, dim: int):
     of exponentials, reduced across the ranks (a max, then a sum), so the
     split tensor is never gathered. The max is a constant of the
     gradient, as in any stable log-sum-exp."""
-    from torch.distributed.tensor import Replicate
-
-    def whole(t):
-        return t.redistribute(t.device_mesh, tuple(
-            Replicate() if p.is_partial() else p for p in t.placements))
-
-    m = whole(torch.amax(x, dim=dim, keepdim=True)).detach()
-    s = whole(torch.sum(torch.exp(x - m), dim=dim))
+    m = _reduce_partial(torch.amax(x, dim=dim, keepdim=True)).detach()
+    s = _reduce_partial(torch.sum(torch.exp(x - m), dim=dim))
     return torch.log(s) + m.squeeze(dim)
+
+
+class _SplitSoftmax(torch.autograd.Function):
+    """``softmax`` over a dim the ranks split (attention's scores where the
+    keys are split on T, context parallel), without gathering it: each
+    rank's max over its span, all-reduced, then its sum of exponentials,
+    all-reduced, as the reference's note on the ``kv_heads`` rule has it.
+    The backward is softmax's, ``y · (g - Σ g·y)``, with that sum
+    all-reduced the same way; it keeps only ``y``."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        e = torch.exp(x - _reduce_partial(torch.amax(x, dim=dim, keepdim=True)))
+        y = e / _reduce_partial(torch.sum(e, dim=dim, keepdim=True))
+        ctx.save_for_backward(y)
+        ctx.dim = dim
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        gy = grad * y
+        return gy - y * _reduce_partial(torch.sum(gy, dim=ctx.dim, keepdim=True)), None
 
 
 def _span_start(x, dim: int) -> int:
@@ -848,6 +957,12 @@ def clear_sharding_caches() -> None:
     cached = DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding
     if hasattr(cached, "cache_clear"):
         cached.cache_clear()
+
+
+def steered() -> bool:
+    """Whether the code running now is under ``sharded_ops``."""
+    return any(isinstance(m, ShardedOps)
+               for m in torch.overrides._get_current_function_mode_stack())
 
 
 def sharded_ops():

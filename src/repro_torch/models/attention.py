@@ -288,7 +288,10 @@ def attn_prefill(
     ``q_chunk = max(q_chunk, ceil(S/16))`` and chunk i attends keys
     ``[0, (i+1)·C)``; with a window, each chunk attends a key slice of
     ``Lk = min(S, (ceil((W-1)/C)+1)·C)`` positions; longer causal
-    sequences mask a full (C, S) tile per chunk; S <= C is one chunk."""
+    sequences mask a full (C, S) tile per chunk; S <= C is one chunk.
+    Where the keys are split on T over the ranks of a sharded step
+    (``context_parallel``: the ``kv_heads`` rule, K/V heads that do not
+    divide ``model``), every chunk masks the whole tile, window or not."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -300,7 +303,11 @@ def attn_prefill(
         v = constrain(v, "kv_heads")
     CORES["plain"] += 1
     scale = 1.0 / np.sqrt(head_dim)
-    causal_unroll = window is None and S <= 8192
+    # keys split on T: a key slice of a chunk cannot be split evenly over
+    # the ranks, so each rank masks its whole span (launch/mesh.ShardedOps
+    # reduces the softmax and the PV product across the ranks)
+    whole_tile = context_parallel(k)
+    causal_unroll = window is None and S <= 8192 and not whole_tile
     if causal_unroll:
         q_chunk = max(q_chunk, -(-S // 16))  # bound the unroll at 16 bodies
     C = min(q_chunk, S)
@@ -323,7 +330,7 @@ def attn_prefill(
         return _gqa_out(probs, vi)  # (B,C,H*D)
 
     outs = []
-    if window is not None and S > C:
+    if window is not None and S > C and not whole_tile:
         # each query chunk reads only the Lk keys that can be in its window
         Lk = min(S, (-(-(window - 1) // C) + 1) * C)
         for i in range(n_chunks):
@@ -338,7 +345,8 @@ def attn_prefill(
             outs.append(attend(q[:, i * C:(i + 1) * C], k[:, :hi], v[:, :hi],
                                arange(i * C, C), arange(0, hi)))
     elif S > C:
-        # long-S causal: every chunk masks the whole (C, S) tile
+        # long-S causal, or keys split on T: every chunk masks the whole
+        # (C, S) tile
         for i in range(n_chunks):
             outs.append(attend(q[:, i * C:(i + 1) * C], k, v, arange(i * C, C),
                                arange(0, S)))

@@ -20,11 +20,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import init_rms, mlp_apply, mlp_init, rms_norm
+from repro_torch.models.layers import init_rms, mlp_apply, mlp_init, remat_call, rms_norm
 from repro_torch.models.transformer import ATTENTION, _dtype, _layer
 
 
@@ -151,7 +150,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             constrain=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced training forward -> (logits (B, S, vocab), aux = 0).
     ``remat`` recomputes each decoder layer in the backward pass
-    (``torch.utils.checkpoint``, the counterpart of the reference's
+    (``layers.remat_call``, the counterpart of the reference's
     ``jax.checkpoint`` of its scan body)."""
     enc_out = encode(params, cfg, frames, rope_freqs, constrain)
     ks, vs = cross_kv(params, cfg, enc_out)
@@ -164,7 +163,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
         if remat:
-            h = checkpoint(body, lp, h, ks[i], vs[i], use_reentrant=False)
+            h = remat_call(body, lp, h, ks[i], vs[i])
         else:
             h = body(lp, h, ks[i], vs[i])
     return _logits(params, cfg, h, constrain), torch.zeros(

@@ -8,9 +8,12 @@ rotates the two halves (not interleaved) with angles in fp32, and
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -99,3 +102,23 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str, constrain=None) -> torch.Tenso
     if constrain is not None:
         h = constrain(h, "ffn")
     return h @ p["w_out"]
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` with its activations dropped and recomputed in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant: the
+    counterpart of the reference's ``jax.checkpoint``). The recompute
+    runs from the backward, outside the torch-function modes the forward
+    ran under (a sharded step's ``ShardedOps``), so it re-enters those
+    that are not active then: both runs are the same program."""
+    modes = torch.overrides._get_current_function_mode_stack()
+
+    def run(*a):
+        active = torch.overrides._get_current_function_mode_stack()
+        with contextlib.ExitStack() as stack:
+            for m in modes:
+                if not any(m is n for n in active):
+                    stack.enter_context(m)
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)

@@ -39,14 +39,13 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (init_linear, init_rms, mlp_apply, mlp_init,
-                                      rms_norm)
+                                      remat_call, rms_norm)
 
 # the cores of the layers: "kernel" (the served path, the repro_torch ops
 # flash_decode and ssd_chunk) or "plain" (their plain versions, for parity
@@ -378,7 +377,7 @@ def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
     and aux the MoE layers' aux losses summed in layer order (None
     without a MoE layer). The shared block's ``emb0`` is ``h`` as it
     enters the stack. ``remat`` recomputes each period in the backward
-    pass (``torch.utils.checkpoint``, the counterpart of the reference's
+    pass (``layers.remat_call``, the counterpart of the reference's
     ``jax.checkpoint(period_body)``); the remainder is not wrapped, as in
     the reference."""
     shared = (params.get("shared_attn"), h, shared_freqs)
@@ -386,8 +385,8 @@ def _run_stack(params, cfg: ArchConfig, h, cores: str, rope_freqs=None,
     total = None
     for i in range(cfg.n_periods):
         if remat:
-            h, cs, aux = checkpoint(_period, params, cfg, i, h, rope_freqs, cores,
-                                    shared, constrain, use_reentrant=False)
+            h, cs, aux = remat_call(_period, params, cfg, i, h, rope_freqs, cores,
+                                    shared, constrain)
         else:
             h, cs, aux = _period(params, cfg, i, h, rope_freqs, cores, shared,
                                  constrain)

@@ -3,11 +3,13 @@ config through its sharded train, prefill and decode steps on a (2, 4)
 fake mesh, and full-width qwen3-0.6b decode_32k on the production
 (16, 16) mesh. The fake group is process-global, so ONE subprocess
 traces every row and prints them; each arch is a case that reads its
-rows. A row's per-device param bytes must be the sum of each leaf's
-local shard under the reference's own ``param_spec`` (``repro.launch.mesh``
-on a stub mesh, over the reference's ``jax.eval_shape`` of its init, in a
-loop of this file's), its cache bytes the local cache's, and its
-activation plan the port's planner's over the per-device graph."""
+rows; reduced qwen3's train row at S = 128 comes with remat on and off,
+and under two planted faults. A row's per-device param bytes must be
+the sum of each leaf's local shard under the reference's own
+``param_spec`` (``repro.launch.mesh`` on a stub mesh, over the
+reference's ``jax.eval_shape`` of its init, in a loop of this file's),
+its cache bytes the local cache's, and its activation plan the port's
+planner's over the per-device graph."""
 
 from __future__ import annotations
 
@@ -49,6 +51,48 @@ for arch in ARCH_IDS:
         print("ROW " + json.dumps(row, default=str), flush=True)
 row = run_one("qwen3-0.6b", "decode_32k", activation_plan=True)
 print("ROW " + json.dumps(row, default=str), flush=True)
+
+# reduced qwen3's train step at S = 128 (T != head_dim): its 2 K/V heads do
+# not divide model = 4, as qwen3's 8 do not divide 16. The control, then
+# two planted faults: the recompute dropped, the split softmax gathered.
+import torch
+import repro_torch.launch.mesh as mesh_mod
+import repro_torch.models.transformer as transformer
+cfg, S = get_reduced("qwen3-0.6b"), 128
+B_l = 8 // 2  # one rank's batch on data = 2
+whole = B_l * cfg.n_heads * S * S
+
+def scan(gm):
+    # nodes with every key position last and every query head's rows
+    out = []
+    for n in gm.graph.nodes:
+        v = n.meta.get("val")
+        if isinstance(v, torch.Tensor) and v.dim() and v.shape[-1] == S \
+                and v.numel() >= whole:
+            out.append([str(n.target), list(v.shape)])
+    return out
+
+def qwen_row(name, remat=True):
+    found = []
+    row = run_one("qwen3-0.6b", "train", activation_plan=True, cfg=cfg,
+                  shape=ShapeSpec("train", S, 8, "train"),
+                  mesh_shape=((2, 4), ("data", "model")), remat=remat,
+                  on_graph=lambda gm: found.extend(scan(gm)))
+    row["whole_score_nodes"] = found
+    print("QWEN " + json.dumps({"case": name, **row}, default=str), flush=True)
+
+qwen_row("control")
+qwen_row("control_no_remat", remat=False)
+keep = transformer.remat_call
+transformer.remat_call = lambda fn, *args: fn(*args)  # dryrun_no_remat
+qwen_row("dryrun_no_remat")
+transformer.remat_call = keep
+
+class _Gathered:  # dryrun_gather_scores: DTensor's own softmax gathers
+    apply = staticmethod(lambda x, dim: torch.softmax(x, dim))
+
+mesh_mod._SplitSoftmax = _Gathered
+qwen_row("dryrun_gather_scores")
 """
 
 
@@ -62,7 +106,12 @@ def rows():
     assert out.returncode == 0, out.stderr[-4000:]
     got = [json.loads(line[4:]) for line in out.stdout.splitlines()
            if line.startswith("ROW ")]
-    return {(r["arch"], r["shape"], r["mesh"]): r for r in got}
+    rows = {(r["arch"], r["shape"], r["mesh"]): r for r in got}
+    for line in out.stdout.splitlines():
+        if line.startswith("QWEN "):
+            r = json.loads(line[5:])
+            rows[("qwen3 S=128", r["case"])] = r
+    return rows
 
 
 class _Stub:
@@ -165,3 +214,36 @@ def test_full_width_qwen3_decode_32k_on_16x16(rows):
     hd = cfg.resolved_head_dim // 16
     assert row["cache_gb"] == pytest.approx(28 * 2 * 8 * 32768 * 8 * hd * 2 / 1e9)
     assert ctx.batch_axis_for(128) == ("data",)
+
+
+def _remat_lowers_the_plan(on: dict, off: dict) -> bool:
+    return on["remat"] and not off["remat"] and \
+        on["planned_act_gb"] < off["planned_act_gb"]
+
+
+def _scores_stay_split(row: dict) -> bool:
+    return row["attention_core"] == "plain" and not row["whole_score_nodes"]
+
+
+def test_reduced_qwen3_train_keeps_its_scores_split_and_recomputes(rows):
+    """Reduced qwen3's train row on the fake (2, 4) mesh: its 2 K/V heads do
+    not divide model = 4 (as qwen3's 8 do not divide 16), so q is split on
+    heads and K/V on T. The row reports remat on; no node of the traced
+    program holds every query head and every key position of a score
+    (the softmax reduces across the T shards); its planned activations
+    are below the same row's without remat. Each check fails on the
+    planted fault meant for it: the recompute dropped (the plan is the
+    one without remat), the split softmax replaced by DTensor's (which
+    gathers the scores)."""
+    on, off = rows[("qwen3 S=128", "control")], rows[("qwen3 S=128", "control_no_remat")]
+    for r in (on, off):
+        _check(r, get_reduced("qwen3-0.6b"), jax_configs.get_reduced("qwen3-0.6b"),
+               ShapeSpec("train", 128, 8, "train"), {"data": 2, "model": 4})
+    assert on["remat"] is True
+    assert _remat_lowers_the_plan(on, off), (on["planned_act_gb"], off["planned_act_gb"])
+    assert _scores_stay_split(on), on["whole_score_nodes"][:4]
+    assert _scores_stay_split(off), off["whole_score_nodes"][:4]
+    dropped = rows[("qwen3 S=128", "dryrun_no_remat")]
+    assert dropped["remat"] and not _remat_lowers_the_plan(dropped, off)
+    gathered = rows[("qwen3 S=128", "dryrun_gather_scores")]
+    assert not _scores_stay_split(gathered)

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and no script of
 the card (``chip_smoke.py``, ``chip_faults.py``,
-``scripts/time_kernel.py``) imports
+``scripts/time_kernel.py``) and no other script (``scripts/dryrun_tensors.py``) imports
 JAX or anything of the reference package."""
 
 import os
@@ -49,7 +49,8 @@ _FORBIDDEN = re.compile(
 
 
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")) + [
-    "chip_smoke.py", "chip_faults.py", "scripts/time_kernel.py"]
+    "chip_smoke.py", "chip_faults.py", "scripts/time_kernel.py",
+    "scripts/dryrun_tensors.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES)

@@ -5,8 +5,10 @@ One spawn of four gloo processes on the CPU (they meet through a
 ``FileStore`` in ``tmp_path``, never a fixed port) runs, for each of nine
 reduced archs and on the meshes (data=2, model=2) and (data=1, model=4),
 ``launch/dryrun.build_step``'s three steps on real shards: one AdamW
-train step, a prefill, and four decode steps writing the cache in place
-on each rank's shard. At model = 4 the reduced K/V heads (2) do not
+train step (each period recomputed in the backward, as the reference's
+dry run builds it; for reduced qwen3 and mamba2 on (1, 4) also the same
+step without remat), a prefill, and four decode steps writing the cache in
+place on each rank's shard. At model = 4 the reduced K/V heads (2) do not
 divide, so the ``kv_heads`` rule splits the cache's T and the decode step
 runs ``repro_torch::flash_decode_lse`` on each rank's span and merges the
 ranks by their log-sum-exps (context parallel); at model = 2 it runs
@@ -51,6 +53,11 @@ ARCHS = ["qwen3-0.6b", "mamba2-2.7b", "gemma3-4b", "granite-moe-3b-a800m", "zamb
          "internvl2-1b", "seamless-m4t-medium", "nemotron-4-340b",
          "llama4-maverick-400b-a17b"]
 MESHES = ["2x2", "1x4"]
+# archs whose sharded train step (remat on, as the reference's dry run)
+# is also held to the same step without remat, on the mesh where reduced
+# qwen3's 2 K/V heads do not divide model (K/V split on T)
+REMAT_TWINS = ["qwen3-0.6b", "mamba2-2.7b"]
+REMAT_MESH = "1x4"
 SEQ, BATCH, CACHE, STEPS = 16, 4, 32, 4
 POS = np.array([3, 5, 7, 9], dtype=np.int32)
 ACTIVE = np.array([True, True, False, True])
@@ -69,6 +76,7 @@ from repro_torch.optim import adamw
 from repro_torch.tree_util import tree_map
 
 rank, root = int(sys.argv[1]), sys.argv[2]
+REMAT_TWINS, REMAT_MESH = sys.argv[8].split(","), sys.argv[9]
 torch.set_num_threads(1)
 store = dist.FileStore(os.path.join(root, "store"), 4)
 dist.init_process_group("gloo", store=store, rank=rank, world_size=4)
@@ -88,7 +96,12 @@ for arch in sys.argv[7].split(","):
         params = data["params"]
         local = step.shard((params, adamw.init_state(params), data["train"], tables))
         res = step.gather(step.fn(*local))
-        out["train"] = {"m": res[1]["m"], "metrics": res[2]}
+        out["train"] = {"m": res[1]["m"], "metrics": res[2], "remat": step.remat}
+        if arch in REMAT_TWINS and name == REMAT_MESH:  # every activation kept
+            step, _ = build_step(arch, "train", mesh, shape=ShapeSpec("t", S, B, "train"),
+                                 remat=False, **kw)
+            local_twin = step.shard((params, adamw.init_state(params), data["train"], tables))
+            out["train_no_remat"] = {"with": res, "without": step.gather(step.fn(*local_twin))}
         step, _ = build_step(arch, "prefill", mesh, shape=ShapeSpec("p", S, B, "prefill"), **kw)
         res = step.gather(step.fn(*step.shard((params, data["prefill"], tables))))
         out["prefill"] = {"logits": res[0], "caches": res[1]}
@@ -153,7 +166,8 @@ def runs(tmp_path_factory):
                    root / f"in_{arch}.pt")
         inputs[arch] = (jmodel, jparams, train_b, pre_b, tokens)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    args = [str(SEQ), str(BATCH), str(CACHE), str(STEPS), ",".join(ARCHS)]
+    args = [str(SEQ), str(BATCH), str(CACHE), str(STEPS), ",".join(ARCHS),
+            ",".join(REMAT_TWINS), REMAT_MESH]
     for rank in range(4):
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(rank), str(root), *args], cwd=ROOT,
@@ -214,6 +228,24 @@ def test_the_sharded_train_step_is_the_references(runs, arch, mesh):
     assert len(m) == len(ref["grads"])
     for i, (mi, g) in enumerate(zip(m, ref["grads"])):
         _close(mi / ((1 - B1) * scale), g, f"grad leaf {i}")
+
+
+@pytest.mark.parametrize("arch", REMAT_TWINS)
+def test_the_sharded_remat_step_is_the_step_without_remat(runs, arch):
+    """The recompute runs under the forward's steering: the step with remat
+    gives what the step that keeps every activation gives, bit for bit
+    expected, else within 1e-6 (PERF.md §2's parity rule)."""
+    root, _ = runs
+    out = torch.load(root / f"out_{arch}_{REMAT_MESH}.pt")
+    assert out["train"]["remat"]
+    pair = out["train_no_remat"]
+    got, want = _leaves(pair["with"]), _leaves(pair["without"])
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, i
+        if not torch.equal(g, w):
+            err = float((g.double() - w.double()).abs().max())
+            assert err <= 1e-6, (i, err)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
